@@ -1,0 +1,63 @@
+"""Flax UNet parameters -> a ``state_dict`` of :class:`UNetModel`.
+
+The torch modules carry the flax scope names, so each leaf maps by its path:
+
+- conv ``kernel`` (kh, kw, in, out) HWIO -> ``weight`` (out, in, kh, kw) OIHW;
+- ``Dense`` ``kernel`` (in, out) -> ``weight`` (out, in);
+- GroupNorm ``scale``/``bias`` -> ``weight``/``bias``; ``Embed``
+  ``embedding`` -> ``weight``;
+- attention ``qkv_kernel`` (C, 3, H, D), ``qkv_bias`` (3, H, D) and
+  ``proj_kernel`` (H, D, C) are flattened in [k][h][d] order, exactly as the
+  JAX AttentionBlock flattens them for its block kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+_ATTN_LEAVES = {
+    "qkv_kernel": ("qkv_weight", lambda a: a.reshape(a.shape[0], -1)),
+    "qkv_bias": ("qkv_bias", lambda a: a.reshape(-1)),
+    "proj_kernel": ("proj_weight", lambda a: a.reshape(-1, a.shape[-1])),
+    "proj_bias": ("proj_bias", lambda a: a),
+}
+
+
+def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v, dtype=np.float32)
+
+
+def _convert_leaf(name: str, a: np.ndarray) -> Tuple[str, np.ndarray]:
+    if name in _ATTN_LEAVES:
+        new, f = _ATTN_LEAVES[name]
+        return new, f(a)
+    if name == "kernel":
+        if a.ndim == 4:
+            return "weight", a.transpose(3, 2, 0, 1)
+        if a.ndim == 2:
+            return "weight", a.T
+        raise ValueError(f"unexpected kernel of rank {a.ndim}")
+    if name in ("scale", "embedding"):
+        return "weight", a
+    if name == "bias":
+        return "bias", a
+    raise ValueError(f"unknown flax parameter {name!r}")
+
+
+def unet_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``params``: the flax ``params`` collection as nested dicts of arrays.
+    Returns float32 CPU tensors keyed like ``UNetModel.state_dict()``; load
+    them with ``model.load_state_dict(..., strict=True)``."""
+    out = {}
+    for path, a in _leaves(params):
+        name, value = _convert_leaf(path[-1], a)
+        out[".".join(path[:-1] + (name,))] = torch.from_numpy(np.ascontiguousarray(value))
+    return out

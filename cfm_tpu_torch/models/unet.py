@@ -1,0 +1,456 @@
+"""Guided-diffusion UNet in PyTorch, NHWC at its boundary.
+
+Counterpart of ``cfm_tpu/models/unet.py`` (``UNetModel``,
+``UNetModelWrapper`` and their layers). Same function, same dtype policy:
+
+- Activations are NHWC ``(N, H, W, C)`` like the JAX package. A convolution
+  views its NHWC input as an NCHW tensor in ``torch.channels_last`` memory
+  format (a free permute), which is the layout cuDNN is fastest in, and
+  permutes its output back.
+- ``dtype`` is the compute dtype, parameters stay float32 (flax's
+  ``dtype``/``param_dtype``): convolutions and the ResBlock ``Dense`` cast
+  their inputs and parameters to it; the time-embedding ``Dense`` pair runs
+  in float32; GroupNorm computes in float32 and returns its input's dtype;
+  the final GroupNorm runs on the input dtype and the final zero conv in
+  float32.
+- Convolutions pad like XLA's ``SAME``: symmetric at stride 1, but (0, 1) on
+  each spatial axis for the stride-2 ``Downsample`` conv on even sizes.
+- Submodules carry the flax scope names (``down1_attn0``, ``mid_res0``,
+  ``Conv_0``, ``Dense_1``, ...), so ``models/convert.py`` maps a flax
+  parameter tree onto ``state_dict`` keys mechanically.
+- Attention blocks whose shape passes :func:`use_fused_block` go through
+  :func:`~cfm_tpu_torch.ops.attn_block.fused_attention_block` (the Hopper
+  kernel on CUDA); the others, such as ``mid_attn`` at 4x4, take the plain
+  composition, as in the JAX package.
+- Eval mode only in this slice: ``train=True`` raises until dropout
+  (``FastDropout``) and the backward kernels are ported.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from cfm_tpu_torch.device import DeviceLike, resolve_device
+from cfm_tpu_torch.ops.attention import attention_t
+from cfm_tpu_torch.ops.attn_block import fused_attention_block, use_fused_block
+from cfm_tpu_torch.ops.groupnorm import gn_silu_reference
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int,
+                       max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal embedding, cos half then sin half: (N,) -> (N, dim) f32."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32, device=timesteps.device) / half)
+    args = timesteps.float()[:, None] * freqs[None, :]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
+
+
+def gn_groups(channels: int, num_groups: int = 32) -> int:
+    """The largest group count <= ``num_groups`` that divides ``channels``."""
+    groups = min(num_groups, channels)
+    while channels % groups:
+        groups -= 1
+    return groups
+
+
+def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
+    """XLA ``SAME`` padding of one axis: the odd cell goes to the high side."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+class GroupNorm32(nn.Module):
+    """GroupNorm with float32 statistics, optionally followed by SiLU."""
+
+    def __init__(self, channels: int, fuse_silu: bool = False):
+        super().__init__()
+        self.groups = gn_groups(channels)
+        self.fuse_silu = fuse_silu
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return gn_silu_reference(x, self.weight, self.bias, self.groups, 1e-5, self.fuse_silu)
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` with ``SAME`` padding on NHWC input; weight OIHW."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1,
+                 dtype: torch.dtype = torch.float32, zero_init: bool = False):
+        super().__init__()
+        self.stride, self.dtype, self.zero_init = stride, dtype, zero_init
+        self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.weight.shape[-1]
+        xt = x.to(self.dtype).permute(0, 3, 1, 2)  # NCHW view, channels_last memory
+        ph = _same_pads(xt.shape[2], k, self.stride)
+        pw = _same_pads(xt.shape[3], k, self.stride)
+        padding = (ph[0], pw[0])
+        if ph[0] != ph[1] or pw[0] != pw[1]:
+            xt = F.pad(xt, (pw[0], pw[1], ph[0], ph[1]))
+            padding = (0, 0)
+        y = F.conv2d(xt, self.weight.to(self.dtype), self.bias.to(self.dtype),
+                     stride=self.stride, padding=padding)
+        return y.permute(0, 2, 3, 1)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense`` computing in ``dtype``; weight (out, in) as in torch."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.zeros(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype))
+
+
+def _upsample_nearest(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour resize to exactly twice the size: a repeat."""
+    n, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c).reshape(n, 2 * h, 2 * w, c)
+
+
+def _avg_pool(x: torch.Tensor) -> torch.Tensor:
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), 2, stride=2).permute(0, 2, 3, 1)
+
+
+class Upsample(nn.Module):
+    """2x nearest-neighbour upsample, then a 3x3 conv if ``use_conv``."""
+
+    def __init__(self, use_conv: bool, channels: int, out_channels: int, dtype: torch.dtype):
+        super().__init__()
+        if use_conv:
+            self.Conv_0 = Conv(channels, out_channels, 3, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _upsample_nearest(x)
+        return self.Conv_0(x) if hasattr(self, "Conv_0") else x
+
+
+class Downsample(nn.Module):
+    """Stride-2 3x3 conv if ``use_conv``, else 2x2 average pooling."""
+
+    def __init__(self, use_conv: bool, channels: int, out_channels: int, dtype: torch.dtype):
+        super().__init__()
+        if use_conv:
+            self.Conv_0 = Conv(channels, out_channels, 3, stride=2, dtype=dtype)
+        elif out_channels != channels:
+            raise ValueError("average-pool downsampling keeps the channel count")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.Conv_0(x) if hasattr(self, "Conv_0") else _avg_pool(x)
+
+
+class ResBlock(nn.Module):
+    """Residual block conditioned on the timestep embedding."""
+
+    def __init__(self, channels: int, out_channels: int, emb_dim: int,
+                 use_scale_shift_norm: bool = False, up: bool = False, down: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.use_scale_shift_norm, self.up, self.down = use_scale_shift_norm, up, down
+        self.GroupNorm32_0 = GroupNorm32(channels, fuse_silu=True)
+        self.Conv_0 = Conv(channels, out_channels, 3, dtype=dtype)
+        self.Dense_0 = Dense(emb_dim, (2 if use_scale_shift_norm else 1) * out_channels, dtype)
+        self.GroupNorm32_1 = GroupNorm32(out_channels, fuse_silu=not use_scale_shift_norm)
+        self.Conv_1 = Conv(out_channels, out_channels, 3, dtype=dtype, zero_init=True)
+        if out_channels != channels:
+            self.Conv_2 = Conv(channels, out_channels, 1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        h = self.GroupNorm32_0(x)
+        if self.up:
+            h, x = _upsample_nearest(h), _upsample_nearest(x)
+        elif self.down:
+            h, x = _avg_pool(h), _avg_pool(x)
+        h = self.Conv_0(h)
+        emb_out = self.Dense_0(F.silu(emb))[:, None, None, :]
+        if self.use_scale_shift_norm:
+            scale, shift = emb_out.chunk(2, dim=-1)
+            h = F.silu(self.GroupNorm32_1(h) * (1 + scale) + shift)
+        else:
+            h = self.GroupNorm32_1(h + emb_out)
+        h = self.Conv_1(h)  # dropout sits before this conv; identity in eval mode
+        skip = self.Conv_2(x) if hasattr(self, "Conv_2") else x
+        return skip + h
+
+
+class AttentionBlock(nn.Module):
+    """Spatial self-attention over the H*W tokens, with a residual.
+
+    Parameters are stored flattened as the block kernel takes them:
+    ``qkv_weight`` (C, 3*H*D) and ``qkv_bias`` (3*H*D,) with columns in
+    [k][h][d] order, ``proj_weight`` (H*D, C) in [h][d] row order.
+    """
+
+    def __init__(self, channels: int, num_heads: int = 1, num_head_channels: int = -1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if num_head_channels == -1:
+            heads = num_heads
+        else:
+            if channels % num_head_channels:
+                raise ValueError(f"channels {channels} not divisible by "
+                                 f"num_head_channels {num_head_channels}")
+            heads = channels // num_head_channels
+        self.heads, self.head_dim, self.dtype = heads, channels // heads, dtype
+        hd = heads * self.head_dim
+        self.GroupNorm32_0 = GroupNorm32(channels)
+        self.qkv_weight = nn.Parameter(torch.zeros(channels, 3 * hd))
+        self.qkv_bias = nn.Parameter(torch.zeros(3 * hd))
+        self.proj_weight = nn.Parameter(torch.zeros(hd, channels))
+        self.proj_bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, hh, ww, c = x.shape
+        s, heads, d = hh * ww, self.heads, self.head_dim
+        gn = self.GroupNorm32_0
+        if use_fused_block(s, c, heads, x.dtype):
+            y = fused_attention_block(
+                x.reshape(n, s, c), gn.weight.reshape(1, c), gn.bias.reshape(1, c),
+                self.qkv_weight, self.qkv_bias.reshape(1, -1),
+                self.proj_weight, self.proj_bias.reshape(1, c), heads, gn.groups)
+            return y.reshape(n, hh, ww, c)
+        dt = self.dtype
+        tokens = gn(x).reshape(n, s, c)
+        qkv = tokens.to(dt) @ self.qkv_weight.to(dt) + self.qkv_bias.to(dt)
+        qkv_t = qkv.reshape(n, s, 3, heads, d).permute(0, 2, 3, 1, 4)  # (N, 3, H, S, D)
+        out_t = attention_t(qkv_t, 1.0 / math.sqrt(d))                   # (N, H, S, D)
+        out = out_t.permute(0, 2, 1, 3).reshape(n, s, heads * d)
+        out = out @ self.proj_weight.to(dt) + self.proj_bias.to(dt)
+        return x + out.reshape(n, hh, ww, c)
+
+
+class UNetModel(nn.Module):
+    """The UNet with attention and timestep embedding, NHWC in and out.
+
+    ``attention_resolutions`` holds downsample factors, as in the JAX
+    package. ``seed`` makes the initial parameters (flax's initialisers:
+    N(0, 1/fan_in) kernels, zero biases, zero-initialised output convs and
+    attention out-projections).
+    """
+
+    def __init__(self, in_channels: int, model_channels: int, out_channels: int,
+                 num_res_blocks: int, attention_resolutions: Sequence[int] = (),
+                 dropout: float = 0.0, channel_mult: Sequence[float] = (1, 2, 4, 8),
+                 conv_resample: bool = True, num_classes: Optional[int] = None,
+                 num_heads: int = 1, num_head_channels: int = -1,
+                 num_heads_upsample: int = -1, use_scale_shift_norm: bool = False,
+                 resblock_updown: bool = False, dtype: torch.dtype = torch.float32,
+                 seed: int = 0):
+        super().__init__()
+        self.model_channels, self.num_classes, self.dtype = model_channels, num_classes, dtype
+        emb_dim = 4 * model_channels
+        heads_up = num_heads if num_heads_upsample == -1 else num_heads_upsample
+
+        def res(name, c_in, c_out, **kw):
+            self.add_module(name, ResBlock(c_in, c_out, emb_dim, use_scale_shift_norm,
+                                           dtype=dtype, **kw))
+            return name
+
+        def attn(name, c, heads):
+            self.add_module(name, AttentionBlock(c, heads, num_head_channels, dtype))
+            return name
+
+        self.Dense_0 = Dense(model_channels, emb_dim)
+        self.Dense_1 = Dense(emb_dim, emb_dim)
+        if num_classes is not None:
+            self.Embed_0 = nn.Embedding(num_classes, emb_dim)
+        ch = int(channel_mult[0] * model_channels)
+        self.Conv_0 = Conv(in_channels, ch, 3, dtype=dtype)
+
+        # Each input block's output is pushed as a skip; each output block
+        # first concatenates the last skip on the channel axis.
+        self._input_blocks: List[List[str]] = []
+        skip_ch = [ch]
+        ds = 1
+        for level, mult in enumerate(channel_mult):
+            for i in range(num_res_blocks):
+                c_out = int(mult * model_channels)
+                block = [res(f"down{level}_res{i}", ch, c_out)]
+                ch = c_out
+                if ds in attention_resolutions:
+                    block.append(attn(f"down{level}_attn{i}", ch, num_heads))
+                self._input_blocks.append(block)
+                skip_ch.append(ch)
+            if level != len(channel_mult) - 1:
+                if resblock_updown:
+                    name = res(f"down{level}_downres", ch, ch, down=True)
+                else:
+                    name = f"down{level}_down"
+                    self.add_module(name, Downsample(conv_resample, ch, ch, dtype))
+                self._input_blocks.append([name])
+                skip_ch.append(ch)
+                ds *= 2
+
+        self._middle = [res("mid_res0", ch, ch), attn("mid_attn", ch, num_heads),
+                        res("mid_res1", ch, ch)]
+
+        self._output_blocks: List[List[str]] = []
+        for level, mult in list(enumerate(channel_mult))[::-1]:
+            for i in range(num_res_blocks + 1):
+                c_out = int(mult * model_channels)
+                block = [res(f"up{level}_res{i}", ch + skip_ch.pop(), c_out)]
+                ch = c_out
+                if ds in attention_resolutions:
+                    block.append(attn(f"up{level}_attn{i}", ch, heads_up))
+                if level and i == num_res_blocks:
+                    if resblock_updown:
+                        block.append(res(f"up{level}_upres", ch, ch, up=True))
+                    else:
+                        name = f"up{level}_up"
+                        self.add_module(name, Upsample(conv_resample, ch, ch, dtype))
+                        block.append(name)
+                    ds //= 2
+                self._output_blocks.append(block)
+
+        self.GroupNorm32_0 = GroupNorm32(ch, fuse_silu=True)
+        self.Conv_1 = Conv(ch, out_channels, 3, dtype=torch.float32, zero_init=True)
+        self.reset_parameters(torch.Generator().manual_seed(seed))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """flax's initialisers, drawn from ``generator`` (a CPU generator)."""
+        def normal_(p, std):
+            p.copy_(torch.randn(p.shape, generator=generator) * std)
+
+        for m in self.modules():
+            if isinstance(m, (Conv, Dense)):
+                if getattr(m, "zero_init", False):
+                    m.weight.zero_()
+                else:
+                    normal_(m.weight, m.weight[0].numel() ** -0.5)
+                m.bias.zero_()
+            elif isinstance(m, GroupNorm32):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, AttentionBlock):
+                normal_(m.qkv_weight, m.qkv_weight.shape[0] ** -0.5)
+                for p in (m.qkv_bias, m.proj_weight, m.proj_bias):
+                    p.zero_()
+            elif isinstance(m, nn.Embedding):
+                normal_(m.weight, 1.0)
+
+    def _run(self, name: str, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        m = getattr(self, name)
+        return m(h, emb) if isinstance(m, ResBlock) else m(h)
+
+    def forward(self, t, x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
+                train: bool = False) -> torch.Tensor:
+        """t: scalar or (N,); x: (N, H, W, in_channels) -> (N, H, W, out_channels)."""
+        if train:
+            raise NotImplementedError(
+                "train=True needs dropout (FastDropout) and the backward kernels, "
+                "which come with the training slice of the port")
+        if (y is not None) != (self.num_classes is not None):
+            raise ValueError("must specify y iff the model is class-conditional")
+        t = torch.as_tensor(t, device=x.device)
+        if t.ndim == 0:
+            t = t.expand(x.shape[0])
+        emb = timestep_embedding(t, self.model_channels)
+        emb = self.Dense_1(F.silu(self.Dense_0(emb)))
+        if self.num_classes is not None:
+            emb = emb + self.Embed_0(y)
+
+        in_dtype = x.dtype
+        h = self.Conv_0(x.to(self.dtype))
+        hs = [h]
+        for block in self._input_blocks:
+            for name in block:
+                h = self._run(name, h, emb)
+            hs.append(h)
+        for name in self._middle:
+            h = self._run(name, h, emb)
+        for block in self._output_blocks:
+            h = torch.cat([h, hs.pop()], dim=-1)
+            for name in block:
+                h = self._run(name, h, emb)
+        h = self.GroupNorm32_0(h.to(in_dtype))
+        return self.Conv_1(h)
+
+
+_DEFAULT_CHANNEL_MULT = {
+    512: (0.5, 1, 1, 2, 2, 4, 4),
+    256: (1, 1, 2, 2, 4, 4),
+    128: (1, 1, 2, 3, 4),
+    64: (1, 2, 3, 4),
+    32: (1, 2, 2, 2),
+    28: (1, 2, 2),
+}
+
+NUM_CLASSES = 1000
+
+
+def UNetModelWrapper(
+    dim: Tuple[int, int, int],
+    num_channels: int,
+    num_res_blocks: int,
+    channel_mult: Optional[Sequence[float]] = None,
+    learn_sigma: bool = False,
+    class_cond: bool = False,
+    num_classes: int = NUM_CLASSES,
+    attention_resolutions: str = "16",
+    num_heads: int = 1,
+    num_head_channels: int = -1,
+    num_heads_upsample: int = -1,
+    use_scale_shift_norm: bool = False,
+    dropout: float = 0.0,
+    resblock_updown: bool = False,
+    dtype: torch.dtype = torch.float32,
+    seed: int = 0,
+    device: DeviceLike = None,
+) -> UNetModel:
+    """Build a :class:`UNetModel` from image-level settings, on ``device``
+    (``cuda`` unless ``device="cpu"`` is asked for).
+
+    ``dim`` is ``(H, W, C)``; a ``(C, H, W)`` tuple with C in (1, 3) is
+    recognised. ``attention_resolutions`` is a comma-separated string of
+    feature-map sizes (``"16"`` on 32x32 images = downsample factor 2).
+    """
+    device = resolve_device(device)
+    if len(dim) != 3:
+        raise ValueError(f"dim must be (H, W, C), got {dim}")
+    if dim[0] in (1, 3) and dim[-1] not in (1, 3):
+        dim = (dim[1], dim[2], dim[0])
+    image_size, in_channels = dim[0], dim[2]
+    if channel_mult is None:
+        try:
+            channel_mult = _DEFAULT_CHANNEL_MULT[image_size]
+        except KeyError:
+            raise ValueError(f"unsupported image size: {image_size}") from None
+    attention_ds = tuple(image_size // int(r) for r in str(attention_resolutions).split(","))
+    model = UNetModel(
+        in_channels=in_channels,
+        model_channels=num_channels,
+        out_channels=in_channels * (2 if learn_sigma else 1),
+        num_res_blocks=num_res_blocks,
+        attention_resolutions=attention_ds,
+        dropout=dropout,
+        channel_mult=tuple(channel_mult),
+        num_classes=num_classes if class_cond else None,
+        num_heads=num_heads,
+        num_head_channels=num_head_channels,
+        num_heads_upsample=num_heads_upsample,
+        use_scale_shift_norm=use_scale_shift_norm,
+        resblock_updown=resblock_updown,
+        dtype=dtype,
+        seed=seed,
+    )
+    return model.to(device).eval()

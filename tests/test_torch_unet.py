@@ -1,0 +1,211 @@
+"""The port's UNet (cfm_tpu_torch/models/unet.py, convert.py) against flax.
+
+The forward runs at a small configuration that keeps the CIFAR-10 recipe's
+routing: at 8x8 with C=128 the attention blocks pass the fused-block gate
+(the JAX side runs its block kernel in Pallas interpret mode, the port its
+plain version), while ``mid_attn`` at 4x4 (S=16) takes the composition on
+both sides. Every parameter, zero-initialised ones included, is randomised.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cfm_tpu.models import unet as junet
+from cfm_tpu.ops import pallas_attn_block as pab
+from cfm_tpu.ops.pallas_groupnorm import _gn_silu_reference
+from cfm_tpu_torch.models import unet as tunet
+from cfm_tpu_torch.models.convert import unet_params_from_flax
+from cfm_tpu_torch.ops.groupnorm import gn_silu_reference
+
+SMALL = dict(dim=(16, 16, 3), num_channels=64, num_res_blocks=1, channel_mult=(1, 2, 2),
+             num_heads=4, num_head_channels=64, attention_resolutions="8")
+
+
+def random_flax_params(m, *init_args, seed=0):
+    """A random parameter tree of the flax module ``m``, drawn with numpy on
+    the tree's shapes: kernels N(0, 1/fan_in), GroupNorm scales 1 + N(0,
+    0.01), everything else (biases, zero-initialised layers) N(0, 0.01)."""
+    shapes = jax.eval_shape(m.init, jax.random.PRNGKey(0), *init_args)["params"]
+    rng = np.random.default_rng(seed)
+
+    def draw(path, s):
+        name = path[-1].key
+        z = rng.standard_normal(s.shape)
+        if name.endswith("kernel") and name != "proj_kernel":
+            z = z / np.sqrt(np.prod(s.shape[:-1]) if name == "kernel" else s.shape[0])
+        else:
+            z = (1.0 if name == "scale" else 0.0) + 0.1 * z
+        return z.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def _flax_params(cfg, jdtype, seed=0):
+    m = junet.UNetModelWrapper(**cfg, dtype=jdtype)
+    return m, random_flax_params(m, jnp.zeros((1,)), jnp.zeros((1,) + cfg["dim"]), seed=seed)
+
+
+def _port_model(cfg, tdtype, params):
+    model = tunet.UNetModelWrapper(**cfg, dtype=tdtype, device="cpu")
+    model.load_state_dict(unet_params_from_flax(params), strict=True)
+    return model
+
+
+@pytest.mark.parametrize("dtype,tol", [("f32", 1e-4), ("bf16", 3e-2)])
+def test_unet_forward_matches_flax(monkeypatch, dtype, tol):
+    """f32 at 1e-4 (summation order only); bf16 at 3e-2 of the output's
+    scale, since convs, matmuls and adds round to bf16 at each layer and the
+    two frameworks round some of them at other points."""
+    monkeypatch.setattr(pab, "INTERPRET", True)
+    jdtype, tdtype = {"f32": (jnp.float32, torch.float32),
+                      "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    m, params = _flax_params(SMALL, jdtype)
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 16, 16, 3)).astype(np.float32)
+    t = np.array([0.2, 0.7], np.float32)
+    y_jax = np.asarray(m.apply({"params": params}, jnp.asarray(t), jnp.asarray(x)), np.float32)
+    model = _port_model(SMALL, tdtype, params)
+    assert [n for n, mod in model.named_modules()
+            if isinstance(mod, tunet.AttentionBlock)] == [
+        "down1_attn0", "mid_attn", "up1_attn0", "up1_attn1"]
+    with torch.no_grad():
+        y = model(torch.from_numpy(t), torch.from_numpy(x))
+    assert y.dtype == torch.float32 and y.shape == (2, 16, 16, 3)
+    scale = np.abs(y_jax).max()
+    np.testing.assert_allclose(y.numpy() / scale, y_jax / scale, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("variant", [
+    dict(use_scale_shift_norm=True),
+    dict(resblock_updown=True),
+    dict(class_cond=True, num_classes=5),
+    dict(num_head_channels=-1, num_heads=2, learn_sigma=True),
+])
+def test_unet_variants_match_flax(variant):
+    """The UNetModel options outside the recipe, in f32 at 1e-4, on a tiny
+    configuration whose attention takes the composition."""
+    cfg = dict(dim=(8, 8, 3), num_channels=16, num_res_blocks=1, channel_mult=(1, 2),
+               num_head_channels=8, attention_resolutions="4")
+    cfg.update(variant)
+    m = junet.UNetModelWrapper(**cfg)
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 8, 8, 3)).astype(np.float32)
+    t = np.array([0.3, 0.9], np.float32)
+    extra_j, extra_t = (), ()
+    if cfg.get("class_cond"):
+        extra_j, extra_t = (jnp.array([1, 4]),), (torch.tensor([1, 4]),)
+    params = random_flax_params(m, jnp.asarray(t), jnp.asarray(x), *extra_j)
+    y_jax = np.asarray(m.apply({"params": params}, jnp.asarray(t), jnp.asarray(x), *extra_j))
+    model = _port_model(cfg, torch.float32, params)
+    with torch.no_grad():
+        y = model(torch.from_numpy(t), torch.from_numpy(x), *extra_t).numpy()
+    scale = np.abs(y_jax).max()
+    np.testing.assert_allclose(y / scale, y_jax / scale, atol=1e-4, rtol=1e-4)
+
+
+def test_converter_round_trip():
+    """Every flax leaf lands on exactly one state_dict entry, with the layout
+    the torch module expects, and back."""
+    _, params = _flax_params(SMALL, jnp.float32)
+    sd = unet_params_from_flax(params)
+    model = tunet.UNetModelWrapper(**SMALL, device="cpu")
+    assert set(sd) == set(model.state_dict())
+    assert all(sd[k].shape == v.shape for k, v in model.state_dict().items())
+    n_leaves = len(jax.tree_util.tree_leaves(params))
+    assert len(sd) == n_leaves
+    p = params
+    # conv HWIO -> OIHW, Dense (in, out) -> (out, in)
+    np.testing.assert_array_equal(sd["Conv_0.weight"].numpy().transpose(2, 3, 1, 0),
+                                  p["Conv_0"]["kernel"])
+    np.testing.assert_array_equal(sd["down0_res0.Dense_0.weight"].numpy().T,
+                                  p["down0_res0"]["Dense_0"]["kernel"])
+    np.testing.assert_array_equal(sd["down1_down.Conv_0.bias"].numpy(),
+                                  p["down1_down"]["Conv_0"]["bias"])
+    np.testing.assert_array_equal(sd["mid_attn.GroupNorm32_0.weight"].numpy(),
+                                  p["mid_attn"]["GroupNorm32_0"]["scale"])
+    # attention: [k][h][d] column order, as the JAX block kernel takes it
+    a = p["down1_attn0"]
+    C, _, H, D = a["qkv_kernel"].shape
+    wq = sd["down1_attn0.qkv_weight"].numpy()
+    for k, h in ((0, 0), (1, 1), (2, H - 1)):
+        np.testing.assert_array_equal(wq[:, (k * H + h) * D:(k * H + h + 1) * D],
+                                      a["qkv_kernel"][:, k, h, :])
+    np.testing.assert_array_equal(sd["down1_attn0.qkv_bias"].numpy().reshape(3, H, D),
+                                  a["qkv_bias"])
+    np.testing.assert_array_equal(sd["down1_attn0.proj_weight"].numpy().reshape(H, D, C),
+                                  a["proj_kernel"])
+
+
+def test_downsample_pads_like_xla_same():
+    """Stride-2 3x3 conv at 32->16 pads (0, 1), not torch's (1, 1)."""
+    import flax.linen as nn
+
+    assert tunet._same_pads(32, 3, 2) == (0, 1)
+    assert tunet._same_pads(16, 3, 1) == (1, 1)
+    assert tunet._same_pads(7, 3, 2) == (1, 1)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 32, 32, 4)).astype(np.float32)
+    conv = nn.Conv(5, (3, 3), strides=(2, 2), padding="SAME")
+    params = conv.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    params = {"kernel": np.asarray(params["kernel"]),
+              "bias": rng.standard_normal(5).astype(np.float32)}
+    y_jax = np.asarray(conv.apply({"params": params}, jnp.asarray(x)))
+    down = tunet.Downsample(True, 4, 5, torch.float32)
+    down.load_state_dict(unet_params_from_flax({"Conv_0": params}))
+    with torch.no_grad():
+        y = down(torch.from_numpy(x)).numpy()
+    assert y.shape == (2, 16, 16, 5)
+    np.testing.assert_allclose(y, y_jax, atol=1e-5, rtol=1e-5)
+    sym = torch.nn.functional.conv2d(torch.from_numpy(x).permute(0, 3, 1, 2),
+                                     down.Conv_0.weight, down.Conv_0.bias, stride=2, padding=1)
+    assert not np.allclose(sym.permute(0, 2, 3, 1).detach().numpy(), y_jax, atol=1e-3)
+
+
+@pytest.mark.parametrize("c,groups", [(48, 24), (256, 32), (64, 32), (3, 3), (96, 32), (20, 20)])
+def test_group_norm_groups_and_values(c, groups):
+    assert tunet.gn_groups(c) == groups
+    rng = np.random.default_rng(4)
+    x = (3.0 + rng.standard_normal((2, 4, 4, c))).astype(np.float32)
+    scale = rng.standard_normal(c).astype(np.float32)
+    bias = rng.standard_normal(c).astype(np.float32)
+    gn = junet.GroupNorm32(fuse_silu=True)
+    y_jax = gn.apply({"params": {"scale": scale, "bias": bias}}, jnp.asarray(x))
+    port = tunet.GroupNorm32(c, fuse_silu=True)
+    port.load_state_dict({"weight": torch.from_numpy(scale), "bias": torch.from_numpy(bias)})
+    with torch.no_grad():
+        y = port(torch.from_numpy(x))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_jax), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("silu", [False, True])
+def test_gn_silu_reference_matches_jax_bf16(silu):
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 8, 8, 64)).astype(np.float32)
+    scale = rng.standard_normal(64).astype(np.float32)
+    bias = rng.standard_normal(64).astype(np.float32)
+    y_jax = _gn_silu_reference(jnp.asarray(x, jnp.bfloat16), jnp.asarray(scale),
+                               jnp.asarray(bias), 32, 1e-5, silu)
+    y = gn_silu_reference(torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(scale),
+                          torch.from_numpy(bias), 32, 1e-5, silu)
+    assert y.dtype == torch.bfloat16
+    # one bf16 rounding of the same f32 value; a tie may flip by one ulp
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(y_jax, np.float32),
+                               atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("dim", [64, 33])
+def test_timestep_embedding_matches_jax(dim):
+    t = np.array([0.0, 0.25, 0.5, 1.0], np.float32)
+    ref = np.asarray(junet.timestep_embedding(jnp.asarray(t), dim))
+    out = tunet.timestep_embedding(torch.from_numpy(t), dim).numpy()
+    assert out.shape == (4, dim)
+    np.testing.assert_allclose(out, ref, atol=1e-6, rtol=1e-6)
+
+
+def test_train_mode_raises():
+    model = tunet.UNetModelWrapper(**SMALL, device="cpu")
+    with pytest.raises(NotImplementedError, match="training slice"):
+        model(torch.zeros(1), torch.zeros(1, 16, 16, 3), train=True)
