@@ -1,0 +1,134 @@
+"""Configuration: the fields the trainer's image branch reads, the CIFAR-10
+presets and dotted ``key=value`` overrides (counterpart of
+``cfm_tpu/config.py``).
+
+``load_config("cifar10_otcfm", ["optim.lr=1e-4", "trainer.total_steps=1000"])``
+
+The other presets, YAML files and the debug overlays wait for ROADMAP.md
+queue 1 item 9.
+"""
+
+from __future__ import annotations
+
+import ast
+from dataclasses import dataclass, field
+from typing import Any, Optional, Sequence, Tuple
+
+
+@dataclass
+class ModelConfig:
+    kind: str = "unet"
+    image_dim: Tuple[int, int, int] = (32, 32, 3)   # (H, W, C)
+    num_channels: int = 128
+    num_res_blocks: int = 2
+    channel_mult: Optional[Tuple[float, ...]] = None
+    num_heads: int = 4
+    num_head_channels: int = 64
+    attention_resolutions: str = "16"
+    dropout: float = 0.1
+    use_scale_shift_norm: bool = False
+    resblock_updown: bool = False
+    class_cond: bool = False         # not ported: the trainer raises
+    bf16: bool = True
+
+
+@dataclass
+class MatcherConfig:
+    kind: str = "otcfm"              # icfm | otcfm
+    sigma: float = 0.0
+
+
+@dataclass
+class DataConfig:
+    dataset: str = "cifar10"         # cifar10 | mnist
+    data_dir: str = "data"
+    batch_size: int = 128
+    synthetic_fallback: bool = True  # the synthetic set when none is on disk
+    random_flip: bool = True
+    # The whole uint8 set on the card, batches gathered per step.
+    on_device: bool = True
+
+
+@dataclass
+class OptimConfig:
+    lr: float = 2e-4
+    warmup_steps: int = 5000
+    grad_clip: float = 1.0
+    ema_decay: float = 0.9999
+    weight_decay: float = 0.0
+
+
+@dataclass
+class TrainerConfig:
+    total_steps: int = 400001
+    seed: int = 0
+    log_interval: int = 100
+    eval_interval: int = 5000        # evaluation is not ported: fit raises if it is due
+    ckpt_interval: int = 20000       # checkpointing is not ported: fit raises if one is due
+    data_parallel: bool = True       # the mesh is not ported: raises with more than one card
+
+
+@dataclass
+class Config:
+    name: str = "experiment"
+    model: ModelConfig = field(default_factory=ModelConfig)
+    matcher: MatcherConfig = field(default_factory=MatcherConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    trainer: TrainerConfig = field(default_factory=TrainerConfig)
+
+
+def _preset_cifar10(matcher: str) -> Config:
+    """The reference headline recipe, as ``cfm_tpu/config.py:_preset_cifar10``."""
+    return Config(
+        name=f"cifar10_{matcher}",
+        model=ModelConfig(kind="unet", image_dim=(32, 32, 3), num_channels=128,
+                          num_res_blocks=2, channel_mult=(1, 2, 2, 2), num_heads=4,
+                          num_head_channels=64, attention_resolutions="16", dropout=0.1),
+        matcher=MatcherConfig(kind=matcher, sigma=0.0),
+        data=DataConfig(dataset="cifar10", batch_size=128),
+        optim=OptimConfig(lr=2e-4, warmup_steps=5000, grad_clip=1.0, ema_decay=0.9999),
+        trainer=TrainerConfig(total_steps=400001, ckpt_interval=20000),
+    )
+
+
+PRESETS = {"cifar10_icfm": lambda: _preset_cifar10("icfm"),
+           "cifar10_otcfm": lambda: _preset_cifar10("otcfm")}
+
+
+def load_config(preset: Optional[str] = None, overrides: Sequence[str] = ()) -> Config:
+    """A preset with ``group.field=value`` overrides (values literal-eval'd)."""
+    if preset is not None and preset not in PRESETS:
+        raise NotImplementedError(f"preset {preset!r} is not ported yet (ROADMAP.md queue 1 "
+                                  f"item 9); the port has {sorted(PRESETS)}")
+    cfg = PRESETS[preset]() if preset else Config()
+    for ov in overrides:
+        if "=" not in ov:
+            raise ValueError(f"Override must be key=value, got {ov!r}")
+        path, raw = (s.strip() for s in ov.split("=", 1))
+        try:
+            value = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            value = raw  # bare string
+        _apply_value(cfg, path, value)
+    return cfg
+
+
+def _apply_value(cfg: Any, path: str, value: Any) -> None:
+    *groups, leaf = path.split(".")
+    obj = cfg
+    for p in groups:
+        if not hasattr(obj, p):
+            raise AttributeError(f"No config group {p!r} in {path!r}")
+        obj = getattr(obj, p)
+    if not hasattr(obj, leaf):
+        raise AttributeError(f"No config field {leaf!r} in {path!r}")
+    current = getattr(obj, leaf)
+    if current is not None and not isinstance(value, type(current)):
+        if isinstance(current, float) and isinstance(value, int):
+            value = float(value)
+        elif isinstance(current, tuple) and isinstance(value, (list, tuple)):
+            value = tuple(value)
+        elif isinstance(current, bool) and isinstance(value, str):
+            value = value.lower() in ("1", "true", "yes")
+    setattr(obj, leaf, value)

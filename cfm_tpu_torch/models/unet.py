@@ -22,8 +22,11 @@ Counterpart of ``cfm_tpu/models/unet.py`` (``UNetModel``,
   :func:`~cfm_tpu_torch.ops.attn_block.fused_attention_block` (the Hopper
   kernel on CUDA); the others, such as ``mid_attn`` at 4x4, take the plain
   composition, as in the JAX package.
-- Eval mode only in this slice: ``train=True`` raises until dropout
-  (``FastDropout``) and the backward kernels are ported.
+- ``train=True`` turns on ``FastDropout`` before each ResBlock's last conv,
+  with its uint8 masks drawn from the ``generator`` the caller passes (a CPU
+  generator on a CUDA model draws on the CPU and copies the masks over, which
+  is how a test gives two devices the same masks). Gradients through the
+  fused attention blocks take the backward kernel.
 """
 
 from __future__ import annotations
@@ -158,14 +161,45 @@ class Downsample(nn.Module):
         return self.Conv_0(x) if hasattr(self, "Conv_0") else _avg_pool(x)
 
 
+class FastDropout(nn.Module):
+    """Dropout from 8-bit draws, with the JAX package's semantics: the keep
+    probability is quantised to thr/256, thr = round((1 - rate) * 256)
+    clamped to [1, 255]; an element is kept where its uint8 draw is < thr and
+    scaled by 256/thr cast to x's dtype (so rounded in bf16). Rate 0 is the
+    identity, rate >= 1 gives zeros."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    @staticmethod
+    def threshold(rate: float) -> int:
+        return min(255, max(1, int(round((1.0 - rate) * 256.0))))
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not train or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        if generator is None:
+            raise ValueError("FastDropout in train mode needs a torch.Generator for its masks")
+        thr = self.threshold(self.rate)
+        bits = torch.randint(0, 256, x.shape, dtype=torch.uint8, generator=generator,
+                             device=generator.device).to(x.device)
+        scale = float(torch.tensor(256.0 / thr, dtype=x.dtype))  # the constant in x's dtype
+        return torch.where(bits < thr, x * scale, torch.zeros_like(x))
+
+
 class ResBlock(nn.Module):
     """Residual block conditioned on the timestep embedding."""
 
     def __init__(self, channels: int, out_channels: int, emb_dim: int,
                  use_scale_shift_norm: bool = False, up: bool = False, down: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.use_scale_shift_norm, self.up, self.down = use_scale_shift_norm, up, down
+        self.dropout = FastDropout(dropout)
         self.GroupNorm32_0 = GroupNorm32(channels, fuse_silu=True)
         self.Conv_0 = Conv(channels, out_channels, 3, dtype=dtype)
         self.Dense_0 = Dense(emb_dim, (2 if use_scale_shift_norm else 1) * out_channels, dtype)
@@ -174,7 +208,8 @@ class ResBlock(nn.Module):
         if out_channels != channels:
             self.Conv_2 = Conv(channels, out_channels, 1, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = self.GroupNorm32_0(x)
         if self.up:
             h, x = _upsample_nearest(h), _upsample_nearest(x)
@@ -187,7 +222,7 @@ class ResBlock(nn.Module):
             h = F.silu(self.GroupNorm32_1(h) * (1 + scale) + shift)
         else:
             h = self.GroupNorm32_1(h + emb_out)
-        h = self.Conv_1(h)  # dropout sits before this conv; identity in eval mode
+        h = self.Conv_1(self.dropout(h, train, generator))
         skip = self.Conv_2(x) if hasattr(self, "Conv_2") else x
         return skip + h
 
@@ -262,7 +297,7 @@ class UNetModel(nn.Module):
 
         def res(name, c_in, c_out, **kw):
             self.add_module(name, ResBlock(c_in, c_out, emb_dim, use_scale_shift_norm,
-                                           dtype=dtype, **kw))
+                                           dtype=dtype, dropout=dropout, **kw))
             return name
 
         def attn(name, c, heads):
@@ -348,17 +383,19 @@ class UNetModel(nn.Module):
             elif isinstance(m, nn.Embedding):
                 normal_(m.weight, 1.0)
 
-    def _run(self, name: str, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def _run(self, name: str, h: torch.Tensor, emb: torch.Tensor, train: bool,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
         m = getattr(self, name)
-        return m(h, emb) if isinstance(m, ResBlock) else m(h)
+        return m(h, emb, train, generator) if isinstance(m, ResBlock) else m(h)
 
     def forward(self, t, x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
-                train: bool = False) -> torch.Tensor:
-        """t: scalar or (N,); x: (N, H, W, in_channels) -> (N, H, W, out_channels)."""
-        if train:
-            raise NotImplementedError(
-                "train=True needs dropout (FastDropout) and the backward kernels, "
-                "which come with the training slice of the port")
+                train: bool = False, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """t: scalar or (N,); x: (N, H, W, in_channels) -> (N, H, W, out_channels).
+
+        ``train=True`` applies dropout, with masks drawn from ``generator``
+        in the order the ResBlocks run.
+        """
         if (y is not None) != (self.num_classes is not None):
             raise ValueError("must specify y iff the model is class-conditional")
         t = torch.as_tensor(t, device=x.device)
@@ -374,14 +411,14 @@ class UNetModel(nn.Module):
         hs = [h]
         for block in self._input_blocks:
             for name in block:
-                h = self._run(name, h, emb)
+                h = self._run(name, h, emb, train, generator)
             hs.append(h)
         for name in self._middle:
-            h = self._run(name, h, emb)
+            h = self._run(name, h, emb, train, generator)
         for block in self._output_blocks:
             h = torch.cat([h, hs.pop()], dim=-1)
             for name in block:
-                h = self._run(name, h, emb)
+                h = self._run(name, h, emb, train, generator)
         h = self.GroupNorm32_0(h.to(in_dtype))
         return self.Conv_1(h)
 

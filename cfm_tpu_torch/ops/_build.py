@@ -3,8 +3,9 @@
 Each source under ``cfm_tpu_torch/csrc/`` exposes a plain C interface and is
 compiled alone by ``nvcc`` into a shared library under ``build/cfm_tpu_torch/``
 at the repository root (``build/`` is git-ignored). The library's file name
-carries a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is. Nothing here runs at import: the
+carries a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is. Nothing here runs at import: the
 CPU tests import every module on a machine with no ``nvcc``.
 """
 
@@ -52,7 +53,9 @@ def build(name: str) -> Built:
     if name in _BUILT:
         return _BUILT[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{digest}.so"
     if out.exists():
         built = Built(out, "")

@@ -1,0 +1,100 @@
+"""Conditional probability paths and flow matchers (counterpart of
+``cfm_tpu/paths.py``): I-CFM and OT-CFM.
+
+Every sampling method takes an explicit ``torch.Generator``. The draws can
+also be handed in (``t=``, ``eps=``, ``plan_noise=``), which is how the
+tests give both packages the same numbers. With a generator, a coupled
+matcher draws the plan uniforms first, then t, then the path noise.
+
+The other matchers (Lipman FM, SB-CFM, VP) and the score-head pieces
+(``compute_lambda``, ``compute_score_target``) wait for ROADMAP.md queue 1
+item 6.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Optional, Union
+
+import torch
+
+from cfm_tpu_torch.coupling import OTPlanSampler
+from cfm_tpu_torch.utils import pad_t_like_x
+
+
+class ConditionalFlowMatcher:
+    """Independent-coupling CFM: path N(t x1 + (1-t) x0, sigma^2), u_t = x1 - x0."""
+
+    def __init__(self, sigma: Union[float, int] = 0.0):
+        self.sigma = sigma
+
+    def compute_mu_t(self, x0, x1, t):
+        t = pad_t_like_x(t, x0)
+        return t * x1 + (1 - t) * x0
+
+    def compute_sigma_t(self, t):
+        return self.sigma
+
+    def sample_xt(self, x0, x1, t, epsilon):
+        mu_t = self.compute_mu_t(x0, x1, t)
+        sigma_t = pad_t_like_x(self.compute_sigma_t(t), x0)
+        return mu_t + sigma_t * epsilon
+
+    def compute_conditional_flow(self, x0, x1, t, xt):
+        return x1 - x0
+
+    def sample_noise_like(self, generator: Optional[torch.Generator], x: torch.Tensor):
+        return torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+
+    def sample_location_and_conditional_flow(
+            self, generator: Optional[torch.Generator], x0: torch.Tensor, x1: torch.Tensor,
+            t: Optional[torch.Tensor] = None, return_noise: bool = False,
+            return_coupling_status: bool = False, eps: Optional[torch.Tensor] = None):
+        """(t, xt, ut[, eps][, degenerate]) for a training batch; t and eps
+        are drawn from ``generator`` unless given."""
+        if t is None:
+            t = torch.rand(x0.shape[0], generator=generator, device=x0.device, dtype=x0.dtype)
+        if t.shape[0] != x0.shape[0]:
+            raise ValueError("t has to have batch size dimension")
+        if eps is None:
+            eps = self.sample_noise_like(generator, x0)
+        xt = self.sample_xt(x0, x1, t, eps)
+        ut = self.compute_conditional_flow(x0, x1, t, xt)
+        out = (t, xt, ut, eps) if return_noise else (t, xt, ut)
+        if return_coupling_status:
+            out = out + (torch.zeros((), dtype=torch.bool, device=x0.device),)
+        return out
+
+
+class _CoupledMixin:
+    """Coupled sampling shared by the OT matchers."""
+
+    ot_sampler: OTPlanSampler
+
+    def without_coupling(self):
+        """A view of this matcher whose sampling skips the OT re-pairing."""
+        clone = copy.copy(self)
+        clone._skip_coupling = True
+        return clone
+
+    def sample_location_and_conditional_flow(
+            self, generator, x0, x1, t=None, return_noise: bool = False,
+            return_coupling_status: bool = False, eps=None, plan_noise=None):
+        """Coupled (t, xt, ut[, eps][, degenerate]); ``plan_noise`` are the
+        plan-sampling uniforms (see :meth:`OTPlanSampler.sample_map`)."""
+        if getattr(self, "_skip_coupling", False):
+            return ConditionalFlowMatcher.sample_location_and_conditional_flow(
+                self, generator, x0, x1, t, return_noise, return_coupling_status, eps)
+        x0, x1, bad = self.ot_sampler.sample_plan(generator, x0, x1, return_status=True,
+                                                  noise=plan_noise)
+        out = ConditionalFlowMatcher.sample_location_and_conditional_flow(
+            self, generator, x0, x1, t, return_noise, False, eps)
+        return out + (bad,) if return_coupling_status else out
+
+
+class ExactOptimalTransportConditionalFlowMatcher(_CoupledMixin, ConditionalFlowMatcher):
+    """OT-CFM: the I-CFM path on pairs re-drawn from the exact minibatch OT plan."""
+
+    def __init__(self, sigma: Union[float, int] = 0.0, solver: str = "auto"):
+        super().__init__(sigma)
+        self.ot_sampler = OTPlanSampler(method="exact", solver=solver)

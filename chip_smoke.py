@@ -9,26 +9,46 @@ a result:
 1. The card: ``nvidia-smi`` name and power limit, torch's device name and
    count. Refuses to run without CUDA.
 2. Builds every kernel from ``cfm_tpu_torch/csrc`` (one ``nvcc`` per
-   source, all at once) and prints the build time and ``ptxas`` register and
+   source, all at once: the attention-block forward and backward and the
+   auction) and prints the build time and ``ptxas`` register and
    shared-memory lines.
 3. Holds each kernel against its plain PyTorch version on the card, at the
-   shapes generation gives it and at a few others that take other branches
-   of the kernel, in float32 (TF32 off) and bfloat16.
-4. Times each kernel with CUDA events beside its plain version, one PyTorch
-   library call of the same function (a yardstick the port never calls)
-   and the bound (the larger of bytes over 3.35 TB/s and tensor-core FLOPs
-   over 989 TFLOP/s, the H100 SXM data-sheet peaks).
+   shapes the main paths give it and at others that take other branches:
+   the attention-block forward and backward in float32 (TF32 off) and
+   bfloat16 (the backward's bf16 limit shown to catch do and ds rounded to
+   bf16), and the auction's permutation, which must be identical, on
+   Gaussian, tied, duplicated and rank-1 costs up to n = 512, with its
+   assignment cost against scipy's.
+4. Times each kernel with CUDA events (the forward at the training and
+   the generation batch) beside its plain version, one PyTorch
+   library call of the same function where there is one (a yardstick the
+   port never calls; for the auction, scipy's solver on the host) and the
+   bound: the larger of bytes over 3.35 TB/s and operations over the peak
+   rate for their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32
+   without them; H100 SXM data-sheet peaks).
 5. Checks generation end to end on a small input: the same weights and
    noise on the card and on the CPU (plain versions) give uint8 images
-   within one level and the same NFE.
-6. The main path: generation at the CIFAR-10 recipe width (128 channels,
-   mult (1, 2, 2, 2), 2 res blocks, 4 heads x 64, attention at 16x16, bf16)
-   with random seeded weights, euler at 100 steps and dopri5 at rtol = atol
-   = 1e-5. Every launch count is set to 0 just before and read just after;
+   within one level and the same NFE. Then one train step of the same
+   small model in f32 with the same draws and dropout masks on both: loss,
+   updated parameters and EMA agree.
+6. The generation path: the CIFAR-10 recipe width (128 channels, mult
+   (1, 2, 2, 2), 2 res blocks, 4 heads x 64, attention at 16x16, bf16) with
+   random seeded weights, euler at 100 steps and dopri5 at rtol = atol =
+   1e-5. The launch counts are set to 0 just before and read just after;
    the attention-block kernel must have run 5 times per model evaluation.
 7. Profiles one recipe-width model evaluation (batch 512, bf16) with
-   ``torch.profiler`` and prints the device time by kernel and the share of
-   the evaluation's wall time the device was busy.
+   ``torch.profiler``, tracing the device only, and prints the device time
+   by kernel and the share of that window's wall time the device was busy.
+8. The training path, this slice's main path: ``Trainer`` on
+   ``cifar10_otcfm`` at the full recipe (bf16, batch 128, synthetic data),
+   a few warm-up steps, then ``fit`` for 30 more with every launch count set
+   to 0 just before and read just after: 1 auction, 5 attention-block
+   forward and 5 backward launches per step. Prints ms per step, images per
+   second, the first and last loss (finite) and the peak device memory.
+9. Profiles three train steps as in 7 and prints, per step, the device
+   time grouped as there and the device-busy share of that window's wall
+   time; then three more with host tracing on, and the host operators
+   that took the most CPU time.
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -44,6 +64,7 @@ import sys
 import time
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12     # H100 SXM f32 rate without the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 rate
 GEN_BATCH = 512            # generation batch: the shape the main path gives the kernel
 RECIPE = dict(dim=(32, 32, 3), num_channels=128, channel_mult=(1, 2, 2, 2), num_res_blocks=2,
@@ -51,6 +72,14 @@ RECIPE = dict(dim=(32, 32, 3), num_channels=128, channel_mult=(1, 2, 2, 2), num_
 SMALL = dict(dim=(16, 16, 3), num_channels=64, channel_mult=(1, 2, 2), num_res_blocks=1,
              num_heads=4, num_head_channels=64, attention_resolutions="8")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # abs and rel, kernel vs plain version
+# The backward's weight gradients, relative to each one's max-abs. In bf16 the
+# kernel reads up to 5.8e-4 there and rounding do and ds to bf16 (what feeding
+# them to bf16 tensor cores would do) reads 1.4e-3 or more; check_attn_block_bwd
+# shows on every run that the limit sits between the two.
+WGRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 128, 3, 30
+BLOCK_SHAPES = ((64, 64, 256, 4), (8, 72, 128, 2), (8, 64, 256, 2), (4, 136, 384, 2))
+GRADS = ("dx", "dgscale", "dgbias", "dwq", "dbq", "dwo", "dbo")
 
 
 def log(*a):
@@ -82,18 +111,16 @@ def block_inputs(N, S, C, dtype, seed=0):
 
 
 def check_attn_block(G=32):
-    """Phase 3: kernel vs plain version at the generation shape, the gate's
-    smallest S, a ragged key tile (S=72), and head dims 128 and 192 (the
-    latter takes the FMA attention kernel in bf16). Returns the largest bf16
-    error at the generation shape."""
+    """Phase 3: kernel vs plain version at the training and generation
+    shapes, the gate's smallest S, a ragged key tile (S=72), and head dims
+    128 and 192 (the latter takes the FMA attention kernel in bf16). Returns
+    the largest bf16 error at the training and generation shapes."""
     import torch
     from cfm_tpu_torch.device import strict_f32
     from cfm_tpu_torch.ops import attn_block as ab
 
     worst = 0.0
-    shapes = ((GEN_BATCH, 256, 256, 4), (64, 64, 256, 4), (8, 72, 128, 2), (8, 64, 256, 2),
-              (4, 136, 384, 2))
-    for N, S, C, H in shapes:
+    for N, S, C, H in ((TRAIN_BATCH, 256, 256, 4), (GEN_BATCH, 256, 256, 4)) + BLOCK_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             t = block_inputs(N, S, C, dtype)
             args = list(t.values()) + [H, G]
@@ -109,18 +136,18 @@ def check_attn_block(G=32):
             if bad or not torch.isfinite(y).all():
                 raise AssertionError(f"attn_block_fwd disagrees with its plain version at "
                                      f"N={N} S={S} C={C} H={H} {dtype}")
-            if dtype == torch.bfloat16 and N == GEN_BATCH:
-                worst = err.max().item()
+            if dtype == torch.bfloat16 and N in (TRAIN_BATCH, GEN_BATCH):
+                worst = max(worst, err.max().item())
     return worst
 
 
-def time_attn_block(H=4, G=32):
-    """Phase 4 at the generation shape (N=GEN_BATCH, S=256, C=256), bf16."""
+def time_attn_block(N, H=4, G=32):
+    """Phase 4 at S=256, C=256 and batch N (training or generation), bf16."""
     import torch
     import torch.nn.functional as F
     from cfm_tpu_torch.ops import attn_block as ab
 
-    N, S, C = GEN_BATCH, 256, 256
+    S, C = 256, 256
     D = C // H
     t = block_inputs(N, S, C, torch.bfloat16)
     args = list(t.values()) + [H, G]
@@ -150,14 +177,212 @@ def time_attn_block(H=4, G=32):
     return dict(times, bound_ms=bound_ms, bound_by=bound_by)
 
 
-def seeded_model(cfg, dtype, device, seed):
+def grad_errors(out, ref):
+    """Per gradient: dx's largest absolute error, and each weight gradient's
+    largest error over its plain version's max-abs."""
+    errs = {}
+    for name, o, r in zip(GRADS, out, ref):
+        scale = 1.0 if name == "dx" else r.float().abs().max().item()
+        errs[name] = (o.float() - r.float()).abs().max().item() / scale
+    return errs
+
+
+def check_attn_block_bwd(G=32):
+    """Phase 3: the backward kernel vs its plain version at the training
+    shape and at phase 3's other shapes, f32 (TF32 off) and bf16. dx is held
+    element-wise to TOL abs+rel; each f32 weight gradient to WGRAD_TOL of
+    its own max-abs (they are sums over N*S rows, so their elements span a
+    wide range). In bf16 the plain backward with do and ds rounded to bf16
+    is read as well, and must fall outside WGRAD_TOL: the check would catch
+    a kernel that rounded them. Returns the largest bf16 dx error at the
+    training shape."""
+    import torch
+    from cfm_tpu_torch.device import strict_f32
+    from cfm_tpu_torch.ops import attn_block as ab
+
+    worst = 0.0
+    for N, S, C, H in ((TRAIN_BATCH, 256, 256, 4),) + BLOCK_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            t = block_inputs(N, S, C, dtype)
+            dy = block_inputs(N, S, C, dtype, seed=1)["x"]
+            args = list(t.values()) + [dy, H, G]
+            with strict_f32():
+                out = ab.fused_attention_block_bwd(*args)
+                ref = ab.attention_block_backward_reference(*args)
+            torch.cuda.synchronize()
+            key = str(dtype).split(".")[1]
+            tol, wtol = TOL[key], WGRAD_TOL[key]
+            bad_dx = ((out[0].float() - ref[0].float()).abs()
+                      > tol + tol * ref[0].float().abs()).sum().item()
+            errs = grad_errors(out, ref)
+            bad = [n for n in GRADS[1:] if not errs[n] <= wtol] + (["dx"] if bad_dx else [])
+            if bad or not all(torch.isfinite(o).all() for o in out):
+                raise AssertionError(f"attn_block_bwd {bad} disagree with the plain version at "
+                                     f"N={N} S={S} C={C} H={H} {dtype}: {errs}")
+            line = ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+            if dtype == torch.bfloat16:
+                if N == TRAIN_BATCH:
+                    worst = errs["dx"]
+                with strict_f32():
+                    rounded = grad_errors(ab.attention_block_backward_reference(
+                        *args, round_do_ds=True), ref)
+                caught = max(rounded[n] for n in GRADS[1:])
+                if not caught > wtol:
+                    raise AssertionError(f"rounding do and ds to bf16 moves the weight gradients "
+                                         f"by {caught:.2e}, inside the {wtol} limit")
+                line += "; do and ds rounded to bf16 would read " + ", ".join(
+                    f"{n} {e:.2e}" for n, e in rounded.items())
+            log(f"attn_block_bwd N={N} S={S} C={C} H={H} {dtype}: max error (dx abs, weights "
+                f"relative to max-abs) {line}")
+    return worst
+
+
+def auction_cost(n, kind, seed):
+    """An (n, n) cost on the card: squared distances of Gaussian clouds,
+    small integers (heavy ties), duplicated rows and columns, or rank 1."""
+    import torch
+    from cfm_tpu_torch.ops.cost import sq_euclidean_cost
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if kind == "gauss":
+        return sq_euclidean_cost(torch.randn(n, 16, generator=g, device="cuda"),
+                                 torch.randn(n, 16, generator=g, device="cuda"))
+    if kind == "ties":
+        return torch.randint(0, 4, (n, n), generator=g, device="cuda").float()
+    if kind == "dups":
+        a = torch.randn(n, 8, generator=g, device="cuda")
+        a[1::2] = a[::2][: n // 2]
+        return sq_euclidean_cost(a, a.flip(0))
+    return torch.arange(n, device="cuda").float()[None, :].expand(n, n).contiguous()
+
+
+def check_auction():
+    """Phase 3: the auction kernel's perm must be identical to its plain
+    version's, round count included, and its cost within 1e-5 relative of
+    scipy's optimum."""
+    import torch
+    from scipy.optimize import linear_sum_assignment
+    from cfm_tpu_torch.ops import auction as au
+
+    for n in (2, 64, 128, 200, 256, 512):
+        line = []
+        for kind in ("gauss", "ties", "dups", "rank1"):
+            cost = auction_cost(n, kind, seed=n)
+            perm = au.pallas_auction_assignment(cost)
+            ref, rounds = au.auction_assignment_onehot(cost)
+            torch.cuda.synchronize()
+            k_rounds = int(au.pallas_auction_assignment.last_rounds.item())
+            if not torch.equal(perm, ref) or k_rounds != rounds:
+                raise AssertionError(f"auction n={n} {kind}: the kernel's perm or round count "
+                                     f"({k_rounds} vs {rounds}) differs from its plain version")
+            c = cost.double().cpu().numpy()
+            r, col = linear_sum_assignment(c)
+            opt, got = c[r, col].sum(), c[r, perm.cpu().numpy()].sum()
+            if abs(got - opt) > 1e-5 * max(abs(opt), 1e-30):
+                raise AssertionError(f"auction n={n} {kind}: cost {got} vs scipy's {opt}")
+            line.append(f"{kind} {rounds} rounds")
+        log(f"auction n={n}: identical perms; " + ", ".join(line) + "; costs at scipy's optimum")
+
+
+def coupling_cost(seed=0):
+    """The coupling's cost at the training shape: B=128 images vs N(0, I)."""
+    import torch
+    from cfm_tpu_torch.data.images import load_cifar10, normalize_images
+    from cfm_tpu_torch.ops.cost import sq_euclidean_cost
+
+    data, _ = load_cifar10(synthetic=True)
+    x1 = normalize_images(torch.from_numpy(data[:TRAIN_BATCH]).cuda())
+    x0 = torch.randn(x1.shape, generator=torch.Generator(device="cuda").manual_seed(seed),
+                     device="cuda")
+    return sq_euclidean_cost(x0, x1)
+
+
+def time_auction():
+    """Phase 4 at the training shape (n = 128). The kernel's time is the
+    wrapper's (epsilon schedule, launch, completion pass). The bound is
+    rounds x n^2 element operations over the f32 rate: loose, since a solve
+    is latency-bound. No PyTorch call computes an assignment; scipy's solver
+    is timed on the host instead."""
+    import torch
+    from scipy.optimize import linear_sum_assignment
+    from cfm_tpu_torch.ops import auction as au
+
+    cost = coupling_cost()
+    n = cost.shape[0]
+    ms = cuda_ms(lambda: au.pallas_auction_assignment(cost))
+    rounds = int(au.pallas_auction_assignment.last_rounds.item())
+    plain_ms = cuda_ms(lambda: au.auction_assignment_onehot(cost), iters=2, warmup=1)
+    c = cost.double().cpu().numpy()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        linear_sum_assignment(c)
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    ops_s = rounds * n * n / PEAK_F32_FLOPS
+    bytes_s = (n * n * 4 + n * 8) / PEAK_BYTES
+    bound_ms = max(ops_s, bytes_s) * 1e3
+    log(f"auction timing n={n}: kernel {ms:.4f} ms for {rounds} rounds ({1e3 * ms / rounds:.3f} us "
+        f"per round), bound {bound_ms:.6f} ms (loose), plain {plain_ms:.3f} ms, scipy on the "
+        f"host {host_ms:.4f} ms (host time)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="operations" if ops_s >= bytes_s else "bytes", library_ms=None,
+                host_ms=host_ms, rounds=rounds)
+
+
+def bwd_flops(N, S, C, H):
+    """(bf16-operand FLOPs, f32-operand FLOPs) of the backward, recompute
+    included: qkv, logits, attn, dattn, dwo, dwq, dtokens take model-dtype
+    operands; dp, dq, dk, dv take f32 ones (do and ds are f32)."""
+    D, M, Z = C // H, N * S, N * H
+    att = 2 * Z * S * S * D
+    lp = 2 * M * C * 3 * C + 2 * att + 2 * (2 * M * C * C) + 2 * (2 * M * C * 3 * C)
+    return lp, 4 * att
+
+
+def time_attn_block_bwd(H=4, G=32):
+    """Phase 4 at the training shape (N=128, S=256, C=256), bf16. The
+    yardstick is the backward alone of F.group_norm + F.linear +
+    scaled_dot_product_attention + F.linear + residual in bf16."""
+    import torch
+    import torch.nn.functional as F
+    from cfm_tpu_torch.ops import attn_block as ab
+
+    N, S, C = TRAIN_BATCH, 256, 256
+    D = C // H
+    t = block_inputs(N, S, C, torch.bfloat16)
+    dy = block_inputs(N, S, C, torch.bfloat16, seed=1)["x"]
+    args = list(t.values()) + [dy, H, G]
+    xl = t["x"].detach().requires_grad_()
+    w = {k: v.detach().to(torch.bfloat16).requires_grad_() for k, v in t.items() if k != "x"}
+    tok = F.group_norm(xl.transpose(1, 2), G, w["gscale"][0], w["gbias"][0]).transpose(1, 2)
+    q, k, v = F.linear(tok, w["wq"].T, w["bq"][0]).view(N, S, 3, H, D).permute(2, 0, 3, 1, 4)
+    ctx = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(N, S, C)
+    y = xl + F.linear(ctx, w["wo"].T, w["bo"][0])
+    inputs = [xl] + list(w.values())
+    times = dict(ms=cuda_ms(lambda: ab.fused_attention_block_bwd(*args)),
+                 plain_ms=cuda_ms(lambda: ab.attention_block_backward_reference(*args), iters=3),
+                 library_ms=cuda_ms(lambda: torch.autograd.grad(y, inputs, dy, retain_graph=True)))
+    lp_flops, f32_flops = bwd_flops(N, S, C, H)
+    ops_s = lp_flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+    nbytes = 3 * N * S * C * 2 + 2 * 4 * (C * 3 * C + 3 * C + C * C + 3 * C)
+    bytes_s = nbytes / PEAK_BYTES
+    bound_ms = max(ops_s, bytes_s) * 1e3
+    bound_by = "operations" if ops_s >= bytes_s else "bytes"
+    log(f"attn_block_bwd timing N={N} S={S} C={C} bf16: kernel {times['ms']:.4f} ms "
+        f"({(lp_flops + f32_flops) / times['ms'] / 1e9:.2f} TFLOP/s; {lp_flops / 1e9:.2f} GFLOP "
+        f"bf16-operand + {f32_flops / 1e9:.2f} GFLOP f32-operand), {100 * bound_ms / times['ms']:.2f}% "
+        f"of the {bound_ms:.4f} ms bound by {bound_by}, plain {times['plain_ms']:.4f} ms, "
+        f"library backward {times['library_ms']:.4f} ms")
+    return dict(times, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def seeded_model(cfg, dtype, device, seed, dropout=0.0):
     """A UNet with random seeded weights; the zero-initialised layers (the
     ResBlock and output zero convs, the attention out-projections) get small
     seeded values so the field is non-trivial and smooth."""
     import torch
     from cfm_tpu_torch.models.unet import AttentionBlock, Conv, UNetModelWrapper
 
-    model = UNetModelWrapper(**cfg, dtype=dtype, seed=seed, device="cpu")
+    model = UNetModelWrapper(**cfg, dtype=dtype, seed=seed, dropout=dropout, device="cpu")
     g = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for m in model.modules():
@@ -189,8 +414,87 @@ def check_small_generation():
                 raise AssertionError(f"small {method} generation: card and CPU disagree")
 
 
+def check_small_train_step():
+    """Phase 5: one train step of the small model in f32 (TF32 off) with the
+    same draws and the same dropout masks (rate 0.1, drawn from a CPU
+    generator on both sides) on the card and on the CPU. Both sides ask for
+    the "pallas" solver, so the card runs the auction and both
+    attention-block kernels and the CPU their plain versions.
+    Loss and grad norm agree to 1e-5 relative; each gradient to 1e-4 of its
+    tensor's max-abs (or of 1e-3 of the largest gradient, for the tensors
+    whose true gradient is 0 and whose values are f32 noise); the updated
+    parameters and EMA to 1e-6 absolute (the step moves them by about
+    lr = 2e-4). Adam's first step moves an element by lr * g / (|g| + 1e-8),
+    about lr whatever g's size, so an element whose gradient is under 1e-3
+    of its tensor's max-abs, where a 1e-6 gradient error is a large relative
+    one, is held only to that bound."""
+    import numpy as np
+    import torch
+    from cfm_tpu_torch.device import strict_f32
+    from cfm_tpu_torch.ops import attn_block as ab
+    from cfm_tpu_torch.ops import auction as au
+    from cfm_tpu_torch.paths import ExactOptimalTransportConditionalFlowMatcher
+    from cfm_tpu_torch.train import StepDraws, init_train_state, make_optimizer, make_train_step
+
+    B, lr = 8, 2e-4
+    rng = np.random.default_rng(4)
+    x0, x1, eps = (torch.from_numpy(rng.standard_normal((B,) + SMALL["dim"]).astype(np.float32))
+                   for _ in range(3))
+    t, u = (torch.from_numpy(rng.uniform(size=B).astype(np.float32)) for _ in range(2))
+    kernels = (au.pallas_auction_assignment, ab.fused_attention_block, ab.fused_attention_block_bwd)
+    runs = {}
+    with strict_f32():
+        for dev in ("cpu", "cuda"):
+            model = seeded_model(SMALL, torch.float32, dev, seed=2, dropout=0.1)
+            old = [p.detach().cpu().clone() for p in model.parameters()]
+            opt = make_optimizer(lr=lr, warmup_steps=1)
+            state = init_train_state(model, opt)
+            step = make_train_step(ExactOptimalTransportConditionalFlowMatcher(solver="pallas"),
+                                   model, opt, train_mode=True)
+            before = [k.launches for k in kernels]
+            draws = StepDraws(t.to(dev), eps.to(dev), u.to(dev), torch.Generator().manual_seed(9))
+            metrics = step(state, x0.to(dev), x1.to(dev), draws=draws)
+            torch.cuda.synchronize()
+            runs[dev] = dict(metrics={k: float(v) for k, v in metrics.items()}, old=old,
+                             params=[p.detach().cpu() for p in state.params],
+                             ema=[e.cpu() for e in state.ema_params],
+                             grads=[p.grad.cpu() for p in state.params],
+                             launched=tuple(k.launches - b for k, b in zip(kernels, before)))
+    cpu, card = runs["cpu"], runs["cuda"]
+    if cpu["launched"] != (0, 0, 0) or card["launched"][0] != 1 or card["launched"][1] == 0 \
+            or card["launched"][1] != card["launched"][2]:
+        raise AssertionError(f"small train step launches: cpu {cpu['launched']}, "
+                             f"card {card['launched']}")
+    for k in ("loss", "grad_norm"):
+        a, b = card["metrics"][k], cpu["metrics"][k]
+        if not abs(a - b) <= 1e-5 * abs(b):
+            raise AssertionError(f"small train step {k}: card {a} vs CPU {b}")
+    gmax = max(g.abs().max().item() for g in cpu["grads"])
+    worst, worst_g, n_noise = 0.0, 0.0, 0
+    for a, b, ea, eb, gg, g, old in zip(card["params"], cpu["params"], card["ema"], cpu["ema"],
+                                        card["grads"], cpu["grads"], cpu["old"]):
+        worst_g = max(worst_g, (gg - g).abs().max().item()
+                      / max(g.abs().max().item(), 1e-3 * gmax))
+        noise = g.abs() < 1e-3 * g.abs().max()
+        n_noise += int(noise.sum())
+        if ((a - old).abs()[noise] > lr * (1 + 1e-5)).any():
+            raise AssertionError("small train step: a parameter moved by more than lr")
+        if (~noise).any():
+            worst = max(worst, (a - b).abs()[~noise].max().item(),
+                        (ea - eb).abs()[~noise].max().item())
+    if worst_g > 1e-4 or worst > 1e-6:
+        raise AssertionError(f"small train step: gradients differ by {worst_g} of their "
+                             f"scale, parameters or EMA by {worst}")
+    log(f"small train step f32, dropout 0.1: loss card {card['metrics']['loss']:.7f} cpu "
+        f"{cpu['metrics']['loss']:.7f}, grad norm card {card['metrics']['grad_norm']:.6f} cpu "
+        f"{cpu['metrics']['grad_norm']:.6f}, max gradient difference {worst_g:.2e} of "
+        f"scale, max parameter/EMA difference {worst:.2e} "
+        f"({n_noise} noise-level elements held to the lr bound), card launches "
+        f"auction/fwd/bwd {card['launched']}")
+
+
 def main_path():
-    """Phase 6: recipe-width generation; returns the kernels' launch counts."""
+    """Phase 6: generation at the recipe width."""
     import torch
     from cfm_tpu_torch.generate import generate
     from cfm_tpu_torch.ops import attn_block as ab
@@ -225,14 +529,11 @@ def main_path():
     launches = ab.fused_attention_block.launches
     if launches != 5 * total_nfe or launches == 0:
         raise AssertionError(f"attn_block_fwd launched {launches} times for NFE {total_nfe}")
-    return {"attn_block_fwd": launches}
 
 
-def profile_evaluation(top=12):
+def profile_evaluation():
     """Phase 7: device time by kernel over one recipe-width evaluation."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     model = seeded_model(RECIPE, torch.bfloat16, "cuda", seed=0)
     x = torch.randn((GEN_BATCH, 32, 32, 3), device="cuda")
@@ -240,33 +541,139 @@ def profile_evaluation(top=12):
     with torch.inference_mode():
         for _ in range(2):
             model(t, x)
+        device_profile(lambda: model(t, x), "one evaluation (batch 512, bf16)")
+
+
+KERNEL_GROUPS = (
+    ("auction kernel", ("auction_kernel",)),
+    ("attn_block kernels (forward and backward)",
+     ("mma_gemm_kernel", "attention_mma_kernel", "gn_stats_kernel", "round_transpose_kernel",
+      "attention_kernel", "gemm_kernel", "bmma_kernel", "fgemm_kernel", "softmax_rows_kernel",
+      "softmax_bwd_rows_kernel", "colsum_partial_kernel", "sum_parts_kernel", "gn_bwd_kernel")),
+)
+
+
+def kernel_group(key):
+    for group, names in KERNEL_GROUPS:
+        if any(k in key for k in names):
+            return group
+    if "at::native" in key:
+        return "plain torch elementwise and reductions"
+    if any(k in key.lower() for k in ("fprop", "dgrad", "wgrad", "conv")):
+        return "cuDNN convolutions"
+    return "other (cuBLAS matmuls, ...)"
+
+
+def device_profile(fn, what, top=14, per=1):
+    """Runs ``fn`` under ``torch.profiler`` tracing the device only (no host
+    operators, so the tracer adds little host time) and prints, per ``per``
+    repetitions in ``fn``, the device time by kernel group, the largest
+    kernels, and the busy time over the wall time of that same window.
+    Returns the window's wall time per repetition in ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model(t, x)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+        wall_us = (time.perf_counter() - t0) * 1e6 / per
+    rows = [(e.self_device_time_total / per, e.count // per, e.key) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not rows:
+        raise AssertionError(f"the profiler recorded no device time over {what}")
     busy_us = sum(r[0] for r in rows)
-    log(f"profile of one evaluation: wall {wall_us / 1e3:.3f} ms, device busy "
-        f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%), {len(rows)} kernel names")
+    log(f"profile of {what}, device tracing only: wall {wall_us / 1e3:.3f} ms, device busy "
+        f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}% of the same window), "
+        f"{len(rows)} kernel names")
     groups = {}
     for us, _, key in rows:
-        if "at::native" in key:
-            group = "plain torch elementwise and reductions"
-        elif any(k in key for k in ("mma_gemm_kernel", "attention_mma_kernel", "gn_stats_kernel",
-                                    "round_transpose_kernel", "attention_kernel", "gemm_kernel")):
-            group = "attn_block_fwd kernels"
-        elif "fprop" in key or "conv" in key.lower():
-            group = "cuDNN convolutions"
-        else:
-            group = "other (cuBLAS matmuls, ...)"
-        groups[group] = groups.get(group, 0.0) + us
+        groups[kernel_group(key)] = groups.get(kernel_group(key), 0.0) + us
     for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"  {us / 1e3:9.3f} ms {100 * us / busy_us:5.1f}%  {group}")
     for us, count, key in sorted(rows, reverse=True)[:top]:
         log(f"  {us / 1e3:9.3f} ms {100 * us / busy_us:5.1f}% x{count:<4d} {key[:100]}")
+    return wall_us / 1e3
+
+
+def training_path():
+    """Phase 8: the recipe trainer; returns its launch counts, the trainer and
+    the ms per step."""
+    import torch
+    from cfm_tpu_torch.config import load_config
+    from cfm_tpu_torch.ops import attn_block as ab
+    from cfm_tpu_torch.ops import auction as au
+    from cfm_tpu_torch.trainer import Trainer
+
+    cfg = load_config("cifar10_otcfm", ["trainer.log_interval=1000", "data.synthetic_fallback=True",
+                                        "data.data_dir=build/no_cifar10"])
+    trainer = Trainer(cfg)
+    if trainer.model.dtype != torch.bfloat16 or cfg.data.batch_size != TRAIN_BATCH:
+        raise AssertionError("the training path must run the bf16 recipe at batch 128")
+    trainer.fit(TRAIN_WARMUP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # Keep each step's loss (a 0-d device tensor) and read them after the run.
+    step_fn, recorded = trainer.step_fn, []
+
+    def recording_step(*args, **kwargs):
+        metrics = step_fn(*args, **kwargs)
+        recorded.append(metrics["loss"])
+        return metrics
+
+    trainer.step_fn = recording_step
+    kernels = (au.pallas_auction_assignment, ab.fused_attention_block, ab.fused_attention_block_bwd)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit(TRAIN_WARMUP + TRAIN_STEPS)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    trainer.step_fn = step_fn
+    launches = dict(zip(("auction", "attn_block_fwd", "attn_block_bwd"),
+                        (k.launches for k in kernels)))
+    losses = [float(v) for v in recorded]
+    log(f"training cifar10_otcfm bf16 batch {TRAIN_BATCH}: {TRAIN_STEPS} steps in {sec:.3f} s = "
+        f"{1e3 * sec / TRAIN_STEPS:.2f} ms per step, {TRAIN_STEPS * TRAIN_BATCH / sec:.1f} imgs/s; "
+        f"loss first {losses[0]:.5f} last {losses[-1]:.5f}; max memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches {launches}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    want = {"auction": TRAIN_STEPS, "attn_block_fwd": 5 * TRAIN_STEPS,
+            "attn_block_bwd": 5 * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"training launches {launches}, expected {want}")
+    return launches, trainer, 1e3 * sec / TRAIN_STEPS
+
+
+def profile_train_step(trainer, ms_per_step, steps=3):
+    """Phase 9: device time by kernel per recipe train step and the device's
+    busy share, over a few steps traced on the device only; then, in a second
+    window that also traces the host, the host operators that took the most
+    CPU time per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    wall_ms = device_profile(lambda: trainer.fit(trainer.state.step + steps),
+                             f"a train step (batch 128, bf16; mean of {steps})", per=steps)
+    log(f"  the same steps took {ms_per_step:.2f} ms each untraced (phase 8), "
+        f"{wall_ms:.2f} ms under device tracing")
+    step = trainer.state.step
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.fit(step + steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    ops = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                 key=lambda e: -e.self_cpu_time_total)
+    host_us = sum(e.self_cpu_time_total for e in ops) / steps
+    log(f"  host per step, tracing host and device (wall {wall_ms:.3f} ms a step): "
+        f"{host_us / 1e3:.3f} ms of self CPU time in {sum(e.count for e in ops) // steps} "
+        f"recorded calls; the largest:")
+    for e in ops[:10]:
+        log(f"  {e.self_cpu_time_total / steps / 1e3:9.3f} ms x{e.count // steps:<5d} {e.key[:80]}")
 
 
 def main() -> int:
@@ -293,19 +700,34 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     err = check_attn_block()
-    timing = time_attn_block()
+    err_bwd = check_attn_block_bwd()
+    check_auction()
+    time_attn_block(GEN_BATCH)
+    timing = time_attn_block(TRAIN_BATCH)
+    timing_bwd = time_attn_block_bwd()
+    timing_auction = time_auction()
     check_small_generation()
-    launches = main_path()
+    check_small_train_step()
+    main_path()
     profile_evaluation()
+    launches, trainer, ms_per_step = training_path()
+    profile_train_step(trainer, ms_per_step)
 
-    kernels = [{
-        "name": "attn_block_fwd", "route": "cuda",
-        "source": "cfm_tpu_torch/csrc/attn_block_fwd.cu",
-        "replaces": "cfm_tpu/ops/pallas_attn_block.py:97",
-        "launches": launches["attn_block_fwd"], "max_abs_err": err,
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
-    }]
+    src = "cfm_tpu_torch/csrc/"
+    kernels = [
+        dict(name="attn_block_fwd", route="cuda", source=src + "attn_block_fwd.cu",
+             replaces="cfm_tpu/ops/pallas_attn_block.py:97", max_abs_err=err, **timing),
+        dict(name="attn_block_bwd", route="cuda", source=src + "attn_block_bwd.cu",
+             replaces="cfm_tpu/ops/pallas_attn_block.py:111", max_abs_err=err_bwd, **timing_bwd),
+        dict(name="auction", route="cuda", source=src + "auction.cu",
+             replaces="cfm_tpu/ops/pallas_auction.py:67", max_abs_err=0.0,
+             **{k: v for k, v in timing_auction.items() if k not in ("host_ms", "rounds")}),
+    ]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    kernels = [{key: k[key] for key in keys} for k in kernels]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

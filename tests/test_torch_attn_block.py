@@ -3,11 +3,14 @@
 The plain PyTorch version is held against the JAX block kernel run in Pallas
 interpret mode on the CPU, at the tolerances the JAX package holds that
 kernel to against its composition (f32 2e-4, bf16 3e-2), and against the
-JAX composition in f32. The routing gates must agree with JAX's shape and
-budget conditions. The CUDA kernel itself is checked against the plain
-version by the ``cuda``-marked test, which skips without a card. The JAX
-package is imported inside the tests that use it, so that the card-only
-test also runs where only PyTorch is installed:
+JAX composition in f32. The gradients through the port's autograd Function
+(the plain backward on CPU tensors) are held against ``jax.vjp`` of the JAX
+block, whose backward is the TPU kernel ``_bwd_kernel`` in interpret mode.
+The routing gates must agree with JAX's shape and budget conditions. The
+CUDA kernels themselves are checked against the plain versions by the
+``cuda``-marked tests, which skip without a card. The JAX package is
+imported inside the tests that use it, so that the card-only tests also run
+where only PyTorch is installed:
 ``python -m pytest tests/test_torch_attn_block.py -m cuda -q``.
 """
 
@@ -220,3 +223,115 @@ def test_kernel_matches_plain_on_cuda(N, S, C, H, dtype, tol):
     assert tab.fused_attention_block.launches == before + 1
     np.testing.assert_allclose(y.float().cpu().numpy(), ref.float().cpu().numpy(),
                                atol=tol, rtol=tol)
+
+
+_GRADS = ("dx", "dgscale", "dgbias", "dwq", "dbq", "dwo", "dbo")
+
+
+def _port_grads(inp, dy, tdtype, H):
+    """Gradients through the port's autograd Function on CPU tensors."""
+    x = torch.from_numpy(inp["x"]).to(tdtype).requires_grad_()
+    w = [torch.from_numpy(inp[k]).requires_grad_()
+         for k in ("gscale", "gbias", "wq", "bq", "wo", "bo")]
+    y = tab.fused_attention_block(x, *w, H, gn_groups(x.shape[-1]))
+    y.backward(torch.from_numpy(dy).to(tdtype))
+    return [x.grad] + [t.grad for t in w]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("N,S,C,H", [(2, 64, 128, 2), (2, 256, 256, 4)])
+def test_backward_matches_jax_vjp_interpret(monkeypatch, N, S, C, H, dtype):
+    """f32 at 2e-4 of each gradient's max-abs. bf16: dx at 2e-2 (one bf16
+    rounding step of an output up to about 4, where the two accumulation
+    orders round a qkv or dqkv element apart), the f32 weight gradients at
+    5e-3 of their max-abs (sums over N*S rows of products of bf16 operands
+    that round apart the same way)."""
+    import jax
+
+    j = _jax(dtype)
+    monkeypatch.setattr(j.pab, "INTERPRET", True)
+    inp = _inputs(N, S, C, H)
+    dy = np.random.default_rng(7).standard_normal((N, S, C)).astype(np.float32)
+    args = [j.jnp.asarray(inp["x"], j.dtype)] + [
+        j.jnp.asarray(inp[k]) for k in ("gscale", "gbias", "wq", "bq", "wo", "bo")]
+    _, vjp = jax.vjp(lambda *a: j.pab.fused_attention_block(*a, H, gn_groups(C)), *args)
+    ref = vjp(j.jnp.asarray(dy, j.dtype))
+    out = _port_grads(inp, dy, _DTYPES[dtype][1], H)
+    for name, o, r in zip(_GRADS, out, ref):
+        r = np.asarray(r, np.float32)
+        assert o.shape == r.shape, name
+        tol = 2e-4 if dtype == "f32" else (2e-2 if name == "dx" else 5e-3)
+        scale = 1.0 if name == "dx" and dtype == "bf16" else np.abs(r).max()
+        np.testing.assert_allclose(o.float().numpy() / scale, r / scale, atol=tol, rtol=tol,
+                                   err_msg=name)
+
+
+def test_autograd_backward_on_cpu_is_the_plain_backward():
+    """The Function's backward is the transcription of ``_bwd_kernel``, not
+    autograd of the plain forward, and counts no launch."""
+    inp = _inputs(2, 64, 128, 2, seed=8)
+    dy = np.random.default_rng(9).standard_normal((2, 64, 128)).astype(np.float32)
+    before = tab.fused_attention_block_bwd.launches
+    got = _port_grads(inp, dy, torch.bfloat16, 2)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    ref = tab.attention_block_backward_reference(
+        t.pop("x").to(torch.bfloat16), *t.values(), torch.from_numpy(dy).to(torch.bfloat16),
+        2, 32)
+    for name, g, r in zip(_GRADS, got, ref):
+        assert torch.equal(g, r), name
+    assert tab.fused_attention_block_bwd.launches == before
+
+
+def test_backward_reference_with_do_ds_rounded_falls_outside_the_bf16_limit():
+    """Rounding do and ds to bf16 leaves dwo and dbo as they were and moves
+    the gradients behind them by more than the 1e-3 of max-abs to which the
+    card holds the bf16 backward kernel."""
+    inp = _inputs(4, 64, 128, 2, seed=10)
+    dy = np.random.default_rng(11).standard_normal((4, 64, 128)).astype(np.float32)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    args = [t.pop("x").to(torch.bfloat16), *t.values(), torch.from_numpy(dy).to(torch.bfloat16),
+            2, 32]
+    ref = tab.attention_block_backward_reference(*args)
+    rounded = tab.attention_block_backward_reference(*args, round_do_ds=True)
+    moved = {n: ((o - r).abs().max() / r.abs().max()).item()
+             for n, o, r in zip(_GRADS[1:], rounded[1:], ref[1:])}
+    assert moved["dwo"] == moved["dbo"] == 0.0
+    assert min(moved[n] for n in ("dgscale", "dgbias", "dwq", "dbq")) > 1e-3, moved
+
+
+def test_backward_wrapper_rejects_a_mismatched_dy():
+    t = {k: torch.from_numpy(v) for k, v in _inputs(1, 64, 128, 2).items()}
+    x = t.pop("x")
+    with pytest.raises(ValueError, match="dy must match"):
+        tab.fused_attention_block_bwd(x, *t.values(), x.to(torch.bfloat16), 2, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("f32", 1e-4), ("bf16", 2e-2)])
+@pytest.mark.parametrize("N,S,C,H", [(4, 64, 256, 4), (8, 256, 256, 4), (4, 72, 128, 2)])
+def test_backward_kernel_matches_plain_on_cuda(N, S, C, H, dtype, tol):
+    """dx element-wise abs+rel; the weight gradients relative to their max-abs,
+    at ``tol`` in f32 and 1e-3 in bf16. The bf16 kernel reads up to 5.8e-4
+    there, and the backward with do and ds rounded to bf16 (what feeding them
+    to bf16 tensor cores would do) 1.4e-3 or more, so the limit catches it."""
+    if not torch.cuda.is_available():
+        pytest.skip("the attention-block backward kernel runs only on a CUDA device")
+    from cfm_tpu_torch.device import strict_f32
+
+    _, tdtype = _DTYPES[dtype]
+    t = {k: torch.from_numpy(v).cuda() for k, v in _inputs(N, S, C, H).items()}
+    x = t.pop("x").to(tdtype)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(1)).cuda().to(tdtype)
+    before = tab.fused_attention_block_bwd.launches
+    with strict_f32():
+        out = tab.fused_attention_block_bwd(x, *t.values(), dy, H, 32)
+        ref = tab.attention_block_backward_reference(x, *t.values(), dy, H, 32)
+    torch.cuda.synchronize()
+    assert tab.fused_attention_block_bwd.launches == before + 1
+    for name, o, r in zip(_GRADS, out, ref):
+        o, r = o.float().cpu().numpy(), r.float().cpu().numpy()
+        if name == "dx":
+            np.testing.assert_allclose(o, r, atol=tol, rtol=tol, err_msg=name)
+        else:
+            limit = 1e-3 if dtype == "bf16" else tol
+            assert np.abs(o - r).max() <= limit * np.abs(r).max(), name

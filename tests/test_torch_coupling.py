@@ -1,0 +1,209 @@
+"""The port's exact OT coupling and matchers (cfm_tpu_torch/coupling.py,
+paths.py, ops/cost.py, utils.py) against JAX, on shared numpy inputs.
+
+Plans must be equal when both sides solve with the same algorithm, and the
+plan-sampling indices equal when the port is handed JAX's own uniforms; the
+batch is a power of two so that the CDF of the 1/n plan is exact in f32.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cfm_tpu_torch import coupling as tcp
+from cfm_tpu_torch import paths as tpa
+from cfm_tpu_torch import utils as tut
+from cfm_tpu_torch.ops.cost import sq_euclidean_cost
+
+
+def _clouds(n, d=6, seed=0, shift=3.0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, d)).astype(np.float32),
+            (rng.standard_normal((n, d)) + shift).astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", [(8, 6), (4, 4, 4, 3)])
+def test_sq_euclidean_cost_matches_jax(shape):
+    import jax.numpy as jnp
+
+    from cfm_tpu.ops.cost import sq_euclidean_cost as jcost
+
+    rng = np.random.default_rng(1)
+    a = rng.standard_normal(shape).astype(np.float32) + 50.0
+    b = rng.standard_normal(shape).astype(np.float32) + 50.0
+    ref = np.asarray(jcost(jnp.asarray(a), jnp.asarray(b)))
+    out = sq_euclidean_cost(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+    assert (out >= 0).all()
+
+
+@pytest.mark.parametrize("solver,n", [("auction", 16), ("auction", 64), ("auto", 32)])
+def test_get_map_plans_are_equal(solver, n):
+    """"auction" on both sides; "auto" is the JV solver in JAX and scipy's
+    in the port on the CPU, both exact."""
+    import jax.numpy as jnp
+
+    from cfm_tpu.coupling import OTPlanSampler
+
+    x0, x1 = _clouds(n, seed=n)
+    ref, bad_ref = OTPlanSampler("exact", solver=solver).get_map(
+        jnp.asarray(x0), jnp.asarray(x1), return_status=True)
+    plan, bad = tcp.OTPlanSampler("exact", solver=solver).get_map(
+        torch.from_numpy(x0), torch.from_numpy(x1), return_status=True)
+    np.testing.assert_array_equal(plan.numpy(), np.asarray(ref))
+    assert bad.dtype == torch.bool and not bool(bad) and not bool(bad_ref)
+
+
+@pytest.mark.parametrize("n", [8, 32])
+def test_sample_map_equal_given_jax_uniforms(n):
+    import jax
+    import jax.numpy as jnp
+
+    from cfm_tpu.coupling import OTPlanSampler
+
+    x0, x1 = _clouds(n, seed=2)
+    pi = np.array(OTPlanSampler("exact").get_map(jnp.asarray(x0), jnp.asarray(x1)))
+    key = jax.random.PRNGKey(n)
+    i_ref, j_ref = OTPlanSampler.sample_map(key, jnp.asarray(pi), n)
+    u = np.array(jax.random.uniform(key, (n,), minval=0.0, maxval=1.0))
+    i, j = tcp.OTPlanSampler.sample_map(None, torch.from_numpy(pi), n, noise=torch.from_numpy(u))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+    np.testing.assert_array_equal(j.numpy(), np.asarray(j_ref))
+
+
+def test_sample_map_without_replacement_equal_given_jax_gumbels():
+    import jax
+    import jax.numpy as jnp
+
+    from cfm_tpu.coupling import OTPlanSampler
+
+    n = 8
+    x0, x1 = _clouds(n, seed=3)
+    pi = np.array(OTPlanSampler("exact").get_map(jnp.asarray(x0), jnp.asarray(x1)))
+    key = jax.random.PRNGKey(5)
+    i_ref, j_ref = OTPlanSampler.sample_map(key, jnp.asarray(pi), n, replace=False)
+    g = np.array(jax.random.gumbel(key, (n * n,)))
+    i, j = tcp.OTPlanSampler.sample_map(None, torch.from_numpy(pi), n, replace=False,
+                                        noise=torch.from_numpy(g))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+    np.testing.assert_array_equal(j.numpy(), np.asarray(j_ref))
+    # without replacement every (i, j) of the permutation plan is drawn once
+    assert sorted(i.tolist()) == list(range(n))
+
+
+def test_sample_plan_pairs_by_the_plan_and_shortens_distances():
+    n = 16
+    x0, x1 = (torch.from_numpy(a) for a in _clouds(n, seed=4))
+    s = tcp.OTPlanSampler("exact")
+    a, b, bad = s.sample_plan(torch.Generator().manual_seed(0), x0, x1, return_status=True)
+    assert a.shape == b.shape == (n, 6) and not bool(bad)
+    plan = s.get_map(x0, x1)
+    rows = [int((x0 == r).all(1).nonzero()[0]) for r in a]
+    cols = [int((x1 == r).all(1).nonzero()[0]) for r in b]
+    assert all(plan[i, j] > 0 for i, j in zip(rows, cols))
+    d_ot = ((a - b) ** 2).sum(1).mean()
+    assert d_ot < ((x0 - x1) ** 2).sum(1).mean()
+    y0, y1 = torch.arange(n), torch.arange(n) + 100
+    a2, b2, ya, yb, bad2 = s.sample_plan_with_labels(
+        torch.Generator().manual_seed(0), x0, x1, y0, y1, return_status=True)
+    assert torch.equal(a2, a) and torch.equal(b2, b)
+    assert torch.equal(x0[ya], a2) and torch.equal(x1[yb - 100], b2)
+    keep0, perm1 = s.sample_plan_exact_order(x0, x1)
+    assert torch.equal(keep0, x0) and torch.equal(s.sample_plan_with_scipy(x0, x1)[1], perm1)
+
+
+def test_degenerate_plan_falls_back_to_uniform_and_flags_it(monkeypatch):
+    """A plan with no mass is replaced by the uniform coupling and flagged
+    (warned about only on the CPU, where reading the flag costs no sync)."""
+    x0, x1 = (torch.from_numpy(a) for a in _clouds(4, seed=5))
+    monkeypatch.setattr(tcp, "_plan_from_perm", lambda perm, n, m: torch.zeros(n, m))
+    s = tcp.OTPlanSampler("exact", solver="auction")
+    with pytest.warns(UserWarning, match="Degenerate"):
+        plan, bad = s.get_map(x0, x1, return_status=True)
+    assert bool(bad) and torch.allclose(plan, torch.full((4, 4), 1 / 16))
+
+
+def test_unported_methods_and_marginals_raise():
+    with pytest.raises(ValueError, match="Unknown method"):
+        tcp.OTPlanSampler("simplex")
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        tcp.OTPlanSampler("sinkhorn")
+    x0, x1 = (torch.from_numpy(a) for a in _clouds(4, seed=6))
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        tcp.OTPlanSampler("exact").get_map(x0, x1[:3])
+
+
+def test_icfm_path_matches_jax_given_t_and_eps():
+    import jax.numpy as jnp
+
+    from cfm_tpu.paths import ConditionalFlowMatcher
+
+    rng = np.random.default_rng(7)
+    x0, x1, eps = (rng.standard_normal((4, 3, 2)).astype(np.float32) for _ in range(3))
+    t = rng.uniform(size=4).astype(np.float32)
+    for sigma in (0.0, 0.3):
+        jm, tm = ConditionalFlowMatcher(sigma), tpa.ConditionalFlowMatcher(sigma)
+        xt_ref = jm.sample_xt(jnp.asarray(x0), jnp.asarray(x1), jnp.asarray(t), jnp.asarray(eps))
+        tt, xt, ut, e, bad = tm.sample_location_and_conditional_flow(
+            None, torch.from_numpy(x0), torch.from_numpy(x1), t=torch.from_numpy(t),
+            eps=torch.from_numpy(eps), return_noise=True, return_coupling_status=True)
+        np.testing.assert_allclose(xt.numpy(), np.asarray(xt_ref), rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(ut.numpy(), x1 - x0)
+        assert torch.equal(e, torch.from_numpy(eps)) and not bool(bad)
+
+
+def test_otcfm_couples_with_the_plan_uniforms_then_draws_the_path():
+    """OT-CFM given the plan uniforms, t and eps equals coupling by hand
+    (sample_plan with those uniforms) followed by the I-CFM path; without
+    coupling it is the I-CFM path on the original pairs."""
+    n = 8
+    x0, x1 = (torch.from_numpy(a) for a in _clouds(n, seed=8))
+    g = torch.Generator().manual_seed(1)
+    u, t, eps = torch.rand(n, generator=g), torch.rand(n, generator=g), torch.randn(n, 6,
+                                                                                 generator=g)
+    m = tpa.ExactOptimalTransportConditionalFlowMatcher()
+    tt, xt, ut, bad = m.sample_location_and_conditional_flow(
+        None, x0, x1, t=t, eps=eps, plan_noise=u, return_coupling_status=True)
+    a, b = m.ot_sampler.sample_plan(None, x0, x1, noise=u)
+    assert torch.equal(ut, b - a) and torch.equal(xt, m.sample_xt(a, b, t, eps))
+    assert bad.dtype == torch.bool and not bool(bad)
+    plain = m.without_coupling()
+    _, xt2, ut2 = plain.sample_location_and_conditional_flow(None, x0, x1, t=t, eps=eps)
+    assert torch.equal(ut2, x1 - x0) and torch.equal(xt2, m.sample_xt(x0, x1, t, eps))
+    assert not getattr(m, "_skip_coupling", False)
+
+
+def test_matcher_draws_from_the_generator_in_order():
+    """Plan uniforms, then t, then eps, all from one generator."""
+    n = 8
+    x0, x1 = (torch.from_numpy(a) for a in _clouds(n, seed=9))
+    m = tpa.ExactOptimalTransportConditionalFlowMatcher()
+    t, xt, ut = m.sample_location_and_conditional_flow(torch.Generator().manual_seed(3), x0, x1)
+    g = torch.Generator().manual_seed(3)
+    u, t2 = torch.rand(n, generator=g), torch.rand(n, generator=g)
+    eps = torch.randn(n, 6, generator=g)
+    _, xt2, ut2 = m.sample_location_and_conditional_flow(None, x0, x1, t=t2, eps=eps, plan_noise=u)
+    assert torch.equal(t, t2) and torch.equal(xt, xt2) and torch.equal(ut, ut2)
+
+
+def test_utils_match_jax():
+    import jax.numpy as jnp
+
+    from cfm_tpu import utils as jut
+
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((3, 2, 4)).astype(np.float32)
+    t = rng.uniform(size=3).astype(np.float32)
+    assert tut.pad_t_like_x(0.5, torch.from_numpy(x)) == 0.5
+    assert tuple(tut.pad_t_like_x(torch.from_numpy(t), torch.from_numpy(x)).shape) == tuple(
+        jut.pad_t_like_x(jnp.asarray(t), jnp.asarray(x)).shape)
+    for a in (x, x[:, 0, 0], x[:, 0]):
+        assert tuple(tut.flatten_batch(torch.from_numpy(a)).shape) == tuple(
+            jut.flatten_batch(jnp.asarray(a)).shape)
+    np.testing.assert_allclose(tut.mean_flat(torch.from_numpy(x)).numpy(),
+                               np.asarray(jut.mean_flat(jnp.asarray(x))), rtol=1e-6)
+    e, p = rng.standard_normal((2, 5)).astype(np.float32)
+    ref = np.asarray(jut.ema_update(jnp.asarray(e), jnp.asarray(p), 0.9999))
+    et = [torch.from_numpy(e.copy())]
+    tut.ema_update(et, [torch.from_numpy(p)], 0.9999)
+    np.testing.assert_allclose(et[0].numpy(), ref, rtol=1e-6, atol=1e-7)

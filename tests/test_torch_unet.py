@@ -206,6 +206,61 @@ def test_timestep_embedding_matches_jax(dim):
 
 
 def test_train_mode_raises():
-    model = tunet.UNetModelWrapper(**SMALL, device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(torch.zeros(1), torch.zeros(1, 16, 16, 3), train=True)
+    """train=True with dropout 0 is eval mode; with dropout 0.1 the output
+    differs from eval mode and is reproducible from the same generator; with
+    dropout and no generator for the masks it raises."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((2, 16, 16, 3)).astype(np.float32))
+    t = torch.tensor([0.3, 0.8])
+    _, params = _flax_params(SMALL, jnp.float32, seed=3)
+    sd = unet_params_from_flax(params)
+    plain = tunet.UNetModelWrapper(**SMALL, device="cpu")
+    plain.load_state_dict(sd)
+    with torch.no_grad():
+        y_eval = plain(t, x)
+        assert torch.equal(plain(t, x, train=True, generator=torch.Generator()), y_eval)
+        drop = tunet.UNetModelWrapper(**SMALL, dropout=0.1, device="cpu")
+        drop.load_state_dict(sd)
+        assert torch.equal(drop(t, x), y_eval)
+        y1 = drop(t, x, train=True, generator=torch.Generator().manual_seed(4))
+        y2 = drop(t, x, train=True, generator=torch.Generator().manual_seed(4))
+        y3 = drop(t, x, train=True, generator=torch.Generator().manual_seed(5))
+    assert torch.equal(y1, y2)
+    assert not torch.allclose(y1, y_eval, atol=1e-4) and not torch.allclose(y1, y3, atol=1e-4)
+    with pytest.raises(ValueError, match="Generator"):
+        drop(t, x, train=True)
+
+
+@pytest.mark.parametrize("rate", [0.001, 0.1, 0.5, 0.999])
+def test_fast_dropout_threshold_and_values(rate):
+    """thr follows the JAX formula; the kept fraction is within 3 sigma of
+    thr/256; kept values are exactly x * (256/thr) in x's dtype, dropped ones 0."""
+    thr = min(255, max(1, int(round((1.0 - rate) * 256.0))))
+    assert tunet.FastDropout.threshold(rate) == thr
+    n = 1 << 16
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.rand(n, generator=torch.Generator().manual_seed(1)) + 0.5).to(dtype)
+        y = tunet.FastDropout(rate)(x, train=True, generator=torch.Generator().manual_seed(2))
+        kept = y != 0
+        p = thr / 256
+        assert abs(kept.float().mean().item() - p) <= 3 * np.sqrt(p * (1 - p) / n)
+        scale = torch.tensor(256.0 / thr, dtype=dtype)
+        assert torch.equal(y[kept], x[kept] * scale) and y.dtype == dtype
+    assert torch.equal(tunet.FastDropout(0.0)(x, train=True), x)
+    assert torch.equal(tunet.FastDropout(1.0)(x, train=True), torch.zeros_like(x))
+    assert torch.equal(tunet.FastDropout(rate)(x), x)
+
+
+def test_fast_dropout_matches_jax_given_the_same_bits(monkeypatch):
+    """With the uint8 draws replaced by the same bits on both sides, the
+    port's FastDropout equals flax's, in f32 and bf16."""
+    bits = np.random.default_rng(3).integers(0, 256, (4, 8, 8, 16), dtype=np.uint8)
+    monkeypatch.setattr(jax.random, "bits", lambda key, shape, dtype: jnp.asarray(bits))
+    monkeypatch.setattr(torch, "randint", lambda *a, **k: torch.from_numpy(bits))
+    x = np.random.default_rng(4).standard_normal(bits.shape).astype(np.float32)
+    for jd, td in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
+        ref = junet.FastDropout(0.1).apply({}, jnp.asarray(x, jd), deterministic=False,
+                                           rngs={"dropout": jax.random.PRNGKey(0)})
+        out = tunet.FastDropout(0.1)(torch.from_numpy(x).to(td), train=True,
+                                     generator=torch.Generator())
+        np.testing.assert_array_equal(out.float().numpy(), np.asarray(ref, np.float32))
