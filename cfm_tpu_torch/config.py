@@ -1,11 +1,12 @@
 """Configuration: the fields the trainer's image branch reads, the CIFAR-10
-presets and dotted ``key=value`` overrides (counterpart of
+and MNIST presets and dotted ``key=value`` overrides (counterpart of
 ``cfm_tpu/config.py``).
 
 ``load_config("cifar10_otcfm", ["optim.lr=1e-4", "trainer.total_steps=1000"])``
 
-The other presets, YAML files and the debug overlays wait for ROADMAP.md
-queue 1 item 9.
+The presets of the other matchers (``fm``, ``sbcfm``, ``vpcfm``) wait for
+them (ROADMAP.md queue 1 item 6); the 2-D presets, YAML files and the debug
+overlays for ROADMAP.md queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ class ModelConfig:
     dropout: float = 0.1
     use_scale_shift_norm: bool = False
     resblock_updown: bool = False
-    class_cond: bool = False         # not ported: the trainer raises
+    class_cond: bool = False
+    num_classes: int = 10
     bf16: bool = True
 
 
@@ -69,6 +71,15 @@ class TrainerConfig:
 
 
 @dataclass
+class EvalConfig:
+    """The generation settings ``Trainer.generate`` reads; evaluation itself
+    is not ported (ROADMAP.md queue 1 item 4)."""
+
+    ode_method: str = "dopri5"
+    ode_steps: int = 100             # for fixed-step generation
+
+
+@dataclass
 class Config:
     name: str = "experiment"
     model: ModelConfig = field(default_factory=ModelConfig)
@@ -76,6 +87,7 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     trainer: TrainerConfig = field(default_factory=TrainerConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
 
 
 def _preset_cifar10(matcher: str) -> Config:
@@ -89,16 +101,43 @@ def _preset_cifar10(matcher: str) -> Config:
         data=DataConfig(dataset="cifar10", batch_size=128),
         optim=OptimConfig(lr=2e-4, warmup_steps=5000, grad_clip=1.0, ema_decay=0.9999),
         trainer=TrainerConfig(total_steps=400001, ckpt_interval=20000),
+        eval=EvalConfig(ode_method="dopri5"),
+    )
+
+
+def _preset_mnist(matcher: str, class_cond: bool = False) -> Config:
+    """The MNIST presets, as ``cfm_tpu/config.py:_preset_mnist``: a 32-channel
+    UNet at 28x28 (mult (1, 2, 2), one res block, attention at 14x14), no
+    dropout, batch 128; ``class_cond`` adds the 10-class label embedding."""
+    return Config(
+        name=f"mnist_{matcher}" + ("_cond" if class_cond else ""),
+        model=ModelConfig(kind="unet", image_dim=(28, 28, 1), num_channels=32,
+                          num_res_blocks=1, num_heads=1, num_head_channels=-1,
+                          attention_resolutions="14", dropout=0.0, class_cond=class_cond),
+        matcher=MatcherConfig(kind=matcher, sigma=0.0),
+        data=DataConfig(dataset="mnist", batch_size=128),
+        optim=OptimConfig(lr=2e-4, warmup_steps=500, ema_decay=0.999),
+        trainer=TrainerConfig(total_steps=20000, ckpt_interval=5000),
+        eval=EvalConfig(ode_method="euler"),
     )
 
 
 PRESETS = {"cifar10_icfm": lambda: _preset_cifar10("icfm"),
-           "cifar10_otcfm": lambda: _preset_cifar10("otcfm")}
+           "cifar10_otcfm": lambda: _preset_cifar10("otcfm"),
+           "mnist_icfm": lambda: _preset_mnist("icfm"),
+           "mnist_otcfm": lambda: _preset_mnist("otcfm"),
+           "mnist_otcfm_cond": lambda: _preset_mnist("otcfm", class_cond=True)}
+_OTHER_MATCHERS = ("fm", "sbcfm", "vpcfm")
 
 
 def load_config(preset: Optional[str] = None, overrides: Sequence[str] = ()) -> Config:
     """A preset with ``group.field=value`` overrides (values literal-eval'd)."""
     if preset is not None and preset not in PRESETS:
+        family, _, matcher = preset.partition("_")
+        if family in ("cifar10", "mnist") and matcher in _OTHER_MATCHERS:
+            raise NotImplementedError(f"preset {preset!r}: the {matcher} matcher is not ported "
+                                      f"yet (ROADMAP.md queue 1 item 6); the port has "
+                                      f"{sorted(PRESETS)}")
         raise NotImplementedError(f"preset {preset!r} is not ported yet (ROADMAP.md queue 1 "
                                   f"item 9); the port has {sorted(PRESETS)}")
     cfg = PRESETS[preset]() if preset else Config()

@@ -1,0 +1,283 @@
+// GroupNorm (+ SiLU) forward and backward on Hopper (sm_90a), NHWC.
+//
+// Replaces the TPU kernels cfm_tpu/ops/pallas_groupnorm.py:_gn_silu_fwd_kernel
+// (launched by _gn_silu_fwd_pallas) and _gn_silu_bwd_kernel (launched by
+// _gn_silu_bwd_pallas). The arithmetic is that of their plain PyTorch
+// versions in cfm_tpu_torch/ops/groupnorm.py:
+//   forward:  per (item n, group g), over HW x cg elements in f32, the mean,
+//             then the variance as the mean of (x - mean)^2: two passes,
+//             recentred, never E[x^2] - E[x]^2, which cancels in f32 when
+//             |mean| >> std. inv = 1 / sqrt(var + eps);
+//             y = (x - mean) * inv * scale + bias, then y * sigmoid(y) with
+//             SiLU, rounded once to x's dtype. The per-channel mean and inv
+//             (f32) are written for the backward, as the TPU kernel does.
+//   backward: norm recomputed from x and the saved statistics;
+//             dy = g * s * (1 + y * (1 - s)) with SiLU (s = sigmoid(y),
+//             y = norm * scale + bias), else g; dnorm = dy * scale;
+//             dx = inv * (dnorm - mean_g(dnorm) - norm * mean_g(dnorm * norm)),
+//             rounded to x's dtype; dscale = sum of dy * norm and dbias = sum
+//             of dy over items and pixels, in f32.
+//
+// Layout. x is (N, HW, C) with groups of cg = C / G contiguous channels. One
+// block per (item, group) would read cg = 1-4 channels (every MNIST shape) at
+// a stride of C: 2 to 16 bytes of each 32-byte sector. Instead a block takes
+// one item and a strip of whole groups about 32 channels wide, and its
+// threads read the strip row by row, neighbouring threads on neighbouring
+// channels: each warp's load is one contiguous run of a row (64 bytes in
+// bf16, 128 in f32). Each thread keeps one column, sums it over its rows,
+// and the block folds the column sums into group sums in shared memory, as
+// the TPU kernel folds its (1, C) column sums with one-hot matmuls.
+//
+// Cross-item sums. dscale and dbias sum over all items. The TPU kernel
+// carries them across its sequential grid; blocks here run in no order, so
+// each block writes its item's column sums to a workspace and a second kernel
+// adds the items in a fixed order: the result does not change from run to
+// run (no atomics).
+//
+// What bounds it: bytes. A few dozen flops per element against reading x
+// (and g) and writing the output. The forward reads a block's strip three
+// times and the backward twice; the repeat reads (a strip is at most 64 KB in
+// bf16 at 32x32 and 32 channels) mostly hit the 50 MB L2. Keeping the strip
+// on chip and 16-byte loads are later work; chip_smoke.py reports the bound
+// (bytes at 3.35 TB/s) beside the kernels' times.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kThreads = 256;
+constexpr int kStrip = 32;  // target channels per block; also the most groups per block
+
+template <typename T> __device__ __forceinline__ float to_f(T v);
+template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f<bf16>(bf16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
+
+__device__ __forceinline__ float sigmoid(float y) { return 1.f / (1.f + expf(-y)); }
+
+// The strip of block (blockIdx.x, item blockIdx.y): groups [g0, g0 + ng),
+// channels [c0, c0 + W). Thread t < R * W owns column col = t % W and reads
+// rows r0 = t / W, r0 + R, r0 + 2R, ...; the other threads only help reduce.
+struct Strip {
+  int ng, W, R, c0, col, r0;
+  bool active;
+  __device__ Strip(int G, int cg, int gpb) {
+    const int g0 = blockIdx.x * gpb;
+    ng = min(gpb, G - g0);
+    W = ng * cg;
+    R = kThreads / W;
+    c0 = g0 * cg;
+    col = threadIdx.x % W;
+    r0 = threadIdx.x / W;
+    active = r0 < R;
+  }
+};
+
+// Sum of part[rr * W + j] over the R row slots and the cg columns j of group k.
+__device__ float fold_group(const float* part, int k, int cg, int W, int R) {
+  float s = 0.f;
+  for (int j = k * cg; j < (k + 1) * cg; ++j)
+    for (int rr = 0; rr < R; ++rr) s += part[rr * W + j];
+  return s;
+}
+
+template <bool kSilu>
+__device__ __forceinline__ float dy_of(float g, float norm, float sc, float bi) {
+  if (!kSilu) return g;
+  const float y = norm * sc + bi, s = sigmoid(y);
+  return g * s * (1.f + y * (1.f - s));
+}
+
+template <typename T, bool kSilu>
+__global__ void __launch_bounds__(kThreads)
+gn_silu_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                   const float* __restrict__ bias, T* __restrict__ out,
+                   float* __restrict__ mean_c, float* __restrict__ inv_c,
+                   int HW, int C, int G, int cg, int gpb, float eps) {
+  __shared__ float part[kThreads];
+  __shared__ float gmean[kStrip], ginv[kStrip];
+  const Strip s(G, cg, gpb);
+  const int n = blockIdx.y, c = s.c0 + s.col, k = s.col / cg;
+  const size_t base = (size_t)n * HW * C + c;
+  const float cnt = (float)HW * (float)cg;
+
+  float acc = 0.f;
+  if (s.active)
+    for (int r = s.r0; r < HW; r += s.R) acc += to_f<T>(x[base + (size_t)r * C]);
+  part[threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.x < s.ng) gmean[threadIdx.x] = fold_group(part, threadIdx.x, cg, s.W, s.R) / cnt;
+  __syncthreads();
+  const float mu = gmean[k];
+
+  acc = 0.f;
+  if (s.active)
+    for (int r = s.r0; r < HW; r += s.R) {
+      const float d = to_f<T>(x[base + (size_t)r * C]) - mu;
+      acc = fmaf(d, d, acc);
+    }
+  part[threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.x < s.ng)
+    ginv[threadIdx.x] = 1.f / sqrtf(fold_group(part, threadIdx.x, cg, s.W, s.R) / cnt + eps);
+  __syncthreads();
+  if (!s.active) return;
+  const float inv = ginv[k];
+  if (s.r0 == 0) {
+    mean_c[(size_t)n * C + c] = mu;
+    inv_c[(size_t)n * C + c] = inv;
+  }
+  const float sc = scale[c], bi = bias[c];
+  for (int r = s.r0; r < HW; r += s.R) {
+    const size_t i = base + (size_t)r * C;
+    float y = (to_f<T>(x[i]) - mu) * inv * sc + bi;
+    if (kSilu) y = y * sigmoid(y);
+    out[i] = from_f<T>(y);
+  }
+}
+
+// dx for one item's strip; the item's column sums of dy and dy * norm go to
+// ws_db and ws_ds (N, C) for gn_silu_wgrad_kernel.
+template <typename T, bool kSilu>
+__global__ void __launch_bounds__(kThreads)
+gn_silu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gy,
+                   const float* __restrict__ scale, const float* __restrict__ bias,
+                   const float* __restrict__ mean_c, const float* __restrict__ inv_c,
+                   T* __restrict__ dx, float* __restrict__ ws_ds, float* __restrict__ ws_db,
+                   int HW, int C, int G, int cg, int gpb) {
+  __shared__ float pa[kThreads], pb[kThreads], ca[kThreads], cb[kThreads];
+  __shared__ float s1[kStrip], s2[kStrip];
+  const Strip s(G, cg, gpb);
+  const int n = blockIdx.y, c = s.c0 + s.col, k = s.col / cg;
+  const size_t base = (size_t)n * HW * C + c;
+  const float cnt = (float)HW * (float)cg;
+  const float mu = mean_c[(size_t)n * C + c], inv = inv_c[(size_t)n * C + c];
+  const float sc = scale[c], bi = bias[c];
+
+  float sdy = 0.f, sdyn = 0.f;
+  if (s.active)
+    for (int r = s.r0; r < HW; r += s.R) {
+      const size_t i = base + (size_t)r * C;
+      const float norm = (to_f<T>(x[i]) - mu) * inv;
+      const float d = dy_of<kSilu>(to_f<T>(gy[i]), norm, sc, bi);
+      sdy += d;
+      sdyn = fmaf(d, norm, sdyn);
+    }
+  pa[threadIdx.x] = sdy;
+  pb[threadIdx.x] = sdyn;
+  __syncthreads();
+  if (threadIdx.x < s.W) {  // this column's totals over the item's pixels
+    float a = 0.f, b = 0.f;
+    for (int rr = 0; rr < s.R; ++rr) {
+      a += pa[rr * s.W + threadIdx.x];
+      b += pb[rr * s.W + threadIdx.x];
+    }
+    ws_db[(size_t)n * C + c] = a;
+    ws_ds[(size_t)n * C + c] = b;
+    ca[threadIdx.x] = a * sc;  // the column sums of dnorm and dnorm * norm
+    cb[threadIdx.x] = b * sc;
+  }
+  __syncthreads();
+  if (threadIdx.x < s.ng) {
+    float a = 0.f, b = 0.f;
+    for (int j = threadIdx.x * cg; j < (threadIdx.x + 1) * cg; ++j) {
+      a += ca[j];
+      b += cb[j];
+    }
+    s1[threadIdx.x] = a / cnt;
+    s2[threadIdx.x] = b / cnt;
+  }
+  __syncthreads();
+  if (!s.active) return;
+  const float m1 = s1[k], m2 = s2[k];
+  for (int r = s.r0; r < HW; r += s.R) {
+    const size_t i = base + (size_t)r * C;
+    const float norm = (to_f<T>(x[i]) - mu) * inv;
+    const float dnorm = dy_of<kSilu>(to_f<T>(gy[i]), norm, sc, bi) * sc;
+    dx[i] = from_f<T>(inv * (dnorm - m1 - norm * m2));
+  }
+}
+
+// dscale[c] and dbias[c]: the items' column sums added in item order.
+__global__ void gn_silu_wgrad_kernel(const float* __restrict__ ws_ds,
+                                     const float* __restrict__ ws_db, float* __restrict__ dscale,
+                                     float* __restrict__ dbias, int N, int C) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  float a = 0.f, b = 0.f;
+  for (int n = 0; n < N; ++n) {
+    a += ws_ds[(size_t)n * C + c];
+    b += ws_db[(size_t)n * C + c];
+  }
+  dscale[c] = a;
+  dbias[c] = b;
+}
+
+// Groups per block: whole groups up to about kStrip channels.
+int groups_per_block(int cg) { return cg >= kStrip ? 1 : kStrip / cg; }
+
+bool bad_shape(int N, int HW, int C, int G) {
+  return N <= 0 || N > 65535 || HW <= 0 || G <= 0 || C % G || C / G > kThreads;
+}
+
+}  // namespace
+
+extern "C" {
+
+// x, out: (N, HW, C) float32 (dtype 0) or bfloat16 (dtype 1); scale, bias:
+// (C,) f32; mean, inv: (N, C) f32 out. Returns 0 or the CUDA error code.
+int gn_silu_fwd(const void* x, const float* scale, const float* bias, void* out, float* mean,
+                float* inv, int N, int HW, int C, int G, float eps, int silu, int dtype,
+                void* stream) {
+  if (bad_shape(N, HW, C, G)) return (int)cudaErrorInvalidValue;
+  const int cg = C / G, gpb = groups_per_block(cg);
+  const dim3 grid((G + gpb - 1) / gpb, N);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GN_FWD(T, S)                                                                      \
+  gn_silu_fwd_kernel<T, S><<<grid, kThreads, 0, st>>>(static_cast<const T*>(x), scale, bias, \
+                                                      static_cast<T*>(out), mean, inv, HW, C, \
+                                                      G, cg, gpb, eps)
+  if (dtype == 0) {
+    if (silu) GN_FWD(float, true); else GN_FWD(float, false);
+  } else {
+    if (silu) GN_FWD(bf16, true); else GN_FWD(bf16, false);
+  }
+#undef GN_FWD
+  return (int)cudaGetLastError();
+}
+
+// x, g, dx: (N, HW, C) of dtype; scale, bias: (C,) f32; mean, inv: (N, C) f32
+// from gn_silu_fwd; dscale, dbias: (C,) f32 out; ws: 2 * N * C f32 scratch.
+int gn_silu_bwd(const void* x, const void* g, const float* scale, const float* bias,
+                const float* mean, const float* inv, void* dx, float* dscale, float* dbias,
+                float* ws, int N, int HW, int C, int G, int silu, int dtype, void* stream) {
+  if (bad_shape(N, HW, C, G)) return (int)cudaErrorInvalidValue;
+  const int cg = C / G, gpb = groups_per_block(cg);
+  const dim3 grid((G + gpb - 1) / gpb, N);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* ws_ds = ws;
+  float* ws_db = ws + (size_t)N * C;
+#define GN_BWD(T, S)                                                                          \
+  gn_silu_bwd_kernel<T, S><<<grid, kThreads, 0, st>>>(                                        \
+      static_cast<const T*>(x), static_cast<const T*>(g), scale, bias, mean, inv,             \
+      static_cast<T*>(dx), ws_ds, ws_db, HW, C, G, cg, gpb)
+  if (dtype == 0) {
+    if (silu) GN_BWD(float, true); else GN_BWD(float, false);
+  } else {
+    if (silu) GN_BWD(bf16, true); else GN_BWD(bf16, false);
+  }
+#undef GN_BWD
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  gn_silu_wgrad_kernel<<<(C + 255) / 256, 256, 0, st>>>(ws_ds, ws_db, dscale, dbias, N, C);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -31,15 +31,16 @@ def generate(model: torch.nn.Module, n: int, *, x_shape: Tuple[int, int, int] = 
              method: str = "dopri5", n_steps: int = 100, rtol: float = 1e-5,
              atol: float = 1e-5, max_steps: int = 16384, batch_size: Optional[int] = None,
              generator: Optional[torch.Generator] = None, x0: Optional[torch.Tensor] = None,
-             device: DeviceLike = None) -> Generated:
+             y: Optional[torch.Tensor] = None, device: DeviceLike = None) -> Generated:
     """Generate ``n`` images of shape ``x_shape`` (H, W, C) with ``model``.
 
     Runs on ``device`` (``cuda`` unless ``device="cpu"`` is asked for), where
     the model's parameters must already be. The noise comes from
     ``generator`` (a ``torch.Generator`` on that device; default: seed 0), or
     is given as ``x0`` of shape (n, *x_shape). Batches of ``batch_size``
-    (default: all ``n``) are integrated one after another. Raises if dopri5
-    does not reach t = 1 within ``max_steps``.
+    (default: all ``n``) are integrated one after another. ``y`` (n,) are
+    the class labels of a class-conditional model. Raises if dopri5 does not
+    reach t = 1 within ``max_steps``.
     """
     device = resolve_device(device)
     if method not in _ADAPTIVE + _FIXED:
@@ -54,13 +55,16 @@ def generate(model: torch.nn.Module, n: int, *, x_shape: Tuple[int, int, int] = 
     elif tuple(x0.shape) != (n,) + tuple(x_shape):
         raise ValueError(f"x0 must have shape {(n,) + tuple(x_shape)}, got {tuple(x0.shape)}")
     x0 = x0.to(device=device, dtype=torch.float32)
+    if y is not None and tuple(y.shape) != (n,):
+        raise ValueError(f"y must have shape ({n},), got {tuple(y.shape)}")
     ts = (np.array([0.0, 1.0], np.float32) if method in _ADAPTIVE
           else np.linspace(0.0, 1.0, n_steps + 1, dtype=np.float32))
-    f = vector_field_from_model(model)
     images, nfe = [], 0
     with torch.inference_mode():
         for start in range(0, n, batch_size or n):
-            sol = odeint(f, x0[start:start + (batch_size or n)], ts, method=method,
+            batch = slice(start, start + (batch_size or n))
+            f = vector_field_from_model(model, None if y is None else y[batch].to(device))
+            sol = odeint(f, x0[batch], ts, method=method,
                          rtol=rtol, atol=atol, max_steps=max_steps, return_trajectory=False)
             if not bool(torch.isfinite(sol.final).all()):
                 raise RuntimeError(f"{method} did not reach t=1 within max_steps={max_steps} "

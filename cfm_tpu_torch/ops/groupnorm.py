@@ -1,20 +1,46 @@
-"""GroupNorm with float32 statistics and an optional fused SiLU.
+"""GroupNorm with float32 statistics and an optional fused SiLU, forward and
+backward (counterpart of ``cfm_tpu/ops/pallas_groupnorm.py``).
 
-Counterpart of ``_gn_silu_reference`` in ``cfm_tpu/ops/pallas_groupnorm.py``,
-which is what the JAX UNet's ``GroupNorm32`` calls (its Pallas GroupNorm
-kernels are not routed in the model). Plain PyTorch here too.
+- :func:`gn_silu_reference` is the plain forward, ``_gn_silu_reference``'s
+  arithmetic: two-pass recentred statistics in float32 (the mean of
+  (x - mean)^2, never E[x^2] - E[x]^2), affine and SiLU in float32, one
+  rounding to ``x.dtype``. :func:`gn_silu_fwd_reference` also returns the
+  per-channel mean and inverse standard deviation, as the TPU kernel
+  ``_gn_silu_fwd_kernel`` does. :func:`gn_silu_bwd_reference` is a batched
+  transcription of ``_gn_silu_bwd_kernel`` (not autograd of the plain
+  forward). They are the CPU path and the oracles the CUDA kernels are held
+  against.
+- :func:`fused_group_norm_silu` is the wrapper, named after the JAX function.
+  A CPU tensor goes to the plain versions; a CUDA tensor launches the
+  hand-written Hopper kernels (``csrc/groupnorm.cu``) or raises. When a
+  gradient is wanted it is a ``torch.autograd.Function`` that saves x and the
+  statistics and whose backward is :func:`fused_group_norm_silu_bwd`.
+
+The JAX UNet calls the plain reference (on the TPU, XLA fuses the GroupNorm
+chain into its neighbours); the port's ``GroupNorm32`` routes every call
+here, since eager PyTorch fuses nothing.
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import Tuple
+
 import torch
 
+from cfm_tpu_torch.ops import _build
 
-def gn_silu_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                      num_groups: int, eps: float = 1e-5,
-                      apply_silu: bool = False) -> torch.Tensor:
-    """x: (N, H, W, C) any float dtype; scale/bias: (C,). Two-pass statistics,
-    affine and SiLU in float32, then cast back to ``x.dtype``."""
+_MAX_GROUP_CHANNELS = 256  # the kernels' limit on C / num_groups (one block's threads)
+
+
+def gn_silu_fwd_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                          num_groups: int, eps: float = 1e-5, apply_silu: bool = False
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(out, mean, inv): the plain forward and its per-channel statistics.
+
+    x: (N, H, W, C) any float dtype; scale/bias: (C,). ``mean`` and ``inv``
+    are (N, C) float32, each channel holding its group's mean and
+    1 / sqrt(var + eps)."""
     n, h, w, c = x.shape
     cg = c // num_groups
     xf = x.float().reshape(n, h * w, c)
@@ -23,9 +49,205 @@ def gn_silu_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     centered = xf - mean_c[:, None, :]
     s2 = centered.square().mean(dim=1)
     var = s2.reshape(n, num_groups, cg).mean(dim=-1)
-    rstd_c = torch.rsqrt(var + eps).repeat_interleave(cg, dim=-1)
-    out = (centered * rstd_c[:, None, :]).reshape(n, h, w, c)
+    inv_c = torch.rsqrt(var + eps).repeat_interleave(cg, dim=-1)
+    out = (centered * inv_c[:, None, :]).reshape(n, h, w, c)
     out = out * scale.float() + bias.float()
     if apply_silu:
         out = out * torch.sigmoid(out)
-    return out.to(x.dtype)
+    return out.to(x.dtype), mean_c, inv_c
+
+
+def gn_silu_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                      num_groups: int, eps: float = 1e-5,
+                      apply_silu: bool = False) -> torch.Tensor:
+    """x: (N, H, W, C) any float dtype; scale/bias: (C,). Two-pass statistics,
+    affine and SiLU in float32, then cast back to ``x.dtype``."""
+    return gn_silu_fwd_reference(x, scale, bias, num_groups, eps, apply_silu)[0]
+
+
+def gn_silu_bwd_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                          mean: torch.Tensor, inv: torch.Tensor, g: torch.Tensor,
+                          num_groups: int, apply_silu: bool = False
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dscale, dbias) for the output gradient ``g``, a batched
+    transcription of ``_gn_silu_bwd_kernel``: norm recomputed from x and the
+    saved (N, C) statistics, dy through the SiLU, dnorm = dy * scale,
+    dx = inv * (dnorm - mean_g(dnorm) - norm * mean_g(dnorm * norm)) rounded
+    to x's dtype, and the float32 sums dscale = sum(dy * norm), dbias =
+    sum(dy) over items and pixels."""
+    n, h, w, c = x.shape
+    cg = c // num_groups
+    xf = x.float().reshape(n, h * w, c)
+    gf = g.float().reshape(n, h * w, c)
+    norm = (xf - mean[:, None, :]) * inv[:, None, :]
+    scale, bias = scale.float(), bias.float()
+    if apply_silu:
+        y = norm * scale + bias
+        sig = torch.sigmoid(y)
+        dy = gf * sig * (1.0 + y * (1.0 - sig))
+    else:
+        dy = gf
+    dnorm = dy * scale
+    cnt = float(h * w * cg)
+
+    def group_mean(t):  # (n, hw, c) -> its group means broadcast back to (n, 1, c)
+        cols = t.sum(dim=1).reshape(n, num_groups, cg).sum(dim=-1) / cnt
+        return cols.repeat_interleave(cg, dim=-1)[:, None, :]
+
+    dx = inv[:, None, :] * (dnorm - group_mean(dnorm) - norm * group_mean(dnorm * norm))
+    dscale = (dy * norm).sum(dim=(0, 1))
+    dbias = dy.sum(dim=(0, 1))
+    return dx.reshape(x.shape).to(x.dtype), dscale, dbias
+
+
+def _check(x, scale, bias, num_groups):
+    if x.dim() != 4:
+        raise ValueError(f"x must be (N, H, W, C), got shape {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    n, h, w, c = x.shape
+    if num_groups <= 0 or c % num_groups:
+        raise ValueError(f"C={c} must divide by num_groups={num_groups}")
+    if c // num_groups > _MAX_GROUP_CHANNELS:
+        raise ValueError(f"C / num_groups = {c // num_groups} exceeds the kernels' "
+                         f"{_MAX_GROUP_CHANNELS} channels per group")
+    if n * h * w == 0:
+        raise ValueError(f"x is empty: shape {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous (N, H, W, C)")
+    for name, t in (("scale", scale), ("bias", bias)):
+        if tuple(t.shape) != (c,) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 of shape ({c},), got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {x.device}")
+
+
+def _device_checks(x):
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.shape[0] > 65535:
+        raise ValueError(f"N={x.shape[0]} exceeds the kernels' grid limit of 65535 items")
+
+
+def fused_group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                          num_groups: int = 32, eps: float = 1e-5,
+                          apply_silu: bool = True) -> torch.Tensor:
+    """silu(GroupNorm(x) * scale + bias), or without the SiLU.
+
+    x: (N, H, W, C) float32 or bfloat16, contiguous; scale/bias: (C,)
+    float32. On a CUDA tensor this launches the forward kernel (and adds one
+    to ``fused_group_norm_silu.launches``); on a CPU tensor it runs the plain
+    forward. When a gradient is wanted it goes through
+    :class:`_FusedGroupNormSiLU`, whose backward is
+    :func:`fused_group_norm_silu_bwd`.
+    """
+    _check(x, scale, bias, num_groups)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
+        return _FusedGroupNormSiLU.apply(x, scale, bias, num_groups, eps, apply_silu)
+    return _forward(x, scale, bias, num_groups, eps, apply_silu)[0]
+
+
+fused_group_norm_silu.launches = 0
+
+
+class _FusedGroupNormSiLU(torch.autograd.Function):
+    """GroupNorm(+SiLU) as an autograd node that saves x and the (N, C)
+    statistics, as the JAX ``custom_vjp``'s TPU path does."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, apply_silu):
+        out, mean, inv = _forward(x, scale, bias, num_groups, eps, apply_silu)
+        ctx.save_for_backward(x, scale, bias, mean, inv)
+        ctx.num_groups, ctx.apply_silu = num_groups, apply_silu
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias, mean, inv = ctx.saved_tensors
+        dx, dscale, dbias = fused_group_norm_silu_bwd(x, scale, bias, mean, inv, g.contiguous(),
+                                                      ctx.num_groups, ctx.apply_silu)
+        return dx, dscale, dbias, None, None, None
+
+
+def fused_group_norm_silu_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                              num_groups: int, eps: float = 1e-5, apply_silu: bool = True
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(out, mean, inv) as :func:`gn_silu_fwd_reference` gives them: the
+    forward kernel on a CUDA tensor (counted in
+    ``fused_group_norm_silu.launches``), the plain forward on a CPU tensor."""
+    _check(x, scale, bias, num_groups)
+    return _forward(x, scale, bias, num_groups, eps, apply_silu)
+
+
+def _forward(x, scale, bias, num_groups, eps, apply_silu):
+    if x.device.type == "cpu":
+        return gn_silu_fwd_reference(x, scale, bias, num_groups, eps, apply_silu)
+    _device_checks(x)
+    n, h, w, c = x.shape
+    out = torch.empty_like(x)
+    mean = torch.empty((n, c), device=x.device, dtype=torch.float32)
+    inv = torch.empty_like(mean)
+    with torch.cuda.device(x.device):
+        err = _lib().gn_silu_fwd(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), mean.data_ptr(),
+            inv.data_ptr(), n, h * w, c, num_groups, eps, int(apply_silu),
+            0 if x.dtype == torch.float32 else 1,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"gn_silu_fwd launch failed: CUDA error {err}")
+    fused_group_norm_silu.launches += 1
+    return out, mean, inv
+
+
+def fused_group_norm_silu_bwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                              mean: torch.Tensor, inv: torch.Tensor, g: torch.Tensor,
+                              num_groups: int, apply_silu: bool = True
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dscale, dbias) of the block at x for the output gradient g.
+
+    On a CUDA tensor this launches the backward kernel (and adds one to
+    ``fused_group_norm_silu_bwd.launches``); on a CPU tensor it runs
+    :func:`gn_silu_bwd_reference`."""
+    _check(x, scale, bias, num_groups)
+    n, h, w, c = x.shape
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device or not g.is_contiguous():
+        raise ValueError(f"g must be contiguous and match x ({tuple(x.shape)}, {x.dtype}, "
+                         f"{x.device}), got ({tuple(g.shape)}, {g.dtype}, {g.device})")
+    for name, t in (("mean", mean), ("inv", inv)):
+        if tuple(t.shape) != (n, c) or t.dtype != torch.float32 or t.device != x.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 of shape ({n}, {c}) on "
+                             f"{x.device}")
+    if x.device.type == "cpu":
+        return gn_silu_bwd_reference(x, scale, bias, mean, inv, g, num_groups, apply_silu)
+    _device_checks(x)
+    dx = torch.empty_like(x)
+    dscale = torch.empty(c, device=x.device, dtype=torch.float32)
+    dbias = torch.empty_like(dscale)
+    ws = torch.empty((2, n, c), device=x.device, dtype=torch.float32)  # per-item column sums
+    with torch.cuda.device(x.device):
+        err = _lib().gn_silu_bwd(
+            x.data_ptr(), g.data_ptr(), scale.data_ptr(), bias.data_ptr(), mean.data_ptr(),
+            inv.data_ptr(), dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), ws.data_ptr(),
+            n, h * w, c, num_groups, int(apply_silu), 0 if x.dtype == torch.float32 else 1,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"gn_silu_bwd launch failed: CUDA error {err}")
+    fused_group_norm_silu_bwd.launches += 1
+    return dx, dscale, dbias
+
+
+fused_group_norm_silu_bwd.launches = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("groupnorm")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.gn_silu_fwd.argtypes = [p] * 6 + [i] * 4 + [ctypes.c_float, i, i, p]
+        lib.gn_silu_fwd.restype = i
+        lib.gn_silu_bwd.argtypes = [p] * 10 + [i] * 6 + [p]
+        lib.gn_silu_bwd.restype = i
+        lib._typed = True
+    return lib

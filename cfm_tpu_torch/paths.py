@@ -1,5 +1,6 @@
 """Conditional probability paths and flow matchers (counterpart of
-``cfm_tpu/paths.py``): I-CFM and OT-CFM.
+``cfm_tpu/paths.py``): I-CFM and OT-CFM, and OT-CFM's label-carrying
+sampling for class-conditional training.
 
 Every sampling method takes an explicit ``torch.Generator``. The draws can
 also be handed in (``t=``, ``eps=``, ``plan_noise=``), which is how the
@@ -89,6 +90,22 @@ class _CoupledMixin:
                                                   noise=plan_noise)
         out = ConditionalFlowMatcher.sample_location_and_conditional_flow(
             self, generator, x0, x1, t, return_noise, False, eps)
+        return out + (bad,) if return_coupling_status else out
+
+    def guided_sample_location_and_conditional_flow(
+            self, generator, x0, x1, y0=None, y1=None, t=None, return_noise: bool = False,
+            return_coupling_status: bool = False, eps=None, plan_noise=None):
+        """Coupled (t, xt, ut, y0, y1[, eps][, degenerate]): the labels are
+        re-paired with their samples by the same plan draws. The base
+        I-CFM matcher has no such method, as in the JAX package."""
+        if getattr(self, "_skip_coupling", False):
+            bad = torch.zeros((), dtype=torch.bool, device=x0.device)
+        else:
+            x0, x1, y0, y1, bad = self.ot_sampler.sample_plan_with_labels(
+                generator, x0, x1, y0, y1, return_status=True, noise=plan_noise)
+        out = ConditionalFlowMatcher.sample_location_and_conditional_flow(
+            self, generator, x0, x1, t, return_noise, False, eps)
+        out = out[:3] + (y0, y1) + out[3:]
         return out + (bad,) if return_coupling_status else out
 
 

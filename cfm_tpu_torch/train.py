@@ -153,8 +153,13 @@ def _is_coupled(matcher) -> bool:
 
 
 def make_train_step(matcher, model: torch.nn.Module, optimizer: Optimizer,
-                    ema_decay: float = 0.9999, train_mode: bool = False) -> Callable:
-    """Build ``step(state, x0, x1, generator=None, draws=None) -> metrics``.
+                    ema_decay: float = 0.9999, train_mode: bool = False,
+                    class_conditional: bool = False) -> Callable:
+    """Build ``step(state, x0, x1, generator=None, draws=None) -> metrics``,
+    or with ``class_conditional`` ``step(state, x0, x1, y0, y1,
+    generator=None, draws=None)``: the labels ride through the coupling
+    (``guided_sample_location_and_conditional_flow``) and the model is
+    called as ``model(t, xt, y1)``, as in the JAX step.
 
     ``train_mode`` runs the model with dropout (masks from the draws'
     generator). The metrics are 0-d device tensors: ``loss``, ``flow_loss``,
@@ -162,20 +167,29 @@ def make_train_step(matcher, model: torch.nn.Module, optimizer: Optimizer,
     coupling) and ``grad_norm`` (before clipping).
     """
     coupled = _is_coupled(matcher)
+    if class_conditional and not hasattr(matcher, "guided_sample_location_and_conditional_flow"):
+        raise ValueError(f"class-conditional training needs a coupled matcher (otcfm); "
+                         f"{type(matcher).__name__} carries no labels, as in the JAX package")
 
-    def step(state: TrainState, x0: torch.Tensor, x1: torch.Tensor,
-             generator: Optional[torch.Generator] = None,
-             draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
+    def flow(draws, x0, x1, y0, y1):
+        kw = dict(t=draws.t, eps=draws.eps, return_noise=True, return_coupling_status=True)
+        if coupled:
+            kw["plan_noise"] = draws.plan_u
+        if class_conditional:
+            t, xt, ut, _, y1_, _, bad = matcher.guided_sample_location_and_conditional_flow(
+                None, x0, x1, y0=y0, y1=y1, **kw)
+            return t, xt, ut, (y1_,), bad
+        t, xt, ut, _, bad = matcher.sample_location_and_conditional_flow(None, x0, x1, **kw)
+        return t, xt, ut, (), bad
+
+    def run(state, x0, x1, y0, y1, generator, draws) -> Dict[str, torch.Tensor]:
         if draws is None:
             draws = StepDraws.draw(generator, x0, coupled, train_mode)
-        kw = dict(plan_noise=draws.plan_u) if coupled else {}
-        t, xt, ut, _, bad = matcher.sample_location_and_conditional_flow(
-            None, x0, x1, t=draws.t, eps=draws.eps, return_noise=True,
-            return_coupling_status=True, **kw)
+        t, xt, ut, cond, bad = flow(draws, x0, x1, y0, y1)
         if train_mode:
-            vt = model(t, xt, train=True, generator=draws.dropout)
+            vt = model(t, xt, *cond, train=True, generator=draws.dropout)
         else:
-            vt = model(t, xt)
+            vt = model(t, xt, *cond)
         flow_loss = torch.mean(torch.square(vt - ut))
         for p in state.params:
             p.grad = None
@@ -188,4 +202,14 @@ def make_train_step(matcher, model: torch.nn.Module, optimizer: Optimizer,
         return {"loss": loss, "flow_loss": loss, "coupling_degenerate": bad.float(),
                 "grad_norm": grad_norm}
 
+    if class_conditional:
+        def step(state: TrainState, x0: torch.Tensor, x1: torch.Tensor, y0: torch.Tensor,
+                 y1: torch.Tensor, generator: Optional[torch.Generator] = None,
+                 draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
+            return run(state, x0, x1, y0, y1, generator, draws)
+    else:
+        def step(state: TrainState, x0: torch.Tensor, x1: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
+            return run(state, x0, x1, None, None, generator, draws)
     return step

@@ -4,19 +4,25 @@
 The uint8 set goes to the device once (``data.on_device``, the default) and
 each step draws batch indices there; the step's prep (normalise, flip, draw
 x0) and the train step run on the device with one generator seeded from
-``trainer.seed``. The loss is read back only at ``log_interval``.
+``trainer.seed``. The loss is read back only at ``log_interval``. With
+``model.class_cond`` the labels go to the device beside the images and are
+gathered with the same indices (y0 = y1 = the batch's labels), and the step
+carries them through the coupling into the model's class embedding.
+``generate`` samples from the EMA parameters by ODE integration.
 
 Not ported yet, and refused loudly when asked for: checkpointing and
 evaluation (``fit`` raises if a checkpoint or an evaluation would fall due),
-the data-parallel mesh (raises with more than one card unless
-``trainer.data_parallel=False``), class-conditional training and the 2-D
-branch. The harness writes no log files.
+SDE generation (ROADMAP.md queue 1 item 2), the data-parallel mesh (raises
+with more than one card unless ``trainer.data_parallel=False``) and the 2-D
+branch. Class-conditional I-CFM is refused as the JAX package fails on it:
+its matcher carries no labels. The harness writes no log files.
 """
 
 from __future__ import annotations
 
+import copy
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +31,7 @@ from cfm_tpu_torch.config import Config
 from cfm_tpu_torch.data.images import (infinite_batches, load_cifar10, load_mnist,
                                        normalize_images, random_hflip)
 from cfm_tpu_torch.device import DeviceLike, resolve_device
+from cfm_tpu_torch.generate import Generated, generate
 from cfm_tpu_torch.models.unet import UNetModelWrapper
 from cfm_tpu_torch.paths import ConditionalFlowMatcher, ExactOptimalTransportConditionalFlowMatcher
 from cfm_tpu_torch.train import TrainState, init_train_state, make_optimizer, make_train_step
@@ -50,7 +57,7 @@ def build_model(cfg: Config, device: DeviceLike = None):
         channel_mult=m.channel_mult, num_heads=m.num_heads,
         num_head_channels=m.num_head_channels, attention_resolutions=m.attention_resolutions,
         dropout=m.dropout, use_scale_shift_norm=m.use_scale_shift_norm,
-        resblock_updown=m.resblock_updown,
+        resblock_updown=m.resblock_updown, class_cond=m.class_cond, num_classes=m.num_classes,
         dtype=torch.bfloat16 if m.bf16 else torch.float32, seed=cfg.trainer.seed,
         device=device)
 
@@ -63,9 +70,6 @@ class Trainer:
         if cfg.data.dataset not in ("cifar10", "mnist"):
             raise NotImplementedError(f"dataset {cfg.data.dataset!r}: the 2-D branch is not "
                                       f"ported yet (ROADMAP.md queue 1 item 5)")
-        if cfg.model.class_cond:
-            raise NotImplementedError("class-conditional training is not ported yet "
-                                      "(ROADMAP.md queue 1 item 9)")
         if cfg.trainer.data_parallel and torch.cuda.device_count() > 1:
             raise NotImplementedError(
                 "the data-parallel mesh is not ported yet (ROADMAP.md queue 1 item 10); "
@@ -79,34 +83,46 @@ class Trainer:
         self.state: TrainState = init_train_state(self.model, self.optimizer)
         self.step_fn = make_train_step(self.matcher, self.model, self.optimizer,
                                        ema_decay=cfg.optim.ema_decay,
-                                       train_mode=cfg.model.dropout > 0)
+                                       train_mode=cfg.model.dropout > 0,
+                                       class_conditional=cfg.model.class_cond)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.trainer.seed)
         print(f"model: {cfg.model.kind}  params: {sum(p.numel() for p in self.state.params):,}"
               f"  device: {self.device}")
 
+        self._ema_model: Optional[torch.nn.Module] = None
+
         loader = load_cifar10 if cfg.data.dataset == "cifar10" else load_mnist
         try:
-            data, _ = loader(cfg.data.data_dir, train=True)
+            data, labels = loader(cfg.data.data_dir, train=True)
         except FileNotFoundError:
             if not cfg.data.synthetic_fallback:
                 raise
-            data, _ = loader(cfg.data.data_dir, train=True, synthetic=True)
+            data, labels = loader(cfg.data.data_dir, train=True, synthetic=True)
             print(f"WARNING: {cfg.data.dataset} not found on disk; using synthetic data")
+        labels = labels.astype(np.int64) if cfg.model.class_cond else None
         if cfg.data.on_device:
             self._device_data = torch.from_numpy(data).to(self.device)
+            self._device_labels = None if labels is None else torch.from_numpy(labels).to(
+                self.device)
             self._batches = None
         else:
-            self._device_data = None
-            self._batches = infinite_batches(data, None, cfg.data.batch_size,
+            self._device_data = self._device_labels = None
+            self._batches = infinite_batches(data, labels, cfg.data.batch_size,
                                              seed=cfg.trainer.seed)
 
-    def _batch(self) -> torch.Tensor:
-        """The next uint8 batch on the device."""
+    def _batch(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The next uint8 batch on the device, and its labels when the model
+        is class-conditional (else None)."""
         if self._device_data is not None:
             idx = torch.randint(0, self._device_data.shape[0], (self.cfg.data.batch_size,),
                                 generator=self.generator, device=self.device)
-            return self._device_data[idx]
-        return torch.from_numpy(next(self._batches)).to(self.device)
+            y = None if self._device_labels is None else self._device_labels[idx]
+            return self._device_data[idx], y
+        batch = next(self._batches)
+        if self.cfg.model.class_cond:
+            x, y = batch
+            return torch.from_numpy(x).to(self.device), torch.from_numpy(y).to(self.device)
+        return torch.from_numpy(batch).to(self.device), None
 
     def _prep(self, x1_u8: torch.Tensor):
         """Normalise to [-1, 1], flip, and draw the source x0 ~ N(0, I)."""
@@ -133,8 +149,10 @@ class Trainer:
         self._refuse_unported(start, total)
         last_t, last_step = time.perf_counter(), start
         for i in range(start, total):
-            x0, x1 = self._prep(self._batch())
-            metrics = self.step_fn(self.state, x0, x1, generator=self.generator)
+            x1_u8, y = self._batch()
+            x0, x1 = self._prep(x1_u8)
+            labels = (y, y) if y is not None else ()
+            metrics = self.step_fn(self.state, x0, x1, *labels, generator=self.generator)
             step = i + 1
             if step % cfg.trainer.log_interval == 0 or step == total:
                 out = {k: float(v) for k, v in metrics.items()}  # the one host read
@@ -145,3 +163,24 @@ class Trainer:
                 if not np.isfinite(out["loss"]):
                     raise ValueError(f"Loss Not Finite at step {step}: {out['loss']}")
         return self.state
+
+    def generate(self, n: int, method: Optional[str] = None, n_steps: Optional[int] = None,
+                 y: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None) -> Generated:
+        """Sample ``n`` images from the EMA parameters by ODE integration from
+        N(0, I), with the preset's ``eval.ode_method`` and ``eval.ode_steps``
+        unless given; ``y`` (n,) are the class labels of a class-conditional
+        model. Returns the uint8 images and the NFE."""
+        cfg = self.cfg
+        if self._ema_model is None:
+            self._ema_model = copy.deepcopy(self.model).requires_grad_(False)
+            self._ema_model.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            for p, e in zip(self._ema_model.parameters(), self.state.ema_params):
+                p.copy_(e)
+        if y is not None:
+            y = torch.as_tensor(y, device=self.device)
+        return generate(self._ema_model, n, x_shape=tuple(cfg.model.image_dim),
+                        method=method or cfg.eval.ode_method,
+                        n_steps=n_steps or cfg.eval.ode_steps, y=y, generator=generator,
+                        device=self.device)

@@ -9,49 +9,59 @@ a result:
 1. The card: ``nvidia-smi`` name and power limit, torch's device name and
    count. Refuses to run without CUDA.
 2. Builds every kernel from ``cfm_tpu_torch/csrc`` (one ``nvcc`` per
-   source, all at once: the attention-block forward and backward and the
-   auction) and prints the build time and ``ptxas`` register and
-   shared-memory lines.
+   source, all at once: the attention-block forward and backward, the
+   auction and the GroupNorm forward and backward) and prints the build time
+   and ``ptxas`` register and shared-memory lines.
 3. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it and at others that take other branches:
    the attention-block forward and backward in float32 (TF32 off) and
    bfloat16 (the backward's bf16 limit shown to catch do and ds rounded to
-   bf16), and the auction's permutation, which must be identical, on
+   bf16); the auction's permutation, which must be identical, on
    Gaussian, tied, duplicated and rank-1 costs up to n = 512, with its
-   assignment cost against scipy's.
-4. Times each kernel with CUDA events (the forward at the training and
-   the generation batch) beside its plain version, one PyTorch
-   library call of the same function where there is one (a yardstick the
-   port never calls; for the auction, scipy's solver on the host) and the
-   bound: the larger of bytes over 3.35 TB/s and operations over the peak
-   rate for their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32
-   without them; H100 SXM data-sheet peaks).
+   assignment cost against scipy's; and the GroupNorm(+SiLU) forward and
+   backward (#8, #9) at every (N, H, W, C, dtype, SiLU) that one model
+   evaluation of each path gives ``GroupNorm32`` (recorded by wrapping the
+   wrapper for that pass), plus a recentred-variance case in float32.
+4. Times each kernel with CUDA events (the attention forward at the training
+   and the generation batch; the GroupNorm kernels at the largest training
+   shape and summed over one training step's 46 calls) beside its plain
+   version, one PyTorch library call of the same function where there is
+   one (a yardstick the port never calls; for the auction, scipy's solver
+   on the host) and the bound: the larger of bytes over 3.35 TB/s and
+   operations over the peak rate for their type (989 TFLOP/s bf16 tensor
+   cores, 67 TFLOP/s f32 without them; H100 SXM data-sheet peaks).
 5. Checks generation end to end on a small input: the same weights and
    noise on the card and on the CPU (plain versions) give uint8 images
    within one level and the same NFE. Then one train step of the same
-   small model in f32 with the same draws and dropout masks on both: loss,
-   updated parameters and EMA agree.
+   small model in f32 with the same draws and dropout masks on both, and
+   one class-conditional step: loss, updated parameters and EMA agree.
 6. The generation path: the CIFAR-10 recipe width (128 channels, mult
    (1, 2, 2, 2), 2 res blocks, 4 heads x 64, attention at 16x16, bf16) with
    random seeded weights, euler at 100 steps and dopri5 at rtol = atol =
-   1e-5. The launch counts are set to 0 just before and read just after;
-   the attention-block kernel must have run 5 times per model evaluation.
+   1e-5. The launch counts are set to 0 just before each run and read just
+   after: 5 attention-block and 46 GroupNorm launches per model evaluation.
 7. Profiles one recipe-width model evaluation (batch 512, bf16) with
    ``torch.profiler``, tracing the device only, and prints the device time
    by kernel and the share of that window's wall time the device was busy.
-8. The training path, this slice's main path: ``Trainer`` on
-   ``cifar10_otcfm`` at the full recipe (bf16, batch 128, synthetic data),
-   a few warm-up steps, then ``fit`` for 30 more with every launch count set
-   to 0 just before and read just after: 1 auction, 5 attention-block
-   forward and 5 backward launches per step. Prints ms per step, images per
-   second, the first and last loss (finite) and the peak device memory.
+8. The CIFAR-10 training path: ``Trainer`` on ``cifar10_otcfm`` at the full
+   recipe (bf16, batch 128, synthetic data), a few warm-up steps, then
+   ``fit`` for 30 more with every launch count set to 0 just before and read
+   just after: 1 auction, 5 + 5 attention-block and 46 + 46 GroupNorm
+   launches per step. Prints ms per step, images per second, the first and
+   last loss (finite) and the peak device memory.
 9. Profiles three train steps as in 7 and prints, per step, the device
    time grouped as there and the device-busy share of that window's wall
    time; then three more with host tracing on, and the host operators
    that took the most CPU time.
+10. The class-conditional MNIST path: ``Trainer`` on ``mnist_otcfm_cond``
+    (bf16, batch 128, synthetic MNIST) as in 8: 1 auction, 27 + 27
+    GroupNorm and no attention-block launches per step; profiled as in 9;
+    then ``Trainer.generate`` of 80 images, 8 per class, with euler at 100
+    steps: 27 GroupNorm launches per evaluation.
 
-The last three lines are the kernels' JSON record, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+The last three lines are the kernels' JSON record (``launches`` summed over
+the paths of phases 6, 8 and 10), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -80,6 +90,12 @@ WGRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 128, 3, 30
 BLOCK_SHAPES = ((64, 64, 256, 4), (8, 72, 128, 2), (8, 64, 256, 2), (4, 136, 384, 2))
 GRADS = ("dx", "dgscale", "dgbias", "dwq", "dbq", "dwo", "dbo")
+GN_PER_EVAL = {"cifar10": 46, "mnist": 27}  # GroupNorm32 calls per model evaluation
+MNIST_GEN = 80                              # 8 samples of each of the 10 classes
+# f32 operations per element (non-tensor-core rate): the forward's two
+# statistics passes and its affine + SiLU; the backward's SiLU derivative,
+# two column sums and dx, each recomputing norm.
+GN_FWD_OPS, GN_BWD_OPS = 12, 30
 
 
 def log(*a):
@@ -375,6 +391,203 @@ def time_attn_block_bwd(H=4, G=32):
     return dict(times, bound_ms=bound_ms, bound_by=bound_by)
 
 
+def mnist_model(device="cuda"):
+    """The ``mnist_otcfm_cond`` preset's UNet (bf16, 10 classes), flax's
+    initialisation from seed 0, as its ``Trainer`` builds it."""
+    from cfm_tpu_torch.config import load_config
+    from cfm_tpu_torch.trainer import build_model
+
+    return build_model(load_config("mnist_otcfm_cond"), device)
+
+
+def record_gn_shapes():
+    """Phase 3: the (N, H, W, C, groups, dtype, SiLU) tuples, with their counts,
+    that ``GroupNorm32`` gives the GroupNorm wrapper in one model evaluation of
+    each path at its batch: CIFAR-10 generation (512) and training (128, in
+    train mode), MNIST training (128) and generation (80, 8 per class)."""
+    import torch
+    from cfm_tpu_torch.models import unet
+
+    wrapped, seen = unet.fused_group_norm_silu, []
+
+    def recording(x, scale, bias, num_groups=32, eps=1e-5, apply_silu=True):
+        seen.append(tuple(x.shape) + (num_groups, str(x.dtype).split(".")[1], apply_silu))
+        return wrapped(x, scale, bias, num_groups, eps, apply_silu)
+
+    paths = {}
+    unet.fused_group_norm_silu = recording
+    try:
+        recipe, mnist = seeded_model(RECIPE, torch.bfloat16, "cuda", seed=0), mnist_model()
+        with torch.no_grad():
+            for name, model, n, dim, kw in (
+                    ("cifar10 generation", recipe, GEN_BATCH, RECIPE["dim"], {}),
+                    ("cifar10 training", recipe, TRAIN_BATCH, RECIPE["dim"],
+                     dict(train=True, generator=torch.Generator(device="cuda"))),
+                    ("mnist training", mnist, TRAIN_BATCH, (28, 28, 1), {}),
+                    ("mnist generation", mnist, MNIST_GEN, (28, 28, 1), {})):
+                seen.clear()
+                y = (torch.arange(n, device="cuda") % 10,) if model is mnist else ()
+                model(torch.rand(n, device="cuda"), torch.randn((n,) + dim, device="cuda"), *y, **kw)
+                paths[name] = {k: seen.count(k) for k in dict.fromkeys(seen)}
+                if len(seen) != GN_PER_EVAL[name.split()[0]]:
+                    raise AssertionError(f"{name}: {len(seen)} GroupNorm calls per evaluation")
+    finally:
+        unet.fused_group_norm_silu = wrapped
+    for name, shapes in paths.items():
+        log(f"GroupNorm shapes, {name}: " + ", ".join(
+            f"{n}x{h}x{w}x{c}/{g} {dt}{' silu' if silu else ''} x{k}"
+            for (n, h, w, c, g, dt, silu), k in shapes.items()))
+    return paths
+
+
+def gn_inputs(N, H, W, C, dtype, seed=0, mean=0.5, std=2.0):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda")
+    return ((mean + std * r(N, H, W, C)).to(dtype), 1 + 0.1 * r(C), 0.1 * r(C),
+            r(N, H, W, C).to(dtype))
+
+
+def check_gn_case(x, scale, bias, dy, G, silu, what):
+    """#8 and #9 against the plain versions on the same card tensors: out and
+    dx element-wise within TOL abs + rel; mean within 1e-5 of |mean| + std and
+    inv within 1e-5 relative; dscale and dbias within WGRAD_TOL of their
+    max-abs. Returns the largest absolute out and dx errors."""
+    import torch
+    from cfm_tpu_torch.ops import groupnorm as gn
+
+    key = str(x.dtype).split(".")[1]
+    tol, wtol = TOL[key], WGRAD_TOL[key]
+    out, mean, inv = gn.fused_group_norm_silu_fwd(x, scale, bias, G, 1e-5, silu)
+    dx, dscale, dbias = gn.fused_group_norm_silu_bwd(x, scale, bias, mean, inv, dy, G, silu)
+    r_out, r_mean, r_inv = gn.gn_silu_fwd_reference(x, scale, bias, G, 1e-5, silu)
+    r_dx, r_ds, r_db = gn.gn_silu_bwd_reference(x, scale, bias, r_mean, r_inv, dy, G, silu)
+    torch.cuda.synchronize()
+    errs, bad = {}, []
+    for name, a, r in (("out", out, r_out), ("dx", dx, r_dx)):
+        e = (a.float() - r.float()).abs()
+        errs[name] = e.max().item()
+        if (e > tol + tol * r.float().abs()).any() or not torch.isfinite(a).all():
+            bad.append(name)
+    errs["mean"] = ((mean - r_mean).abs() / (r_mean.abs() + 1 / r_inv)).max().item()
+    errs["inv"] = ((inv - r_inv).abs() / r_inv).max().item()
+    bad += [k for k in ("mean", "inv") if not errs[k] <= 1e-5]
+    for name, a, r in (("dscale", dscale, r_ds), ("dbias", dbias, r_db)):
+        errs[name] = (a - r).abs().max().item() / r.abs().max().item()
+        if not errs[name] <= wtol:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"GroupNorm kernels: {bad} disagree with the plain versions at "
+                             f"{what}: {errs}")
+    return errs
+
+
+def check_gn(paths):
+    """Phase 3: every recorded shape, then the recentred-variance case: f32
+    at mean 100, std 1 (the inputs of tests/test_torch_groupnorm.py's
+    recentred case, made the same way), where a one-pass E[x^2] - E[x]^2
+    variance in f32, computed here too, misses the float64 result by more
+    than 10 times TOL (the card's tree sums read 3.6e-3; the CPU's 9.0e-3).
+    Returns the largest out and dx errors over the shapes."""
+    import numpy as np
+    import torch
+
+    worst = {"out": 0.0, "dx": 0.0}
+    shapes = dict.fromkeys(k for p in paths.values() for k in p)
+    for i, (N, H, W, C, G, dt, silu) in enumerate(shapes):
+        x, scale, bias, dy = gn_inputs(N, H, W, C, getattr(torch, dt), seed=i)
+        errs = check_gn_case(x, scale, bias, dy, G, silu, f"{N}x{H}x{W}x{C} {dt} silu={silu}")
+        worst = {k: max(v, errs[k]) for k, v in worst.items()}
+        log(f"gn_silu N={N} {H}x{W}x{C}/{G} {dt} silu={silu}: " +
+            ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    rng = np.random.default_rng(21)
+    x = (100.0 + rng.standard_normal((2, 7, 7, 96))).astype(np.float32)
+    rng.standard_normal(96), rng.standard_normal(96)  # the test's scale and bias draws
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    xt, gt = torch.from_numpy(x).cuda(), torch.from_numpy(g).cuda()
+    ones, zeros = torch.ones(96, device="cuda"), torch.zeros(96, device="cuda")
+    errs = check_gn_case(xt, ones, zeros, gt, 32, False, "the recentred case")
+    xd = torch.from_numpy(x).double().reshape(2, 49, 32, 3)
+    md = xd.mean(dim=(1, 3), keepdim=True)
+    exact = (xd - md) / torch.sqrt(((xd - md) ** 2).mean(dim=(1, 3), keepdim=True) + 1e-5)
+    xg = xt.reshape(2, 49, 32, 3)
+    m = xg.mean(dim=(1, 3), keepdim=True)
+    one_pass = (xg - m) * torch.rsqrt((xg * xg).mean(dim=(1, 3), keepdim=True) - m * m + 1e-5)
+    miss = (one_pass.double().cpu() - exact).abs().max().item()
+    if not miss > 10 * TOL["float32"]:
+        raise AssertionError(f"the recentred case does not tell the variances apart ({miss})")
+    log(f"gn_silu recentred case (mean 100, std 1, f32): out {errs['out']:.2e}, dx "
+        f"{errs['dx']:.2e}; a one-pass variance would miss by {miss:.2e}")
+    return worst
+
+
+def gn_bound(N, HW, C, itemsize, backward):
+    """(bound ms, bound_by): bytes of x (and g, dx) in the model dtype plus
+    the f32 vectors and statistics, against the f32 operations."""
+    elems = N * HW * C
+    if backward:
+        nbytes, ops = 3 * elems * itemsize + 2 * N * C * 4 + 4 * C * 4, GN_BWD_OPS * elems
+    else:
+        nbytes, ops = 2 * elems * itemsize + 2 * N * C * 4 + 2 * C * 4, GN_FWD_OPS * elems
+    bytes_s, ops_s = nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS
+    return max(bytes_s, ops_s) * 1e3, "bytes" if bytes_s >= ops_s else "operations"
+
+
+def time_gn(train_shapes):
+    """Phase 4: #8 and #9 at the largest training shape (N=128, 32x32x128,
+    bf16, SiLU) beside the plain versions and the yardstick ``F.group_norm``
+    on the NCHW view then ``F.silu`` (autograd of the same for #9, with the
+    affine parameters in bf16 as the library takes them); then kernel and
+    plain summed over one CIFAR-10 training step's 46 calls."""
+    import torch
+    import torch.nn.functional as F
+    from cfm_tpu_torch.ops import groupnorm as gn
+
+    N, H, C, G = TRAIN_BATCH, 32, 128, 32
+    x, scale, bias, dy = gn_inputs(N, H, H, C, torch.bfloat16)
+    sb, bb = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+    with torch.no_grad():
+        fwd = dict(ms=cuda_ms(lambda: gn.fused_group_norm_silu_fwd(x, scale, bias, G, 1e-5, True)),
+                   plain_ms=cuda_ms(lambda: gn.gn_silu_fwd_reference(x, scale, bias, G, 1e-5, True),
+                                    iters=5),
+                   library_ms=cuda_ms(lambda: F.silu(F.group_norm(x.permute(0, 3, 1, 2), G, sb, bb))))
+        _, mean, inv = gn.fused_group_norm_silu_fwd(x, scale, bias, G, 1e-5, True)
+    xl, wl, bl = (t.detach().requires_grad_() for t in (x, sb, bb))
+    y = F.silu(F.group_norm(xl.permute(0, 3, 1, 2), G, wl, bl))
+    dyl = dy.permute(0, 3, 1, 2)
+    bwd = dict(ms=cuda_ms(lambda: gn.fused_group_norm_silu_bwd(x, scale, bias, mean, inv, dy, G, True)),
+               plain_ms=cuda_ms(lambda: gn.gn_silu_bwd_reference(x, scale, bias, mean, inv, dy, G, True),
+                                iters=5),
+               library_ms=cuda_ms(lambda: torch.autograd.grad(y, (xl, wl, bl), dyl, retain_graph=True)))
+    out = {}
+    for name, t, backward in (("gn_silu_fwd", fwd, False), ("gn_silu_bwd", bwd, True)):
+        bound_ms, bound_by = gn_bound(N, H * H, C, 2, backward)
+        out[name] = dict(t, bound_ms=bound_ms, bound_by=bound_by)
+        log(f"{name} timing N={N} {H}x{H}x{C} bf16 silu: kernel {t['ms']:.4f} ms "
+            f"({100 * bound_ms / t['ms']:.2f}% of the {bound_ms:.4f} ms bound by {bound_by}), "
+            f"plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms")
+    sums = dict(fwd=0.0, bwd=0.0, plain_fwd=0.0, plain_bwd=0.0, bound_fwd=0.0, bound_bwd=0.0)
+    for (n, h, w, c, g, dt, silu), k in train_shapes.items():
+        xs, ss, bs, gs = gn_inputs(n, h, w, c, getattr(torch, dt))
+        with torch.no_grad():
+            _, m_, i_ = gn.fused_group_norm_silu_fwd(xs, ss, bs, g, 1e-5, silu)
+            sums["fwd"] += k * cuda_ms(lambda: gn.fused_group_norm_silu_fwd(xs, ss, bs, g, 1e-5, silu))
+            sums["bwd"] += k * cuda_ms(
+                lambda: gn.fused_group_norm_silu_bwd(xs, ss, bs, m_, i_, gs, g, silu))
+            sums["plain_fwd"] += k * cuda_ms(
+                lambda: gn.gn_silu_fwd_reference(xs, ss, bs, g, 1e-5, silu), iters=3)
+            sums["plain_bwd"] += k * cuda_ms(
+                lambda: gn.gn_silu_bwd_reference(xs, ss, bs, m_, i_, gs, g, silu), iters=3)
+        for d in ("fwd", "bwd"):
+            sums[f"bound_{d}"] += k * gn_bound(n, h * w, c, xs.element_size(), d == "bwd")[0]
+    log(f"GroupNorm over one training step's {sum(train_shapes.values())} calls: forward kernels "
+        f"{sums['fwd']:.4f} ms (plain {sums['plain_fwd']:.4f}, bound {sums['bound_fwd']:.4f}), "
+        f"backward kernels {sums['bwd']:.4f} ms (plain {sums['plain_bwd']:.4f}, bound "
+        f"{sums['bound_bwd']:.4f})")
+    return out
+
+
 def seeded_model(cfg, dtype, device, seed, dropout=0.0):
     """A UNet with random seeded weights; the zero-initialised layers (the
     ResBlock and output zero convs, the attention out-projections) get small
@@ -414,12 +627,35 @@ def check_small_generation():
                 raise AssertionError(f"small {method} generation: card and CPU disagree")
 
 
-def check_small_train_step():
+def kernel_fns():
+    """The launch-counting wrapper of every kernel, by its name in the JSON record."""
+    from cfm_tpu_torch.ops import attn_block as ab
+    from cfm_tpu_torch.ops import auction as au
+    from cfm_tpu_torch.ops import groupnorm as gn
+
+    return {"attn_block_fwd": ab.fused_attention_block,
+            "attn_block_bwd": ab.fused_attention_block_bwd,
+            "auction": au.pallas_auction_assignment,
+            "gn_silu_fwd": gn.fused_group_norm_silu, "gn_silu_bwd": gn.fused_group_norm_silu_bwd}
+
+
+def zero_counts():
+    for fn in kernel_fns().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in kernel_fns().items()}
+
+
+def check_small_train_step(class_cond=False):
     """Phase 5: one train step of the small model in f32 (TF32 off) with the
     same draws and the same dropout masks (rate 0.1, drawn from a CPU
-    generator on both sides) on the card and on the CPU. Both sides ask for
-    the "pallas" solver, so the card runs the auction and both
-    attention-block kernels and the CPU their plain versions.
+    generator on both sides) on the card and on the CPU; with ``class_cond``
+    the model has a 10-class embedding and the step carries labels through
+    the coupling. Both sides ask for the "pallas" solver, so the card runs
+    the auction, both attention-block kernels and both GroupNorm kernels and
+    the CPU their plain versions.
     Loss and grad norm agree to 1e-5 relative; each gradient to 1e-4 of its
     tensor's max-abs (or of 1e-3 of the largest gradient, for the tensors
     whose true gradient is 0 and whose values are f32 noise); the updated
@@ -431,8 +667,6 @@ def check_small_train_step():
     import numpy as np
     import torch
     from cfm_tpu_torch.device import strict_f32
-    from cfm_tpu_torch.ops import attn_block as ab
-    from cfm_tpu_torch.ops import auction as au
     from cfm_tpu_torch.paths import ExactOptimalTransportConditionalFlowMatcher
     from cfm_tpu_torch.train import StepDraws, init_train_state, make_optimizer, make_train_step
 
@@ -441,30 +675,33 @@ def check_small_train_step():
     x0, x1, eps = (torch.from_numpy(rng.standard_normal((B,) + SMALL["dim"]).astype(np.float32))
                    for _ in range(3))
     t, u = (torch.from_numpy(rng.uniform(size=B).astype(np.float32)) for _ in range(2))
-    kernels = (au.pallas_auction_assignment, ab.fused_attention_block, ab.fused_attention_block_bwd)
+    y0, y1 = (torch.from_numpy(rng.integers(0, 10, B)) for _ in range(2))
+    cfg = dict(SMALL, class_cond=True, num_classes=10) if class_cond else SMALL
     runs = {}
     with strict_f32():
         for dev in ("cpu", "cuda"):
-            model = seeded_model(SMALL, torch.float32, dev, seed=2, dropout=0.1)
+            model = seeded_model(cfg, torch.float32, dev, seed=2, dropout=0.1)
             old = [p.detach().cpu().clone() for p in model.parameters()]
             opt = make_optimizer(lr=lr, warmup_steps=1)
             state = init_train_state(model, opt)
             step = make_train_step(ExactOptimalTransportConditionalFlowMatcher(solver="pallas"),
-                                   model, opt, train_mode=True)
-            before = [k.launches for k in kernels]
+                                   model, opt, train_mode=True, class_conditional=class_cond)
+            before = read_counts()
             draws = StepDraws(t.to(dev), eps.to(dev), u.to(dev), torch.Generator().manual_seed(9))
-            metrics = step(state, x0.to(dev), x1.to(dev), draws=draws)
+            labels = (y0.to(dev), y1.to(dev)) if class_cond else ()
+            metrics = step(state, x0.to(dev), x1.to(dev), *labels, draws=draws)
             torch.cuda.synchronize()
             runs[dev] = dict(metrics={k: float(v) for k, v in metrics.items()}, old=old,
                              params=[p.detach().cpu() for p in state.params],
                              ema=[e.cpu() for e in state.ema_params],
                              grads=[p.grad.cpu() for p in state.params],
-                             launched=tuple(k.launches - b for k, b in zip(kernels, before)))
+                             launched={k: v - before[k] for k, v in read_counts().items()})
     cpu, card = runs["cpu"], runs["cuda"]
-    if cpu["launched"] != (0, 0, 0) or card["launched"][0] != 1 or card["launched"][1] == 0 \
-            or card["launched"][1] != card["launched"][2]:
-        raise AssertionError(f"small train step launches: cpu {cpu['launched']}, "
-                             f"card {card['launched']}")
+    got = card["launched"]
+    if any(cpu["launched"].values()) or got["auction"] != 1 or got["attn_block_fwd"] == 0 \
+            or got["attn_block_fwd"] != got["attn_block_bwd"] or got["gn_silu_fwd"] == 0 \
+            or got["gn_silu_fwd"] != got["gn_silu_bwd"]:
+        raise AssertionError(f"small train step launches: cpu {cpu['launched']}, card {got}")
     for k in ("loss", "grad_norm"):
         a, b = card["metrics"][k], cpu["metrics"][k]
         if not abs(a - b) <= 1e-5 * abs(b):
@@ -485,50 +722,48 @@ def check_small_train_step():
     if worst_g > 1e-4 or worst > 1e-6:
         raise AssertionError(f"small train step: gradients differ by {worst_g} of their "
                              f"scale, parameters or EMA by {worst}")
-    log(f"small train step f32, dropout 0.1: loss card {card['metrics']['loss']:.7f} cpu "
-        f"{cpu['metrics']['loss']:.7f}, grad norm card {card['metrics']['grad_norm']:.6f} cpu "
-        f"{cpu['metrics']['grad_norm']:.6f}, max gradient difference {worst_g:.2e} of "
-        f"scale, max parameter/EMA difference {worst:.2e} "
-        f"({n_noise} noise-level elements held to the lr bound), card launches "
-        f"auction/fwd/bwd {card['launched']}")
+    log(f"small {'class-conditional ' if class_cond else ''}train step f32, dropout 0.1: loss "
+        f"card {card['metrics']['loss']:.7f} cpu {cpu['metrics']['loss']:.7f}, grad norm card "
+        f"{card['metrics']['grad_norm']:.6f} cpu {cpu['metrics']['grad_norm']:.6f}, max "
+        f"gradient difference {worst_g:.2e} of scale, max parameter/EMA difference "
+        f"{worst:.2e} ({n_noise} noise-level elements held to the lr bound), card launches "
+        f"{got}")
 
 
 def main_path():
-    """Phase 6: generation at the recipe width."""
+    """Phase 6: generation at the recipe width; returns the launch counts of
+    both runs together."""
     import torch
     from cfm_tpu_torch.generate import generate
-    from cfm_tpu_torch.ops import attn_block as ab
 
     model = seeded_model(RECIPE, torch.bfloat16, "cuda", seed=0)
     log(f"recipe UNet: {sum(p.numel() for p in model.parameters())} parameters, bf16")
     runs = (("euler", dict(method="euler", n_steps=100)),
             ("dopri5", dict(method="dopri5", rtol=1e-5, atol=1e-5, max_steps=200)))
-    ab.fused_attention_block.launches = 0
-    total_nfe = 0
+    total = dict.fromkeys(kernel_fns(), 0)
     for name, kw in runs:
         gen = torch.Generator(device="cuda").manual_seed(0)
-        before = ab.fused_attention_block.launches
         torch.cuda.synchronize()
+        zero_counts()
         t0 = time.perf_counter()
         out = generate(model, GEN_BATCH, generator=gen, **kw)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
+        launched = read_counts()
         img = out.images
-        launched = ab.fused_attention_block.launches - before
         log(f"generation {name}: {GEN_BATCH} images in {sec:.3f} s = {GEN_BATCH / sec:.2f} imgs/s, "
-            f"NFE {out.nfe}, attn_block_fwd launches {launched}, uint8 mean "
+            f"NFE {out.nfe}, launches {launched}, uint8 mean "
             f"{img.float().mean().item():.2f} std {img.float().std().item():.2f}")
         if img.dtype != torch.uint8 or tuple(img.shape) != (GEN_BATCH, 32, 32, 3):
             raise AssertionError(f"{name}: images of {img.dtype} {tuple(img.shape)}")
         if img.float().std().item() < 1.0:
             raise AssertionError(f"{name}: images are constant")
-        if launched != 5 * out.nfe:
-            raise AssertionError(f"{name}: {launched} kernel launches for NFE {out.nfe}, "
-                                 f"expected 5 per evaluation")
-        total_nfe += out.nfe
-    launches = ab.fused_attention_block.launches
-    if launches != 5 * total_nfe or launches == 0:
-        raise AssertionError(f"attn_block_fwd launched {launches} times for NFE {total_nfe}")
+        want = dict.fromkeys(total, 0)
+        want.update(attn_block_fwd=5 * out.nfe, gn_silu_fwd=GN_PER_EVAL["cifar10"] * out.nfe)
+        if launched != want or out.nfe == 0:
+            raise AssertionError(f"{name}: launches {launched} for NFE {out.nfe}, expected {want}")
+        total = {k: v + launched[k] for k, v in total.items()}
+    return total
 
 
 def profile_evaluation():
@@ -545,6 +780,8 @@ def profile_evaluation():
 
 
 KERNEL_GROUPS = (
+    ("GroupNorm kernels (#8 forward, #9 backward)",
+     ("gn_silu_fwd_kernel", "gn_silu_bwd_kernel", "gn_silu_wgrad_kernel")),
     ("auction kernel", ("auction_kernel",)),
     ("attn_block kernels (forward and backward)",
      ("mma_gemm_kernel", "attention_mma_kernel", "gn_stats_kernel", "round_transpose_kernel",
@@ -598,20 +835,21 @@ def device_profile(fn, what, top=14, per=1):
     return wall_us / 1e3
 
 
-def training_path():
-    """Phase 8: the recipe trainer; returns its launch counts, the trainer and
-    the ms per step."""
+def training_path(preset, data_dir, per_step):
+    """Phases 8 and 10: ``Trainer`` on ``preset`` (bf16, batch 128, the
+    synthetic set), a few warm-up steps, then ``fit`` with every launch
+    count set to 0 just before and read just after, which must equal
+    ``per_step`` times the steps. Returns the counts, the trainer and the ms
+    per step."""
     import torch
     from cfm_tpu_torch.config import load_config
-    from cfm_tpu_torch.ops import attn_block as ab
-    from cfm_tpu_torch.ops import auction as au
     from cfm_tpu_torch.trainer import Trainer
 
-    cfg = load_config("cifar10_otcfm", ["trainer.log_interval=1000", "data.synthetic_fallback=True",
-                                        "data.data_dir=build/no_cifar10"])
+    cfg = load_config(preset, ["trainer.log_interval=1000", "data.synthetic_fallback=True",
+                               f"data.data_dir={data_dir}"])
     trainer = Trainer(cfg)
     if trainer.model.dtype != torch.bfloat16 or cfg.data.batch_size != TRAIN_BATCH:
-        raise AssertionError("the training path must run the bf16 recipe at batch 128")
+        raise AssertionError(f"the training path must run {preset} in bf16 at batch 128")
     trainer.fit(TRAIN_WARMUP)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -624,32 +862,59 @@ def training_path():
         return metrics
 
     trainer.step_fn = recording_step
-    kernels = (au.pallas_auction_assignment, ab.fused_attention_block, ab.fused_attention_block_bwd)
-    for k in kernels:
-        k.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     trainer.fit(TRAIN_WARMUP + TRAIN_STEPS)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
+    launches = read_counts()
     trainer.step_fn = step_fn
-    launches = dict(zip(("auction", "attn_block_fwd", "attn_block_bwd"),
-                        (k.launches for k in kernels)))
     losses = [float(v) for v in recorded]
-    log(f"training cifar10_otcfm bf16 batch {TRAIN_BATCH}: {TRAIN_STEPS} steps in {sec:.3f} s = "
+    log(f"training {preset} bf16 batch {TRAIN_BATCH}: {TRAIN_STEPS} steps in {sec:.3f} s = "
         f"{1e3 * sec / TRAIN_STEPS:.2f} ms per step, {TRAIN_STEPS * TRAIN_BATCH / sec:.1f} imgs/s; "
         f"loss first {losses[0]:.5f} last {losses[-1]:.5f}; max memory allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches {launches}")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
-    want = {"auction": TRAIN_STEPS, "attn_block_fwd": 5 * TRAIN_STEPS,
-            "attn_block_bwd": 5 * TRAIN_STEPS}
+    want = {k: per_step.get(k, 0) * TRAIN_STEPS for k in launches}
     if launches != want:
         raise AssertionError(f"training launches {launches}, expected {want}")
     return launches, trainer, 1e3 * sec / TRAIN_STEPS
 
 
+def mnist_generation(trainer):
+    """Phase 10: ``Trainer.generate`` from the EMA parameters, 8 images of
+    each class with euler at 100 steps; the GroupNorm kernels must run 27
+    times per evaluation, and nothing else."""
+    import torch
+
+    y = torch.arange(10, device="cuda").repeat_interleave(MNIST_GEN // 10)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    trainer.generate(MNIST_GEN, method="euler", n_steps=100, y=y, generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = trainer.generate(MNIST_GEN, method="euler", n_steps=100, y=y, generator=gen)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launched, img = read_counts(), out.images
+    log(f"generation mnist_otcfm_cond euler-100: {MNIST_GEN} images (8 per class) in {sec:.3f} s "
+        f"= {MNIST_GEN / sec:.2f} imgs/s, NFE {out.nfe}, launches {launched}, uint8 mean "
+        f"{img.float().mean().item():.2f} std {img.float().std().item():.2f}")
+    if img.dtype != torch.uint8 or tuple(img.shape) != (MNIST_GEN, 28, 28, 1):
+        raise AssertionError(f"mnist generation: images of {img.dtype} {tuple(img.shape)}")
+    if img.float().std().item() < 1.0:
+        raise AssertionError("mnist generation: images are constant")
+    want = dict.fromkeys(launched, 0)
+    want["gn_silu_fwd"] = GN_PER_EVAL["mnist"] * out.nfe
+    if launched != want or out.nfe != 100:
+        raise AssertionError(f"mnist generation: launches {launched} for NFE {out.nfe}, "
+                             f"expected {want}")
+    return launched
+
+
 def profile_train_step(trainer, ms_per_step, steps=3):
-    """Phase 9: device time by kernel per recipe train step and the device's
+    """Phases 9 and 10: device time by kernel per train step and the device's
     busy share, over a few steps traced on the device only; then, in a second
     window that also traces the host, the host operators that took the most
     CPU time per step."""
@@ -657,8 +922,9 @@ def profile_train_step(trainer, ms_per_step, steps=3):
     from torch.profiler import ProfilerActivity, profile
 
     wall_ms = device_profile(lambda: trainer.fit(trainer.state.step + steps),
-                             f"a train step (batch 128, bf16; mean of {steps})", per=steps)
-    log(f"  the same steps took {ms_per_step:.2f} ms each untraced (phase 8), "
+                             f"a {trainer.cfg.name} train step (batch 128, bf16; mean of {steps})",
+                             per=steps)
+    log(f"  the same steps took {ms_per_step:.2f} ms each untraced, "
         f"{wall_ms:.2f} ms under device tracing")
     step = trainer.state.step
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -702,16 +968,31 @@ def main() -> int:
     err = check_attn_block()
     err_bwd = check_attn_block_bwd()
     check_auction()
+    gn_paths = record_gn_shapes()
+    err_gn = check_gn(gn_paths)
     time_attn_block(GEN_BATCH)
     timing = time_attn_block(TRAIN_BATCH)
     timing_bwd = time_attn_block_bwd()
     timing_auction = time_auction()
+    timing_gn = time_gn(gn_paths["cifar10 training"])
     check_small_generation()
     check_small_train_step()
-    main_path()
+    check_small_train_step(class_cond=True)
+    launches = {"generation": main_path()}
     profile_evaluation()
-    launches, trainer, ms_per_step = training_path()
+    per_step = dict(auction=1, attn_block_fwd=5, attn_block_bwd=5,
+                    gn_silu_fwd=GN_PER_EVAL["cifar10"], gn_silu_bwd=GN_PER_EVAL["cifar10"])
+    launches["cifar10 training"], trainer, ms_per_step = training_path(
+        "cifar10_otcfm", "build/no_cifar10", per_step)
     profile_train_step(trainer, ms_per_step)
+    del trainer
+    per_step = dict(auction=1, gn_silu_fwd=GN_PER_EVAL["mnist"], gn_silu_bwd=GN_PER_EVAL["mnist"])
+    launches["mnist training"], trainer, ms_per_step = training_path(
+        "mnist_otcfm_cond", "build/no_mnist", per_step)
+    profile_train_step(trainer, ms_per_step)
+    launches["mnist generation"] = mnist_generation(trainer)
+    total = {k: sum(run[k] for run in launches.values()) for k in kernel_fns()}
+    log(f"launches by path {launches}; summed {total}")
 
     src = "cfm_tpu_torch/csrc/"
     kernels = [
@@ -722,11 +1003,17 @@ def main() -> int:
         dict(name="auction", route="cuda", source=src + "auction.cu",
              replaces="cfm_tpu/ops/pallas_auction.py:67", max_abs_err=0.0,
              **{k: v for k, v in timing_auction.items() if k not in ("host_ms", "rounds")}),
+        dict(name="gn_silu_fwd", route="cuda", source=src + "groupnorm.cu",
+             replaces="cfm_tpu/ops/pallas_groupnorm.py:60", max_abs_err=err_gn["out"],
+             **timing_gn["gn_silu_fwd"]),
+        dict(name="gn_silu_bwd", route="cuda", source=src + "groupnorm.cu",
+             replaces="cfm_tpu/ops/pallas_groupnorm.py:88", max_abs_err=err_gn["dx"],
+             **timing_gn["gn_silu_bwd"]),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = total[k["name"]]
     kernels = [{key: k[key] for key in keys} for k in kernels]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -10,6 +10,11 @@ data/images.py) against JAX.
   ``make_optimizer(...).update``, ``optax.apply_updates`` and ``ema_update``,
   with ``pallas_attn_block.INTERPRET = True`` so that JAX runs kernels #1
   and #2.
+- One class-conditional OT-CFM step of a small MNIST-shaped UNet in f32
+  matches the JAX step composed from ``guided_sample_location_and_conditional_flow``
+  (its plan uniforms, t and path noise handed to the port), ``model.apply``
+  with the re-paired labels, ``jax.value_and_grad``, the optax chain and
+  ``ema_update``.
 - The synthetic sets are byte-equal, ``normalize_images`` and
   ``random_hflip`` (given the same flip bits) equal.
 """
@@ -152,6 +157,92 @@ def test_train_step_matches_jax_step(monkeypatch):
         g = g_sd[name].abs()
         noise = (g < 1e-5 * g.max()) | (g.max() < 1e-6)
         n_noise += int(noise.sum())
+        move = (p.detach() - old_sd[name]).abs()
+        assert bool((move[noise] <= lr / warmup * (1 + 1e-5)).all()), name
+        for got, ref in ((p.detach(), new_sd[name]), (e, ema_sd[name])):
+            np.testing.assert_allclose(got[~noise].numpy(), ref[~noise].numpy(), atol=1e-5,
+                                       err_msg=name)
+    assert n_noise < 0.01 * sum(p.numel() for p in state.params)
+
+
+# The MNIST preset's UNet one level shallower (28x28x1, 32 and 64 channels,
+# attention at 14x14 on the composition path) with the 10-class embedding.
+MNIST = dict(dim=(28, 28, 1), num_channels=32, num_res_blocks=1, channel_mult=(1, 2),
+             num_heads=1, num_head_channels=-1, attention_resolutions="14", class_cond=True,
+             num_classes=10)
+
+
+def test_class_conditional_step_matches_jax_step():
+    """Loss and grad norm to 1e-5 relative, parameters and EMA to 1e-5, at
+    sigma = 0.1 so the path noise counts. The labels differ between x0 and
+    x1, so the step must carry y1 by the plan's column index.
+
+    As in :func:`test_train_step_matches_jax_step`, elements whose gradient
+    is at f32 noise level are held to Adam's bound on the move. Inside
+    tensors that carry a gradient (max-abs 1e-6 or more) they must be under
+    1% of the parameters; whole tensors at noise level are structural here
+    (the time-and-class projections into GroupNorms of one channel per
+    group, which remove a per-channel shift: true gradient 0)."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from cfm_tpu.models import unet as junet
+    from cfm_tpu.paths import ExactOptimalTransportConditionalFlowMatcher as JOT
+    from cfm_tpu.train import make_optimizer
+    from cfm_tpu.utils import ema_update
+    from cfm_tpu_torch.models.convert import unet_params_from_flax
+    from cfm_tpu_torch.models.unet import UNetModelWrapper
+    from cfm_tpu_torch.paths import ExactOptimalTransportConditionalFlowMatcher
+    from test_torch_unet import random_flax_params
+
+    B, lr, warmup, decay, sigma = 4, 1e-3, 5, 0.99, 0.1
+    m = junet.UNetModelWrapper(**MNIST)
+    params = random_flax_params(m, jnp.zeros((1,)), jnp.zeros((1,) + MNIST["dim"]),
+                                jnp.zeros((1,), jnp.int32), seed=13)
+    rng = np.random.default_rng(14)
+    x0 = rng.standard_normal((B,) + MNIST["dim"]).astype(np.float32)
+    x1 = np.tanh(rng.standard_normal((B,) + MNIST["dim"])).astype(np.float32)
+    y0, y1 = np.array([1, 2, 3, 4]), np.array([7, 0, 9, 5])
+    t = rng.uniform(size=B).astype(np.float32)
+    key = jax.random.PRNGKey(15)
+    tj, xt, ut, _, y1_, eps, bad = JOT(sigma=sigma).guided_sample_location_and_conditional_flow(
+        key, *(jnp.asarray(a) for a in (x0, x1, y0, y1)), t=jnp.asarray(t), return_noise=True,
+        return_coupling_status=True)
+    plan_u = np.asarray(jax.random.uniform(jax.random.split(key)[0], (B,)))
+
+    opt = make_optimizer(lr=lr, warmup_steps=warmup, grad_clip=1.0)
+
+    @jax.jit  # one compiled program: the eager JAX step takes minutes on the CPU
+    def jax_step(p):
+        loss, grads = jax.value_and_grad(
+            lambda q: jnp.mean(jnp.square(m.apply({"params": q}, tj, xt, y1_) - ut)))(p)
+        new = optax.apply_updates(p, opt.update(grads, opt.init(p), p)[0])
+        return loss, optax.global_norm(grads), grads, new, ema_update(p, new, decay)
+
+    loss_ref, gnorm_ref, g_ref, new_ref, ema_ref = jax_step(params)
+
+    model = UNetModelWrapper(**MNIST, device="cpu")
+    model.load_state_dict(unet_params_from_flax(params))
+    topt = ttr.make_optimizer(lr=lr, warmup_steps=warmup, grad_clip=1.0)
+    state = ttr.init_train_state(model, topt)
+    step = ttr.make_train_step(ExactOptimalTransportConditionalFlowMatcher(sigma=sigma), model,
+                               topt, ema_decay=decay, class_conditional=True)
+    draws = ttr.StepDraws(torch.from_numpy(t), torch.from_numpy(np.asarray(eps)),
+                          torch.from_numpy(plan_u))
+    metrics = step(state, torch.from_numpy(x0), torch.from_numpy(x1), torch.from_numpy(y0),
+                   torch.from_numpy(y1), draws=draws)
+    assert not bool(bad) and float(metrics["coupling_degenerate"]) == 0.0
+    np.testing.assert_allclose(float(metrics["loss"]), float(loss_ref), rtol=1e-5)
+    np.testing.assert_allclose(float(metrics["grad_norm"]), float(gnorm_ref), rtol=1e-5)
+    names = [n for n, _ in model.named_parameters()]
+    old_sd, g_sd = unet_params_from_flax(params), unet_params_from_flax(g_ref)
+    new_sd, ema_sd = unet_params_from_flax(new_ref), unet_params_from_flax(ema_ref)
+    n_noise = 0
+    for name, p, e in zip(names, state.params, state.ema_params):
+        g = g_sd[name].abs()
+        noise = (g < 1e-5 * g.max()) | (g.max() < 1e-6)
+        n_noise += int(noise.sum()) if g.max() >= 1e-6 else 0
         move = (p.detach() - old_sd[name]).abs()
         assert bool((move[noise] <= lr / warmup * (1 + 1e-5)).all()), name
         for got, ref in ((p.detach(), new_sd[name]), (e, ema_sd[name])):
