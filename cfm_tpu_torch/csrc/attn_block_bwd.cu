@@ -44,256 +44,15 @@
 // the non-tensor f32 rate. This version writes the (S, S) softmax and
 // its gradient per head to scratch (2 x 134 MB at that shape) and reads them
 // back, and runs each stage as its own kernel on one stream. No TMA, wgmma or
-// pipelining yet: PERF.md holds its time against the bound.
+// pipelining yet: PERF.md holds its time against the bound. The batched
+// GEMMs, their operand loaders and the softmax row passes are in
+// attn_block_common.cuh, shared with the multi-head attention backward (#4).
 
 #include <algorithm>
 
 #include "attn_block_common.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// Operand loaders. Each returns V consecutive values along the operand's
-// contiguous index, starting at (i, j): (m, k) for A, (k, n) for B. Every
-// extent and offset the kernels use is a multiple of 8 elements (S % 8 == 0,
-// D % 64 == 0), so a run of V never straddles a tile edge and its address is
-// aligned for a V-wide vector load.
-// ---------------------------------------------------------------------------
-
-template <typename S, int V> struct Vec;
-template <> struct Vec<float, 4> {
-  __device__ static void load(const float* p, float* out) {
-    const float4 a = *reinterpret_cast<const float4*>(p);
-    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  }
-};
-template <> struct Vec<float, 8> {
-  __device__ static void load(const float* p, float* out) {
-    Vec<float, 4>::load(p, out);
-    Vec<float, 4>::load(p + 4, out + 4);
-  }
-};
-template <> struct Vec<bf16, 4> {
-  __device__ static void load(const bf16* p, float* out) {
-    const uint2 a = *reinterpret_cast<const uint2*>(p);
-    const bf16* h = reinterpret_cast<const bf16*>(&a);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) out[u] = __bfloat162float(h[u]);
-  }
-};
-template <> struct Vec<bf16, 8> {
-  __device__ static void load(const bf16* p, float* out) {
-    const uint4 a = *reinterpret_cast<const uint4*>(p);
-    const bf16* h = reinterpret_cast<const bf16*>(&a);
-#pragma unroll
-    for (int u = 0; u < 8; ++u) out[u] = __bfloat162float(h[u]);
-  }
-};
-
-template <int V, typename Load>
-__device__ __forceinline__ void load_or_zero(const Load& load, int z, int i, int j, bool in,
-                                             float (&out)[V]) {
-  if (in) {
-    load.template vec<V>(z, i, j, out);
-  } else {
-#pragma unroll
-    for (int u = 0; u < V; ++u) out[u] = 0.f;
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
-  return make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]),
-                    pack_bf16(f[6], f[7]));
-}
-
-// ---------------------------------------------------------------------------
-// Batched f32 FMA GEMM: C[z](m, n) = sum_k A(z, m, k) * B(z, k, n) over
-// (16 TM) x (16 TN) tiles, K in steps of 8, 256 threads of TM x TN outputs
-// each, fed from shared memory by float4 reads; a thread's columns are
-// 4-wide groups 64 apart, so each epilogue row is written coalesced. With kchunk = 0, z is a batch
-// index passed to the loaders; with kchunk > 0, z splits K into chunks of
-// kchunk and the epilogue writes one partial sum per chunk. Each loader says
-// whether consecutive k are adjacent in memory (kKContig), and the tile load
-// maps threads along the contiguous index either way.
-// ---------------------------------------------------------------------------
-
-constexpr int FK = 8;
-
-template <int TM, int TN, typename ALoad, typename BLoad, typename Epi>
-__global__ void __launch_bounds__(kThreads)
-fgemm_kernel(int M, int Ncols, int K, int kchunk, ALoad aload, BLoad bload, Epi epi) {
-  constexpr int TBMf = 16 * TM, TBNf = 16 * TN;
-  // Rows padded by 4 floats: the k-major tile stores then hit distinct banks,
-  // and the float4 reads stay 16-byte aligned.
-  __shared__ __align__(16) float As[FK][TBMf + 4];
-  __shared__ __align__(16) float Bs[FK][TBNf + 4];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.x * TBMf, n0 = blockIdx.y * TBNf, z = blockIdx.z;
-  const int zb = kchunk ? 0 : z;
-  const int kb = kchunk ? z * kchunk : 0;
-  const int ke = kchunk ? min(K, kb + kchunk) : K;
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = kb; k0 < ke; k0 += FK) {
-    for (int v = tid; v < TBMf * FK / 4; v += kThreads) {
-      float f[4];
-      if (ALoad::kKContig) {
-        const int m = v / (FK / 4), kk = (v % (FK / 4)) * 4;
-        load_or_zero<4>(aload, zb, m0 + m, k0 + kk, m0 + m < M && k0 + kk < ke, f);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) As[kk + u][m] = f[u];
-      } else {
-        const int kk = v / (TBMf / 4), m = (v % (TBMf / 4)) * 4;
-        load_or_zero<4>(aload, zb, m0 + m, k0 + kk, m0 + m < M && k0 + kk < ke, f);
-        *reinterpret_cast<float4*>(&As[kk][m]) = make_float4(f[0], f[1], f[2], f[3]);
-      }
-    }
-    for (int v = tid; v < TBNf * FK / 4; v += kThreads) {
-      float f[4];
-      if (BLoad::kKContig) {
-        const int n = v / (FK / 4), kk = (v % (FK / 4)) * 4;
-        load_or_zero<4>(bload, zb, k0 + kk, n0 + n, n0 + n < Ncols && k0 + kk < ke, f);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) Bs[kk + u][n] = f[u];
-      } else {
-        const int kk = v / (TBNf / 4), n = (v % (TBNf / 4)) * 4;
-        load_or_zero<4>(bload, zb, k0 + kk, n0 + n, n0 + n < Ncols && k0 + kk < ke, f);
-        *reinterpret_cast<float4*>(&Bs[kk][n]) = make_float4(f[0], f[1], f[2], f[3]);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < FK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; i += 4)
-        *reinterpret_cast<float4*>(&a[i]) = *reinterpret_cast<const float4*>(&As[kk][ty * TM + i]);
-#pragma unroll
-      for (int j = 0; j < TN; j += 4)  // columns j/4 * 64 + 4 tx: coalesced epilogue rows
-        *reinterpret_cast<float4*>(&b[j]) =
-            *reinterpret_cast<const float4*>(&Bs[kk][(j / 4) * 64 + tx * 4]);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; j += 4) {
-      const int m = m0 + ty * TM + i, n = n0 + (j / 4) * 64 + tx * 4;
-      if (m < M && n < Ncols) epi.store4(z, m, n, acc[i][j], acc[i][j + 1], acc[i][j + 2],
-                                         acc[i][j + 3]);
-    }
-}
-
-// The same batched GEMM on bf16 tensor cores (mma.sync m16n8k16, f32
-// accumulate), for products whose two operands hold model-dtype (bf16)
-// values: the loaders return floats that bf16 represents exactly, so the
-// products are exact and only the f32 accumulation order differs from the
-// FMA kernel. 128x128 block tiles, K in steps of 32, 8 warps of 64x32 (the
-// forward's mma_gemm_kernel layout). The tile load maps threads along each
-// operand's contiguous index and stores bf16 into (row, k) shared tiles.
-template <typename ALoad, typename BLoad, typename Epi>
-__global__ void __launch_bounds__(kThreads)
-bmma_kernel(int M, int Ncols, int K, int kchunk, ALoad aload, BLoad bload, Epi epi) {
-  __shared__ __align__(16) bf16 As[TBM][TLD];
-  __shared__ __align__(16) bf16 Bs[TBN][TLD];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int m0 = blockIdx.x * TBM, n0 = blockIdx.y * TBN, z = blockIdx.z;
-  const int zb = kchunk ? 0 : z;
-  const int kb = kchunk ? z * kchunk : 0;
-  const int ke = kchunk ? min(K, kb + kchunk) : K;
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-
-  for (int k0 = kb; k0 < ke; k0 += TBK) {
-    for (int v = tid; v < TBM * TBK / 8; v += kThreads) {
-      float f[8];
-      if (ALoad::kKContig) {
-        const int m = v / (TBK / 8), kk = (v % (TBK / 8)) * 8;
-        load_or_zero<8>(aload, zb, m0 + m, k0 + kk, m0 + m < M && k0 + kk < ke, f);
-        *reinterpret_cast<uint4*>(&As[m][kk]) = pack8(f);
-      } else {
-        const int kk = v / (TBM / 8), m = (v % (TBM / 8)) * 8;
-        load_or_zero<8>(aload, zb, m0 + m, k0 + kk, m0 + m < M && k0 + kk < ke, f);
-#pragma unroll
-        for (int u = 0; u < 8; ++u) As[m + u][kk] = __float2bfloat16_rn(f[u]);
-      }
-    }
-    for (int v = tid; v < TBN * TBK / 8; v += kThreads) {
-      float f[8];
-      if (BLoad::kKContig) {
-        const int n = v / (TBK / 8), kk = (v % (TBK / 8)) * 8;
-        load_or_zero<8>(bload, zb, k0 + kk, n0 + n, n0 + n < Ncols && k0 + kk < ke, f);
-        *reinterpret_cast<uint4*>(&Bs[n][kk]) = pack8(f);
-      } else {
-        const int kk = v / (TBN / 8), n = (v % (TBN / 8)) * 8;
-        load_or_zero<8>(bload, zb, k0 + kk, n0 + n, n0 + n < Ncols && k0 + kk < ke, f);
-#pragma unroll
-        for (int u = 0; u < 8; ++u) Bs[n + u][kk] = __float2bfloat16_rn(f[u]);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TBK; kk += 16) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = wm + i * 16 + g;
-        a[i][0] = ld32(&As[r][kk + 2 * t]);
-        a[i][1] = ld32(&As[r + 8][kk + 2 * t]);
-        a[i][2] = ld32(&As[r][kk + 2 * t + 8]);
-        a[i][3] = ld32(&As[r + 8][kk + 2 * t + 8]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int nn = wn + j * 8 + g;
-        const uint32_t b0 = ld32(&Bs[nn][kk + 2 * t]), b1 = ld32(&Bs[nn][kk + 2 * t + 8]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) mma_bf16(acc[i][j], a[i], b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int m = m0 + wm + i * 16 + g + (r >> 1) * 8, n = n0 + wn + j * 8 + 2 * t + (r & 1);
-        if (m < M && n < Ncols) epi(z, m, n, acc[i][j][r]);
-      }
-}
-
-// A strided operand: value(z, i, j) = round_R(src[(z / H) * zo + (z % H) * zi
-// + i * si + j * sj]), (i, j) = (m, k) for A and (k, n) for B; one of si, sj
-// is 1. z runs over (item, head) pairs; R = float leaves the value as it is.
-template <typename S, typename R, bool KC>
-struct Operand {
-  static constexpr bool kKContig = KC;
-  const S* p; int H; long long zo, zi, si, sj;
-  template <int V>
-  __device__ void vec(int z, int i, int j, float (&out)[V]) const {
-    Vec<S, V>::load(p + (z / H) * zo + (z % H) * zi + i * si + j * sj, out);
-#pragma unroll
-    for (int u = 0; u < V; ++u) out[u] = rnd<R>(out[u]);
-  }
-};
 
 // A of dwq: tokens_T transposed, A(m = channel, k = row), made on load with
 // the forward's GroupNorm arithmetic; runs along the channels.
@@ -315,90 +74,9 @@ struct GnTokensT {
   }
 };
 
-// Epilogue: dst[(z / H) * zo + (z % H) * zi + m * sm + n] = D(acc * scale);
-// store4 writes n..n+3 (the FMA GEMM's epilogue; D is float there).
-template <typename D>
-struct Store {
-  D* p; int H; long long zo, zi, sm; float scale;
-  __device__ void operator()(int z, int m, int n, float acc) const {
-    p[(z / H) * zo + (z % H) * zi + m * sm + n] = from_f<D>(acc * scale);
-  }
-  __device__ void store4(int z, int m, int n, float a, float b, float c, float d) const {
-    D* q = p + (z / H) * zo + (z % H) * zi + m * sm + n;
-    if constexpr (sizeof(D) == 4) {
-      *reinterpret_cast<float4*>(q) = make_float4(a * scale, b * scale, c * scale, d * scale);
-    } else {
-      q[0] = from_f<D>(a * scale), q[1] = from_f<D>(b * scale);
-      q[2] = from_f<D>(c * scale), q[3] = from_f<D>(d * scale);
-    }
-  }
-};
-
-// The f32 FMA GEMM: 128 x 128 tiles, or 128 x 64 for a narrow product
-// (N <= 64, the per-head D). gemm_lp<T> is for products of two model-dtype
-// operands: tensor cores when T is bf16, FMA (true f32) when T is float.
-template <typename A, typename B, typename E>
-cudaError_t gemm(int M, int Ncols, int K, int Z, int kchunk, A a, B b, E e, cudaStream_t st) {
-  if (Ncols <= 64)
-    fgemm_kernel<8, 4><<<dim3((M + 127) / 128, (Ncols + 63) / 64, Z), kThreads, 0, st>>>(
-        M, Ncols, K, kchunk, a, b, e);
-  else
-    fgemm_kernel<8, 8><<<dim3((M + 127) / 128, (Ncols + 127) / 128, Z), kThreads, 0, st>>>(
-        M, Ncols, K, kchunk, a, b, e);
-  return cudaGetLastError();
-}
-
-template <typename T, typename A, typename B, typename E>
-cudaError_t gemm_lp(int M, int Ncols, int K, int Z, int kchunk, A a, B b, E e, cudaStream_t st) {
-  if constexpr (sizeof(T) == 2) {
-    bmma_kernel<<<dim3((M + TBM - 1) / TBM, (Ncols + TBN - 1) / TBN, Z), kThreads, 0, st>>>(
-        M, Ncols, K, kchunk, a, b, e);
-    return cudaGetLastError();
-  } else {
-    return gemm(M, Ncols, K, Z, kchunk, a, b, e, st);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Row and column passes.
+// Column passes.
 // ---------------------------------------------------------------------------
-
-// P (rows, S) of scaled logits -> wf = e / sum(e), e = exp(l - max), in place.
-// One warp per row.
-__global__ void __launch_bounds__(kThreads)
-softmax_rows_kernel(float* __restrict__ P, long long rows, int S) {
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  float* p = P + row * S;
-  float m = -INFINITY;
-  for (int j = lane; j < S; j += 32) m = fmaxf(m, p[j]);
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  float sum = 0.f;
-  for (int j = lane; j < S; j += 32) {
-    const float e = expf(p[j] - m);
-    p[j] = e;
-    sum += e;
-  }
-  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-  for (int j = lane; j < S; j += 32) p[j] = p[j] / sum;
-}
-
-// dP (rows, S) -> ds = (wf * (dp - sum_j dp_j * T(wf_j))) * scale, in place.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-softmax_bwd_rows_kernel(const float* __restrict__ P, float* __restrict__ dP, long long rows,
-                        int S, float scale) {
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const float* w = P + row * S;
-  float* d = dP + row * S;
-  float s = 0.f;
-  for (int j = lane; j < S; j += 32) s = fmaf(d[j], rnd<T>(w[j]), s);
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  for (int j = lane; j < S; j += 32) d[j] = __fmul_rn(__fmul_rn(w[j], d[j] - s), scale);
-}
 
 // Column sums of a (R, cols) matrix given by ``load(r, c)``, in two
 // deterministic passes: partial[rb][c] over row chunks, then sum_parts.

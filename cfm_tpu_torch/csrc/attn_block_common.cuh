@@ -1,7 +1,11 @@
 // Stage kernels shared by the attention-block forward (attn_block_fwd.cu)
-// and backward (attn_block_bwd.cu): GroupNorm statistics, the f32 FMA GEMM
-// and the bf16 mma.sync GEMM with their operand loaders and epilogues. See
-// attn_block_fwd.cu for the rounding points they keep.
+// and backward (attn_block_bwd.cu) and by the multi-head attention forward
+// (attention_fwd.cu) and backward (attention_bwd.cu): GroupNorm statistics,
+// the f32 FMA GEMM and the bf16 mma.sync GEMM with their operand loaders and
+// epilogues, the attention stage (softmax(q k^T) v per item and head, on any
+// row layout), and the batched GEMMs and softmax row passes of the
+// recomputing attention backward. See attn_block_fwd.cu for the rounding
+// points they keep.
 
 #pragma once
 
@@ -316,5 +320,614 @@ struct Rows8 {
     return *reinterpret_cast<const uint4*>(a + (size_t)m * ld + k);
   }
 };
+
+// ---------------------------------------------------------------------------
+// (c) Multi-head attention per (item, head): logits q k^T * scale in f32, the
+// softmax e / sum(e), e = exp(l - max), in f32, the weights rounded to T,
+// then w @ v accumulated in f32 and rounded to T. The attention block runs
+// it on its (N, S, 3HD) qkv buffer; kernel #3 on the (N, 3, H, S, D) layout.
+// ---------------------------------------------------------------------------
+
+// Where one (item n, head h)'s rows sit: q row s at qkv + n * in_item +
+// h * in_head + s * in_row, its k and v rows in_comp and 2 * in_comp further;
+// output row s at out + n * out_item + h * out_head + s * out_row. Each
+// stride is 32-bit (an item's qkv stays under 2^31 elements); the kernels
+// widen them where they index.
+struct AttnLayout {
+  int in_item, in_head, in_comp, in_row, out_item, out_head, out_row;
+};
+
+// The FMA kernel, for one (query tile, head, item). Dynamic shared memory:
+// q tile QT x D, the f32 logits/weights QT x S, one K or V tile KT x (D+1).
+constexpr int QT = 32, KT = 64, DC = 64;  // DC: output columns per pass
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, AttnLayout L, int S, int D,
+                 float scale) {
+  extern __shared__ float smem[];
+  float* Qs = smem;                 // QT * D
+  float* P = Qs + QT * D;           // QT * S
+  float* KV = P + QT * S;           // KT * (D + 1)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * QT, h = blockIdx.y, n = blockIdx.z;
+  const T* qb = qkv + (size_t)n * L.in_item + (size_t)h * L.in_head;
+  const T* kb = qb + L.in_comp;
+  const T* vb = kb + L.in_comp;
+  T* ob = out + (size_t)n * L.out_item + (size_t)h * L.out_head;
+
+  for (int e = tid; e < QT * D; e += kThreads) {
+    const int qi = e / D, d = e % D, s = q0 + qi;
+    Qs[e] = s < S ? to_f<T>(qb[(size_t)s * L.in_row + d]) : 0.f;
+  }
+  // Logits for every key, one key tile at a time.
+  for (int k0 = 0; k0 < S; k0 += KT) {
+    __syncthreads();
+    for (int e = tid; e < KT * D; e += kThreads) {
+      const int kj = e / D, d = e % D, s = k0 + kj;
+      KV[kj * (D + 1) + d] = s < S ? to_f<T>(kb[(size_t)s * L.in_row + d]) : 0.f;
+    }
+    __syncthreads();
+    for (int e = tid; e < QT * KT; e += kThreads) {
+      const int qi = e / KT, kj = e % KT;
+      if (k0 + kj < S) {
+        const float* q = Qs + qi * D;
+        const float* k = KV + kj * (D + 1);
+        float dot = 0.f;
+        for (int d = 0; d < D; ++d) dot = fmaf(q[d], k[d], dot);
+        P[qi * S + k0 + kj] = dot * scale;
+      }
+    }
+  }
+  __syncthreads();
+  // Softmax per row in f32 (one warp per row), weights rounded to T.
+  for (int qi = warp; qi < QT; qi += kThreads / 32) {
+    float* row = P + qi * S;
+    float m = -INFINITY;
+    for (int j = lane; j < S; j += 32) m = fmaxf(m, row[j]);
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float sum = 0.f;
+    for (int j = lane; j < S; j += 32) {
+      const float e = expf(row[j] - m);
+      row[j] = e;
+      sum += e;
+    }
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    for (int j = lane; j < S; j += 32) row[j] = rnd<T>(row[j] / sum);
+  }
+  // Context = w @ v, DC output columns per pass, f32 accumulate.
+  constexpr int kRows = QT * DC / kThreads;  // outputs per thread: 8
+  const int dcol = tid % DC, qrow = tid / DC;  // rows qrow + 4 * i
+  for (int d0 = 0; d0 < D; d0 += DC) {
+    float acc[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) acc[i] = 0.f;
+    for (int k0 = 0; k0 < S; k0 += KT) {
+      __syncthreads();
+      for (int e = tid; e < KT * DC; e += kThreads) {
+        const int kj = e / DC, d = e % DC, s = k0 + kj;
+        KV[kj * (DC + 1) + d] = s < S ? to_f<T>(vb[(size_t)s * L.in_row + d0 + d]) : 0.f;
+      }
+      __syncthreads();
+      const int kn = min(KT, S - k0);
+      for (int j = 0; j < kn; ++j) {
+        const float v = KV[j * (DC + 1) + dcol];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i)
+          acc[i] = fmaf(P[(qrow + 4 * i) * S + k0 + j], v, acc[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int s = q0 + qrow + 4 * i;
+      if (s < S) ob[(size_t)s * L.out_row + d0 + dcol] = from_f<T>(acc[i]);
+    }
+  }
+}
+
+size_t attention_smem(int S, int D) {
+  return sizeof(float) * ((size_t)QT * D + (size_t)QT * S + (size_t)KT * (D + 1));
+}
+
+// The tensor-core kernel, for one (64-query tile, head, item): 4 warps of 16
+// query rows each, keys in tiles of 64 staged in shared memory (K as is, V
+// transposed so both are B operands with contiguous k). Three passes over the
+// key tiles recompute the same logits bit for bit: the row max, the row sum
+// of exp(l - max), then the rounded weights times V. This keeps the exact
+// e / sum(e) of the TPU kernel, which an online (flash) softmax would not.
+// At D = 64 the launch bound holds the kernel to 128 registers, four blocks
+// per SM (left free it takes 134 and three, 4-6% slower on an H100).
+constexpr int AQ = 64, AK = 64;
+
+template <int D>
+__global__ void __launch_bounds__(128, D == 64 ? 4 : 1)
+attention_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, AttnLayout L, int S,
+                     float scale) {
+  __shared__ __align__(16) bf16 Ks[AK][D + 8];
+  __shared__ __align__(16) bf16 Vt[D][AK + 8];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * AQ + warp * 16, h = blockIdx.y, n = blockIdx.z;
+  const int ld = L.in_row;
+  const bf16* qb = qkv + (size_t)n * L.in_item + (size_t)h * L.in_head;
+  const bf16* kbase = qb + L.in_comp;
+  const bf16* vbase = kbase + L.in_comp;
+
+  // This warp's 16 query rows as A fragments, kept in registers.
+  uint32_t qa[D / 16][4];
+  {
+    const int r0 = q0 + g, r1 = q0 + g + 8;
+    const bf16* p0 = qb + (size_t)r0 * ld;
+    const bf16* p1 = qb + (size_t)r1 * ld;
+#pragma unroll
+    for (int kt = 0; kt < D / 16; ++kt) {
+      const int c = kt * 16 + 2 * t;
+      qa[kt][0] = r0 < S ? ld32(p0 + c) : 0u;
+      qa[kt][1] = r1 < S ? ld32(p1 + c) : 0u;
+      qa[kt][2] = r0 < S ? ld32(p0 + c + 8) : 0u;
+      qa[kt][3] = r1 < S ? ld32(p1 + c + 8) : 0u;
+    }
+  }
+
+  auto load_k = [&](int k0) {
+    for (int c = tid; c < AK * D / 8; c += 128) {
+      const int kj = c / (D / 8), d = (c % (D / 8)) * 8;
+      *reinterpret_cast<uint4*>(&Ks[kj][d]) =
+          k0 + kj < S ? *reinterpret_cast<const uint4*>(kbase + (size_t)(k0 + kj) * ld + d)
+                      : make_uint4(0, 0, 0, 0);
+    }
+  };
+  auto load_v = [&](int k0) {
+    for (int c = tid; c < AK * D / 8; c += 128) {
+      const int kj = c % AK, d = (c / AK) * 8;
+      uint4 raw = k0 + kj < S ? *reinterpret_cast<const uint4*>(vbase + (size_t)(k0 + kj) * ld + d)
+                              : make_uint4(0, 0, 0, 0);
+      const bf16* v = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) Vt[d + u][kj] = v[u];
+    }
+  };
+  // Logits of this warp's rows against the staged key tile, scaled, with
+  // keys past S at -inf. l[j][0..1]: row g, keys 8j+2t..; l[j][2..3]: row g+8.
+  auto logits = [&](int k0, float (&l)[AK / 8][4]) {
+#pragma unroll
+    for (int j = 0; j < AK / 8; ++j) {
+      l[j][0] = l[j][1] = l[j][2] = l[j][3] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < D / 16; ++kt)
+        mma_bf16(l[j], qa[kt], ld32(&Ks[j * 8 + g][kt * 16 + 2 * t]),
+                 ld32(&Ks[j * 8 + g][kt * 16 + 2 * t + 8]));
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        l[j][r] = k0 + j * 8 + 2 * t + (r & 1) < S ? l[j][r] * scale : -INFINITY;
+    }
+  };
+  auto quad_max = [](float v) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+  };
+  auto quad_sum = [](float v) {
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    return v + __shfl_xor_sync(0xffffffffu, v, 2);
+  };
+
+  float l[AK / 8][4];
+  float mx[2] = {-INFINITY, -INFINITY};
+  for (int k0 = 0; k0 < S; k0 += AK) {
+    __syncthreads();
+    load_k(k0);
+    __syncthreads();
+    logits(k0, l);
+#pragma unroll
+    for (int j = 0; j < AK / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) mx[r >> 1] = fmaxf(mx[r >> 1], l[j][r]);
+  }
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+
+  float sum[2] = {0.f, 0.f};
+  for (int k0 = 0; k0 < S; k0 += AK) {
+    __syncthreads();
+    load_k(k0);
+    __syncthreads();
+    logits(k0, l);
+#pragma unroll
+    for (int j = 0; j < AK / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) sum[r >> 1] += expf(l[j][r] - mx[r >> 1]);
+  }
+  sum[0] = quad_sum(sum[0]);
+  sum[1] = quad_sum(sum[1]);
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int k0 = 0; k0 < S; k0 += AK) {
+    __syncthreads();
+    load_k(k0);
+    load_v(k0);
+    __syncthreads();
+    logits(k0, l);
+#pragma unroll
+    for (int kt = 0; kt < AK / 16; ++kt) {
+      float w[2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          w[u][r] = expf(l[2 * kt + u][r] - mx[r >> 1]) / sum[r >> 1];
+      const uint32_t a[4] = {pack_bf16(w[0][0], w[0][1]), pack_bf16(w[0][2], w[0][3]),
+                             pack_bf16(w[1][0], w[1][1]), pack_bf16(w[1][2], w[1][3])};
+#pragma unroll
+      for (int dj = 0; dj < D / 8; ++dj)
+        mma_bf16(o[dj], a, ld32(&Vt[dj * 8 + g][kt * 16 + 2 * t]),
+                 ld32(&Vt[dj * 8 + g][kt * 16 + 2 * t + 8]));
+    }
+  }
+  bf16* ob = out + (size_t)n * L.out_item + (size_t)h * L.out_head;
+#pragma unroll
+  for (int dj = 0; dj < D / 8; ++dj)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int s = q0 + g + 8 * half;
+      if (s < S)
+        *reinterpret_cast<uint32_t*>(ob + (size_t)s * L.out_row + dj * 8 + 2 * t) =
+            pack_bf16(o[dj][2 * half], o[dj][2 * half + 1]);
+    }
+}
+
+// The attention stage for T: bf16 on tensor cores at head dims 64 and 128,
+// other head dims and float on the FMA kernel. Returns 0 or a CUDA error.
+template <typename T>
+int launch_attention(const T* qkv, T* out, AttnLayout L, int N, int S, int H, int D, float scale,
+                     cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2) {
+    const dim3 grid((S + AQ - 1) / AQ, H, N);
+    if (D == 64) {
+      attention_mma_kernel<64><<<grid, 128, 0, stream>>>(qkv, out, L, S, scale);
+      return (int)cudaGetLastError();
+    }
+    if (D == 128) {
+      attention_mma_kernel<128><<<grid, 128, 0, stream>>>(qkv, out, L, S, scale);
+      return (int)cudaGetLastError();
+    }
+  }
+  const size_t smem = attention_smem(S, D);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  attention_kernel<T><<<dim3((S + QT - 1) / QT, H, N), kThreads, smem, stream>>>(
+      qkv, out, L, S, D, scale);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The recomputing attention backward's pieces: batched GEMMs over (item,
+// head) pairs with strided operand loaders, and the softmax row passes over
+// an (S, S) scratch per pair. The attention-block backward (#2) runs them on
+// its qkv buffer, the multi-head attention backward (#4) on (N, 3, H, S, D).
+//
+// Operand loaders return V consecutive values along the operand's contiguous
+// index, starting at (i, j): (m, k) for A, (k, n) for B. Every extent and
+// offset the kernels use is a multiple of 8 elements (S % 8 == 0,
+// D % 64 == 0), so a run of V never straddles a tile edge and its address is
+// aligned for a V-wide vector load.
+// ---------------------------------------------------------------------------
+
+template <typename S, int V> struct Vec;
+template <> struct Vec<float, 4> {
+  __device__ static void load(const float* p, float* out) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  }
+};
+template <> struct Vec<float, 8> {
+  __device__ static void load(const float* p, float* out) {
+    Vec<float, 4>::load(p, out);
+    Vec<float, 4>::load(p + 4, out + 4);
+  }
+};
+template <> struct Vec<bf16, 4> {
+  __device__ static void load(const bf16* p, float* out) {
+    const uint2 a = *reinterpret_cast<const uint2*>(p);
+    const bf16* h = reinterpret_cast<const bf16*>(&a);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) out[u] = __bfloat162float(h[u]);
+  }
+};
+template <> struct Vec<bf16, 8> {
+  __device__ static void load(const bf16* p, float* out) {
+    const uint4 a = *reinterpret_cast<const uint4*>(p);
+    const bf16* h = reinterpret_cast<const bf16*>(&a);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) out[u] = __bfloat162float(h[u]);
+  }
+};
+
+template <int V, typename Load>
+__device__ __forceinline__ void load_or_zero(const Load& load, int z, int i, int j, bool in,
+                                             float (&out)[V]) {
+  if (in) {
+    load.template vec<V>(z, i, j, out);
+  } else {
+#pragma unroll
+    for (int u = 0; u < V; ++u) out[u] = 0.f;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  return make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]),
+                    pack_bf16(f[6], f[7]));
+}
+
+// Batched f32 FMA GEMM: C[z](m, n) = sum_k A(z, m, k) * B(z, k, n) over
+// (16 TM) x (16 TN) tiles, K in steps of 8, 256 threads of TM x TN outputs
+// each, fed from shared memory by float4 reads; a thread's columns are
+// 4-wide groups 64 apart, so each epilogue row is written coalesced. With kchunk = 0, z is a batch
+// index passed to the loaders; with kchunk > 0, z splits K into chunks of
+// kchunk and the epilogue writes one partial sum per chunk. Each loader says
+// whether consecutive k are adjacent in memory (kKContig), and the tile load
+// maps threads along the contiguous index either way.
+constexpr int FK = 8;
+
+template <int TM, int TN, typename ALoad, typename BLoad, typename Epi>
+__global__ void __launch_bounds__(kThreads)
+fgemm_kernel(int M, int Ncols, int K, int kchunk, ALoad aload, BLoad bload, Epi epi) {
+  constexpr int TBMf = 16 * TM, TBNf = 16 * TN;
+  // Rows padded by 4 floats: the k-major tile stores then hit distinct banks,
+  // and the float4 reads stay 16-byte aligned.
+  __shared__ __align__(16) float As[FK][TBMf + 4];
+  __shared__ __align__(16) float Bs[FK][TBNf + 4];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.x * TBMf, n0 = blockIdx.y * TBNf, z = blockIdx.z;
+  const int zb = kchunk ? 0 : z;
+  const int kb = kchunk ? z * kchunk : 0;
+  const int ke = kchunk ? min(K, kb + kchunk) : K;
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = kb; k0 < ke; k0 += FK) {
+    for (int v = tid; v < TBMf * FK / 4; v += kThreads) {
+      float f[4];
+      if (ALoad::kKContig) {
+        const int m = v / (FK / 4), kk = (v % (FK / 4)) * 4;
+        load_or_zero<4>(aload, zb, m0 + m, k0 + kk, m0 + m < M && k0 + kk < ke, f);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) As[kk + u][m] = f[u];
+      } else {
+        const int kk = v / (TBMf / 4), m = (v % (TBMf / 4)) * 4;
+        load_or_zero<4>(aload, zb, m0 + m, k0 + kk, m0 + m < M && k0 + kk < ke, f);
+        *reinterpret_cast<float4*>(&As[kk][m]) = make_float4(f[0], f[1], f[2], f[3]);
+      }
+    }
+    for (int v = tid; v < TBNf * FK / 4; v += kThreads) {
+      float f[4];
+      if (BLoad::kKContig) {
+        const int n = v / (FK / 4), kk = (v % (FK / 4)) * 4;
+        load_or_zero<4>(bload, zb, k0 + kk, n0 + n, n0 + n < Ncols && k0 + kk < ke, f);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) Bs[kk + u][n] = f[u];
+      } else {
+        const int kk = v / (TBNf / 4), n = (v % (TBNf / 4)) * 4;
+        load_or_zero<4>(bload, zb, k0 + kk, n0 + n, n0 + n < Ncols && k0 + kk < ke, f);
+        *reinterpret_cast<float4*>(&Bs[kk][n]) = make_float4(f[0], f[1], f[2], f[3]);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < FK; ++kk) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM; i += 4)
+        *reinterpret_cast<float4*>(&a[i]) = *reinterpret_cast<const float4*>(&As[kk][ty * TM + i]);
+#pragma unroll
+      for (int j = 0; j < TN; j += 4)  // columns j/4 * 64 + 4 tx: coalesced epilogue rows
+        *reinterpret_cast<float4*>(&b[j]) =
+            *reinterpret_cast<const float4*>(&Bs[kk][(j / 4) * 64 + tx * 4]);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; j += 4) {
+      const int m = m0 + ty * TM + i, n = n0 + (j / 4) * 64 + tx * 4;
+      if (m < M && n < Ncols) epi.store4(z, m, n, acc[i][j], acc[i][j + 1], acc[i][j + 2],
+                                         acc[i][j + 3]);
+    }
+}
+
+// The same batched GEMM on bf16 tensor cores (mma.sync m16n8k16, f32
+// accumulate), for products whose two operands hold model-dtype (bf16)
+// values: the loaders return floats that bf16 represents exactly, so the
+// products are exact and only the f32 accumulation order differs from the
+// FMA kernel. 128x128 block tiles, K in steps of 32, 8 warps of 64x32 (the
+// forward's mma_gemm_kernel layout). The tile load maps threads along each
+// operand's contiguous index and stores bf16 into (row, k) shared tiles.
+template <typename ALoad, typename BLoad, typename Epi>
+__global__ void __launch_bounds__(kThreads)
+bmma_kernel(int M, int Ncols, int K, int kchunk, ALoad aload, BLoad bload, Epi epi) {
+  __shared__ __align__(16) bf16 As[TBM][TLD];
+  __shared__ __align__(16) bf16 Bs[TBN][TLD];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  const int m0 = blockIdx.x * TBM, n0 = blockIdx.y * TBN, z = blockIdx.z;
+  const int zb = kchunk ? 0 : z;
+  const int kb = kchunk ? z * kchunk : 0;
+  const int ke = kchunk ? min(K, kb + kchunk) : K;
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+
+  for (int k0 = kb; k0 < ke; k0 += TBK) {
+    for (int v = tid; v < TBM * TBK / 8; v += kThreads) {
+      float f[8];
+      if (ALoad::kKContig) {
+        const int m = v / (TBK / 8), kk = (v % (TBK / 8)) * 8;
+        load_or_zero<8>(aload, zb, m0 + m, k0 + kk, m0 + m < M && k0 + kk < ke, f);
+        *reinterpret_cast<uint4*>(&As[m][kk]) = pack8(f);
+      } else {
+        const int kk = v / (TBM / 8), m = (v % (TBM / 8)) * 8;
+        load_or_zero<8>(aload, zb, m0 + m, k0 + kk, m0 + m < M && k0 + kk < ke, f);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) As[m + u][kk] = __float2bfloat16_rn(f[u]);
+      }
+    }
+    for (int v = tid; v < TBN * TBK / 8; v += kThreads) {
+      float f[8];
+      if (BLoad::kKContig) {
+        const int n = v / (TBK / 8), kk = (v % (TBK / 8)) * 8;
+        load_or_zero<8>(bload, zb, k0 + kk, n0 + n, n0 + n < Ncols && k0 + kk < ke, f);
+        *reinterpret_cast<uint4*>(&Bs[n][kk]) = pack8(f);
+      } else {
+        const int kk = v / (TBN / 8), n = (v % (TBN / 8)) * 8;
+        load_or_zero<8>(bload, zb, k0 + kk, n0 + n, n0 + n < Ncols && k0 + kk < ke, f);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) Bs[n + u][kk] = __float2bfloat16_rn(f[u]);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < TBK; kk += 16) {
+      uint32_t a[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = wm + i * 16 + g;
+        a[i][0] = ld32(&As[r][kk + 2 * t]);
+        a[i][1] = ld32(&As[r + 8][kk + 2 * t]);
+        a[i][2] = ld32(&As[r][kk + 2 * t + 8]);
+        a[i][3] = ld32(&As[r + 8][kk + 2 * t + 8]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int nn = wn + j * 8 + g;
+        const uint32_t b0 = ld32(&Bs[nn][kk + 2 * t]), b1 = ld32(&Bs[nn][kk + 2 * t + 8]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mma_bf16(acc[i][j], a[i], b0, b1);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int m = m0 + wm + i * 16 + g + (r >> 1) * 8, n = n0 + wn + j * 8 + 2 * t + (r & 1);
+        if (m < M && n < Ncols) epi(z, m, n, acc[i][j][r]);
+      }
+}
+
+// A strided operand: value(z, i, j) = round_R(src[(z / H) * zo + (z % H) * zi
+// + i * si + j * sj]), (i, j) = (m, k) for A and (k, n) for B; one of si, sj
+// is 1. z runs over (item, head) pairs; R = float leaves the value as it is.
+template <typename S, typename R, bool KC>
+struct Operand {
+  static constexpr bool kKContig = KC;
+  const S* p; int H; long long zo, zi, si, sj;
+  template <int V>
+  __device__ void vec(int z, int i, int j, float (&out)[V]) const {
+    Vec<S, V>::load(p + (z / H) * zo + (z % H) * zi + i * si + j * sj, out);
+#pragma unroll
+    for (int u = 0; u < V; ++u) out[u] = rnd<R>(out[u]);
+  }
+};
+
+// Epilogue: dst[(z / H) * zo + (z % H) * zi + m * sm + n] = D(acc * scale);
+// store4 writes n..n+3 (the FMA GEMM's epilogue; D is float there).
+template <typename D>
+struct Store {
+  D* p; int H; long long zo, zi, sm; float scale;
+  __device__ void operator()(int z, int m, int n, float acc) const {
+    p[(z / H) * zo + (z % H) * zi + m * sm + n] = from_f<D>(acc * scale);
+  }
+  __device__ void store4(int z, int m, int n, float a, float b, float c, float d) const {
+    D* q = p + (z / H) * zo + (z % H) * zi + m * sm + n;
+    if constexpr (sizeof(D) == 4) {
+      *reinterpret_cast<float4*>(q) = make_float4(a * scale, b * scale, c * scale, d * scale);
+    } else {
+      q[0] = from_f<D>(a * scale), q[1] = from_f<D>(b * scale);
+      q[2] = from_f<D>(c * scale), q[3] = from_f<D>(d * scale);
+    }
+  }
+};
+
+// The f32 FMA GEMM: 128 x 128 tiles, or 128 x 64 for a narrow product
+// (N <= 64, the per-head D). gemm_lp<T> is for products of two model-dtype
+// operands: tensor cores when T is bf16, FMA (true f32) when T is float.
+template <typename A, typename B, typename E>
+cudaError_t gemm(int M, int Ncols, int K, int Z, int kchunk, A a, B b, E e, cudaStream_t st) {
+  if (Ncols <= 64)
+    fgemm_kernel<8, 4><<<dim3((M + 127) / 128, (Ncols + 63) / 64, Z), kThreads, 0, st>>>(
+        M, Ncols, K, kchunk, a, b, e);
+  else
+    fgemm_kernel<8, 8><<<dim3((M + 127) / 128, (Ncols + 127) / 128, Z), kThreads, 0, st>>>(
+        M, Ncols, K, kchunk, a, b, e);
+  return cudaGetLastError();
+}
+
+template <typename T, typename A, typename B, typename E>
+cudaError_t gemm_lp(int M, int Ncols, int K, int Z, int kchunk, A a, B b, E e, cudaStream_t st) {
+  if constexpr (sizeof(T) == 2) {
+    bmma_kernel<<<dim3((M + TBM - 1) / TBM, (Ncols + TBN - 1) / TBN, Z), kThreads, 0, st>>>(
+        M, Ncols, K, kchunk, a, b, e);
+    return cudaGetLastError();
+  } else {
+    return gemm(M, Ncols, K, Z, kchunk, a, b, e, st);
+  }
+}
+
+// P (rows, S) of scaled logits -> wf = e / sum(e), e = exp(l - max), in place.
+// One warp per row.
+__global__ void __launch_bounds__(kThreads)
+softmax_rows_kernel(float* __restrict__ P, long long rows, int S) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  float* p = P + row * S;
+  float m = -INFINITY;
+  for (int j = lane; j < S; j += 32) m = fmaxf(m, p[j]);
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  float sum = 0.f;
+  for (int j = lane; j < S; j += 32) {
+    const float e = expf(p[j] - m);
+    p[j] = e;
+    sum += e;
+  }
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  for (int j = lane; j < S; j += 32) p[j] = p[j] / sum;
+}
+
+// dP (rows, S) -> ds = (wf * (dp - sum_j dp_j * T(wf_j))) * scale, in place.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+softmax_bwd_rows_kernel(const float* __restrict__ P, float* __restrict__ dP, long long rows,
+                        int S, float scale) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const float* w = P + row * S;
+  float* d = dP + row * S;
+  float s = 0.f;
+  for (int j = lane; j < S; j += 32) s = fmaf(d[j], rnd<T>(w[j]), s);
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  for (int j = lane; j < S; j += 32) d[j] = __fmul_rn(__fmul_rn(w[j], d[j] - s), scale);
+}
 
 }  // namespace

@@ -8,7 +8,12 @@ The torch modules carry the flax scope names, so each leaf maps by its path:
   ``embedding`` -> ``weight``;
 - attention ``qkv_kernel`` (C, 3, H, D), ``qkv_bias`` (3, H, D) and
   ``proj_kernel`` (H, D, C) are flattened in [k][h][d] order, exactly as the
-  JAX AttentionBlock flattens them for its block kernel.
+  JAX AttentionBlock flattens them for its block kernel;
+- ``AttentionPool2d``'s ``positional_embedding`` (H*W + 1, C) as it is.
+
+The same mapping serves ``SuperResModel`` (its UNet under ``base``) and
+``EncoderUNetModel`` (its pool ``Dense`` layers, spatial heads and
+``AttentionPool2d_0``).
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ def _convert_leaf(name: str, a: np.ndarray) -> Tuple[str, np.ndarray]:
         if a.ndim == 2:
             return "weight", a.T
         raise ValueError(f"unexpected kernel of rank {a.ndim}")
+    if name == "positional_embedding":
+        return name, a
     if name in ("scale", "embedding"):
         return "weight", a
     if name == "bias":

@@ -1,7 +1,8 @@
-"""Guided-diffusion UNet in PyTorch, NHWC at its boundary.
+"""Guided-diffusion UNet family in PyTorch, NHWC at its boundary.
 
 Counterpart of ``cfm_tpu/models/unet.py`` (``UNetModel``,
-``UNetModelWrapper`` and their layers). Same function, same dtype policy:
+``UNetModelWrapper``, ``SuperResModel``, ``EncoderUNetModel``,
+``AttentionPool2d`` and their layers). Same function, same dtype policy:
 
 - Activations are NHWC ``(N, H, W, C)`` like the JAX package. A convolution
   views its NHWC input as an NCHW tensor in ``torch.channels_last`` memory
@@ -19,17 +20,21 @@ Counterpart of ``cfm_tpu/models/unet.py`` (``UNetModel``,
   ``Conv_0``, ``Dense_1``, ...), so ``models/convert.py`` maps a flax
   parameter tree onto ``state_dict`` keys mechanically.
 - Attention blocks whose shape passes :func:`use_fused_block` go through
-  :func:`~cfm_tpu_torch.ops.attn_block.fused_attention_block` (the Hopper
-  kernel on CUDA); the others, such as ``mid_attn`` at 4x4, take the plain
-  composition, as in the JAX package.
+  :func:`~cfm_tpu_torch.ops.attn_block.fused_attention_block` (kernels #1
+  and #2 on CUDA). The others project q, k and v themselves and call
+  :func:`~cfm_tpu_torch.ops.attention.attention_t`, which takes kernels #3
+  and #4 where its gate passes (the 16x16 blocks at ImageNet-64 widths) and
+  the plain composition elsewhere (``mid_attn`` at 4x4, the 32x32 blocks at
+  ImageNet-64 widths), as in the JAX package.
 - Every ``GroupNorm32`` goes through the fused GroupNorm(+SiLU) wrapper:
-  46 calls per evaluation at the CIFAR-10 recipe, 27 at the MNIST preset
-  (the GroupNorms inside fused attention blocks are part of that kernel).
+  46 calls per evaluation at the CIFAR-10 recipe, 27 at the MNIST preset,
+  87 at ImageNet-64 widths in bf16 (the GroupNorms inside fused attention
+  blocks are part of that kernel).
 - ``train=True`` turns on ``FastDropout`` before each ResBlock's last conv,
   with its uint8 masks drawn from the ``generator`` the caller passes (a CPU
   generator on a CUDA model draws on the CPU and copies the masks over, which
   is how a test gives two devices the same masks). Gradients through the
-  fused attention blocks take the backward kernel.
+  attention kernels take their backward kernels (#2, #4).
 """
 
 from __future__ import annotations
@@ -89,6 +94,8 @@ class GroupNorm32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 2:  # (N, C) features: groups of channels, as flax's GroupNorm takes them
+            return self(x[:, None, None, :])[:, 0, 0, :]
         return fused_group_norm_silu(x, self.weight, self.bias, self.groups, 1e-5, self.fuse_silu)
 
 
@@ -120,9 +127,9 @@ class Dense(nn.Module):
     """flax ``nn.Dense`` computing in ``dtype``; weight (out, in) as in torch."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, zero_init: bool = False):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.zero_init = dtype, zero_init
         self.weight = nn.Parameter(torch.zeros(out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(out_features))
 
@@ -279,7 +286,150 @@ class AttentionBlock(nn.Module):
         return x + out.reshape(n, hh, ww, c)
 
 
-class UNetModel(nn.Module):
+@torch.no_grad()
+def flax_init_(module: nn.Module, generator: torch.Generator) -> None:
+    """flax's initialisers on every layer of ``module``, drawn from
+    ``generator`` (a CPU generator): N(0, 1/fan_in) kernels, zero biases,
+    zero-initialised output convs, heads and attention out-projections,
+    N(0, 1) class embeddings, N(0, 1/C) positional embeddings."""
+    def normal_(p, std):
+        p.copy_(torch.randn(p.shape, generator=generator) * std)
+
+    for m in module.modules():
+        if isinstance(m, (Conv, Dense)):
+            if m.zero_init:
+                m.weight.zero_()
+            else:
+                normal_(m.weight, m.weight[0].numel() ** -0.5)
+            m.bias.zero_()
+        elif isinstance(m, GroupNorm32):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, AttentionBlock):
+            normal_(m.qkv_weight, m.qkv_weight.shape[0] ** -0.5)
+            for p in (m.qkv_bias, m.proj_weight, m.proj_bias):
+                p.zero_()
+        elif isinstance(m, nn.Embedding):
+            normal_(m.weight, 1.0)
+        elif isinstance(m, AttentionPool2d):
+            normal_(m.positional_embedding, m.positional_embedding.shape[1] ** -0.5)
+
+
+class AttentionPool2d(nn.Module):
+    """Attention-weighted global pooling (the JAX ``AttentionPool2d``): the mean
+    token prepended to the H*W tokens, a learned positional embedding of
+    ``spatial_size + 1`` rows, one multi-head attention in the input's dtype
+    with its own softmax (no kernel), and the mean token's output projection.
+    x: (N, H, W, embed_dim) with H * W = ``spatial_size`` -> (N, output_dim)."""
+
+    def __init__(self, spatial_size: int, embed_dim: int, num_heads: int = 1,
+                 output_dim: Optional[int] = None, seed: int = 0):
+        super().__init__()
+        self.num_heads = num_heads
+        self.positional_embedding = nn.Parameter(torch.zeros(spatial_size + 1, embed_dim))
+        self.Dense_0 = Dense(embed_dim, 3 * embed_dim)
+        self.Dense_1 = Dense(embed_dim, output_dim or embed_dim)
+        flax_init_(self, torch.Generator().manual_seed(seed))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, h, w, c = x.shape
+        tokens = x.reshape(n, h * w, c)
+        tokens = torch.cat([tokens.mean(dim=1, keepdim=True), tokens], dim=1)
+        tokens = tokens + self.positional_embedding
+        s, heads = tokens.shape[1], self.num_heads
+        q, k, v = self.Dense_0(tokens).reshape(n, s, 3, heads, c // heads).unbind(2)
+        logits = torch.einsum("nqhd,nkhd->nhqk", q, k) / math.sqrt(c // heads)
+        att = torch.softmax(logits, dim=-1)
+        out = torch.einsum("nhqk,nkhd->nqhd", att, v).reshape(n, s, c)
+        return self.Dense_1(out)[:, 0]
+
+
+class _Trunk(nn.Module):
+    """What :class:`UNetModel` and :class:`EncoderUNetModel` share, under the
+    flax scope names: the time embedding, the stem conv, the input blocks and
+    the middle, and flax's initialisers."""
+
+    def __init__(self, model_channels: int, dropout: float, num_head_channels: int,
+                 use_scale_shift_norm: bool, dtype: torch.dtype):
+        super().__init__()
+        self.model_channels, self.dtype = model_channels, dtype
+        self.emb_dim = 4 * model_channels
+        self._res_kw = dict(use_scale_shift_norm=use_scale_shift_norm, dtype=dtype, dropout=dropout)
+        self._num_head_channels = num_head_channels
+        self.Dense_0 = Dense(model_channels, self.emb_dim)
+        self.Dense_1 = Dense(self.emb_dim, self.emb_dim)
+
+    def _res(self, name: str, c_in: int, c_out: int, **kw) -> str:
+        self.add_module(name, ResBlock(c_in, c_out, self.emb_dim, **self._res_kw, **kw))
+        return name
+
+    def _attn(self, name: str, c: int, heads: int) -> str:
+        self.add_module(name, AttentionBlock(c, heads, self._num_head_channels, self.dtype))
+        return name
+
+    def _add_trunk(self, in_channels: int, channel_mult: Sequence[float], num_res_blocks: int,
+                   attention_resolutions: Sequence[int], num_heads: int, conv_resample: bool,
+                   resblock_updown: bool) -> Tuple[List[int], int]:
+        """Adds the stem conv, the input blocks and the middle. Returns the
+        channels of the stem's and of each input block's output, and the
+        downsample factor reached."""
+        ch = int(channel_mult[0] * self.model_channels)
+        self.Conv_0 = Conv(in_channels, ch, 3, dtype=self.dtype)
+        self._input_blocks: List[List[str]] = []
+        chans, ds = [ch], 1
+        for level, mult in enumerate(channel_mult):
+            for i in range(num_res_blocks):
+                c_out = int(mult * self.model_channels)
+                block = [self._res(f"down{level}_res{i}", ch, c_out)]
+                ch = c_out
+                if ds in attention_resolutions:
+                    block.append(self._attn(f"down{level}_attn{i}", ch, num_heads))
+                self._input_blocks.append(block)
+                chans.append(ch)
+            if level != len(channel_mult) - 1:
+                if resblock_updown:
+                    name = self._res(f"down{level}_downres", ch, ch, down=True)
+                else:
+                    name = f"down{level}_down"
+                    self.add_module(name, Downsample(conv_resample, ch, ch, self.dtype))
+                self._input_blocks.append([name])
+                chans.append(ch)
+                ds *= 2
+        self._middle = [self._res("mid_res0", ch, ch), self._attn("mid_attn", ch, num_heads),
+                        self._res("mid_res1", ch, ch)]
+        return chans, ds
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        flax_init_(self, generator)
+
+    def _embed(self, t, x: torch.Tensor) -> torch.Tensor:
+        t = torch.as_tensor(t, device=x.device)
+        if t.ndim == 0:
+            t = t.expand(x.shape[0])
+        emb = timestep_embedding(t, self.model_channels)
+        return self.Dense_1(F.silu(self.Dense_0(emb)))
+
+    def _run(self, name: str, h: torch.Tensor, emb: torch.Tensor, train: bool,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+        m = getattr(self, name)
+        return m(h, emb, train, generator) if isinstance(m, ResBlock) else m(h)
+
+    def _down_and_middle(self, x: torch.Tensor, emb: torch.Tensor, train: bool,
+                         generator: Optional[torch.Generator]
+                         ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """The middle's output, and the stem's and each input block's."""
+        h = self.Conv_0(x.to(self.dtype))
+        hs = [h]
+        for block in self._input_blocks:
+            for name in block:
+                h = self._run(name, h, emb, train, generator)
+            hs.append(h)
+        for name in self._middle:
+            h = self._run(name, h, emb, train, generator)
+        return h, hs
+
+
+class UNetModel(_Trunk):
     """The UNet with attention and timestep embedding, NHWC in and out.
 
     ``attention_resolutions`` holds downsample factors, as in the JAX
@@ -296,65 +446,28 @@ class UNetModel(nn.Module):
                  num_heads_upsample: int = -1, use_scale_shift_norm: bool = False,
                  resblock_updown: bool = False, dtype: torch.dtype = torch.float32,
                  seed: int = 0):
-        super().__init__()
-        self.model_channels, self.num_classes, self.dtype = model_channels, num_classes, dtype
-        emb_dim = 4 * model_channels
+        super().__init__(model_channels, dropout, num_head_channels, use_scale_shift_norm, dtype)
+        self.num_classes = num_classes
         heads_up = num_heads if num_heads_upsample == -1 else num_heads_upsample
-
-        def res(name, c_in, c_out, **kw):
-            self.add_module(name, ResBlock(c_in, c_out, emb_dim, use_scale_shift_norm,
-                                           dtype=dtype, dropout=dropout, **kw))
-            return name
-
-        def attn(name, c, heads):
-            self.add_module(name, AttentionBlock(c, heads, num_head_channels, dtype))
-            return name
-
-        self.Dense_0 = Dense(model_channels, emb_dim)
-        self.Dense_1 = Dense(emb_dim, emb_dim)
         if num_classes is not None:
-            self.Embed_0 = nn.Embedding(num_classes, emb_dim)
-        ch = int(channel_mult[0] * model_channels)
-        self.Conv_0 = Conv(in_channels, ch, 3, dtype=dtype)
-
+            self.Embed_0 = nn.Embedding(num_classes, self.emb_dim)
         # Each input block's output is pushed as a skip; each output block
         # first concatenates the last skip on the channel axis.
-        self._input_blocks: List[List[str]] = []
-        skip_ch = [ch]
-        ds = 1
-        for level, mult in enumerate(channel_mult):
-            for i in range(num_res_blocks):
-                c_out = int(mult * model_channels)
-                block = [res(f"down{level}_res{i}", ch, c_out)]
-                ch = c_out
-                if ds in attention_resolutions:
-                    block.append(attn(f"down{level}_attn{i}", ch, num_heads))
-                self._input_blocks.append(block)
-                skip_ch.append(ch)
-            if level != len(channel_mult) - 1:
-                if resblock_updown:
-                    name = res(f"down{level}_downres", ch, ch, down=True)
-                else:
-                    name = f"down{level}_down"
-                    self.add_module(name, Downsample(conv_resample, ch, ch, dtype))
-                self._input_blocks.append([name])
-                skip_ch.append(ch)
-                ds *= 2
-
-        self._middle = [res("mid_res0", ch, ch), attn("mid_attn", ch, num_heads),
-                        res("mid_res1", ch, ch)]
-
+        skip_ch, ds = self._add_trunk(in_channels, channel_mult, num_res_blocks,
+                                      attention_resolutions, num_heads, conv_resample,
+                                      resblock_updown)
+        ch = skip_ch[-1]
         self._output_blocks: List[List[str]] = []
         for level, mult in list(enumerate(channel_mult))[::-1]:
             for i in range(num_res_blocks + 1):
                 c_out = int(mult * model_channels)
-                block = [res(f"up{level}_res{i}", ch + skip_ch.pop(), c_out)]
+                block = [self._res(f"up{level}_res{i}", ch + skip_ch.pop(), c_out)]
                 ch = c_out
                 if ds in attention_resolutions:
-                    block.append(attn(f"up{level}_attn{i}", ch, heads_up))
+                    block.append(self._attn(f"up{level}_attn{i}", ch, heads_up))
                 if level and i == num_res_blocks:
                     if resblock_updown:
-                        block.append(res(f"up{level}_upres", ch, ch, up=True))
+                        block.append(self._res(f"up{level}_upres", ch, ch, up=True))
                     else:
                         name = f"up{level}_up"
                         self.add_module(name, Upsample(conv_resample, ch, ch, dtype))
@@ -366,34 +479,6 @@ class UNetModel(nn.Module):
         self.Conv_1 = Conv(ch, out_channels, 3, dtype=torch.float32, zero_init=True)
         self.reset_parameters(torch.Generator().manual_seed(seed))
 
-    @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        """flax's initialisers, drawn from ``generator`` (a CPU generator)."""
-        def normal_(p, std):
-            p.copy_(torch.randn(p.shape, generator=generator) * std)
-
-        for m in self.modules():
-            if isinstance(m, (Conv, Dense)):
-                if getattr(m, "zero_init", False):
-                    m.weight.zero_()
-                else:
-                    normal_(m.weight, m.weight[0].numel() ** -0.5)
-                m.bias.zero_()
-            elif isinstance(m, GroupNorm32):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-            elif isinstance(m, AttentionBlock):
-                normal_(m.qkv_weight, m.qkv_weight.shape[0] ** -0.5)
-                for p in (m.qkv_bias, m.proj_weight, m.proj_bias):
-                    p.zero_()
-            elif isinstance(m, nn.Embedding):
-                normal_(m.weight, 1.0)
-
-    def _run(self, name: str, h: torch.Tensor, emb: torch.Tensor, train: bool,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
-        m = getattr(self, name)
-        return m(h, emb, train, generator) if isinstance(m, ResBlock) else m(h)
-
     def forward(self, t, x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
                 train: bool = False, generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
@@ -404,29 +489,112 @@ class UNetModel(nn.Module):
         """
         if (y is not None) != (self.num_classes is not None):
             raise ValueError("must specify y iff the model is class-conditional")
-        t = torch.as_tensor(t, device=x.device)
-        if t.ndim == 0:
-            t = t.expand(x.shape[0])
-        emb = timestep_embedding(t, self.model_channels)
-        emb = self.Dense_1(F.silu(self.Dense_0(emb)))
+        emb = self._embed(t, x)
         if self.num_classes is not None:
             emb = emb + self.Embed_0(y)
-
         in_dtype = x.dtype
-        h = self.Conv_0(x.to(self.dtype))
-        hs = [h]
-        for block in self._input_blocks:
-            for name in block:
-                h = self._run(name, h, emb, train, generator)
-            hs.append(h)
-        for name in self._middle:
-            h = self._run(name, h, emb, train, generator)
+        h, hs = self._down_and_middle(x, emb, train, generator)
         for block in self._output_blocks:
             h = torch.cat([h, hs.pop()], dim=-1)
             for name in block:
                 h = self._run(name, h, emb, train, generator)
         h = self.GroupNorm32_0(h.to(in_dtype))
         return self.Conv_1(h)
+
+
+class SuperResModel(nn.Module):
+    """A UNet conditioned on a low-resolution image (the JAX ``SuperResModel``):
+    ``low_res`` (N, h, w, C') is resized bilinearly up to x's size and
+    concatenated to x on the channel axis, so ``base`` takes x's channels plus
+    C'. The resize keeps ``jax.image.resize``'s half-pixel centres with the
+    edge weights renormalised, which is ``F.interpolate(..., align_corners=False,
+    antialias=False)`` when it upsamples; a ``low_res`` larger than x (where
+    JAX would antialias) is refused."""
+
+    def __init__(self, base: UNetModel):
+        super().__init__()
+        self.base = base
+
+    def forward(self, t, x: torch.Tensor, low_res: torch.Tensor, y: Optional[torch.Tensor] = None,
+                *, train: bool = False, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        n, h, w, _ = x.shape
+        if low_res.shape[1] > h or low_res.shape[2] > w:
+            raise ValueError(f"low_res {tuple(low_res.shape)} is larger than x {tuple(x.shape)}")
+        up = F.interpolate(low_res.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
+                           align_corners=False, antialias=False).permute(0, 2, 3, 1)
+        return self.base(t, torch.cat([x, up], dim=-1), y, train=train, generator=generator)
+
+
+_POOLS = ("adaptive", "attention", "spatial", "spatial_v2")
+
+
+class EncoderUNetModel(_Trunk):
+    """The UNet's down path and middle with a pooled head (the JAX
+    ``EncoderUNetModel``): (N, H, W, in_channels) -> (N, out_channels) float32.
+
+    ``pool``:
+
+    - "adaptive": GroupNorm + SiLU, the global mean, a zero-initialised
+      linear head;
+    - "attention": GroupNorm + SiLU, then :class:`AttentionPool2d` with
+      C / ``num_head_channels`` heads; ``num_head_channels`` must be set, and
+      ``image_size`` (divisible by the total downsampling) sizes the pool's
+      positional embedding, which flax makes from the first input;
+    - "spatial" / "spatial_v2": the spatial means of the stem's, every input
+      block's and the middle's outputs, concatenated (their channel counts
+      summed: the reference's ``_feature_size``), then ``Dense(2048)``, ReLU
+      ("spatial") or GroupNorm + SiLU ("spatial_v2"), and the output
+      ``Dense``; no GroupNorm on the trunk.
+    """
+
+    def __init__(self, in_channels: int, model_channels: int, out_channels: int,
+                 num_res_blocks: int, attention_resolutions: Sequence[int] = (),
+                 dropout: float = 0.0, channel_mult: Sequence[float] = (1, 2, 4, 8),
+                 conv_resample: bool = True, num_heads: int = 1, num_head_channels: int = -1,
+                 use_scale_shift_norm: bool = False, resblock_updown: bool = False,
+                 pool: str = "adaptive", dtype: torch.dtype = torch.float32,
+                 image_size: Optional[int] = None, seed: int = 0):
+        if pool not in _POOLS:
+            raise ValueError(f"Unknown pool: {pool}")
+        super().__init__(model_channels, dropout, num_head_channels, use_scale_shift_norm, dtype)
+        self.pool = pool
+        chans, _ = self._add_trunk(in_channels, channel_mult, num_res_blocks,
+                                   attention_resolutions, num_heads, conv_resample,
+                                   resblock_updown)
+        ch = chans[-1]
+        if pool.startswith("spatial"):
+            self.Dense_2 = Dense(sum(chans) + ch, 2048)
+            if pool == "spatial_v2":
+                self.GroupNorm32_0 = GroupNorm32(2048, fuse_silu=True)
+            self.Dense_3 = Dense(2048, out_channels)
+        else:
+            self.GroupNorm32_0 = GroupNorm32(ch, fuse_silu=True)
+            if pool == "adaptive":
+                self.Dense_2 = Dense(ch, out_channels, zero_init=True)
+            else:
+                if num_head_channels == -1:
+                    raise ValueError("pool='attention' requires num_head_channels")
+                down = 2 ** (len(channel_mult) - 1)
+                if image_size is None or image_size % down:
+                    raise ValueError(f"pool='attention' needs an image_size divisible by {down}, "
+                                     f"got {image_size}")
+                side = image_size // down
+                self.AttentionPool2d_0 = AttentionPool2d(side * side, ch, ch // num_head_channels,
+                                                         out_channels)
+        self.reset_parameters(torch.Generator().manual_seed(seed))
+
+    def forward(self, t, x: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h, hs = self._down_and_middle(x, self._embed(t, x), train, generator)
+        if self.pool.startswith("spatial"):
+            hdn = self.Dense_2(torch.cat([f.float().mean(dim=(1, 2)) for f in hs + [h]], dim=-1))
+            hdn = self.GroupNorm32_0(hdn) if self.pool == "spatial_v2" else F.relu(hdn)
+            return self.Dense_3(hdn)
+        h = self.GroupNorm32_0(h).float()
+        if self.pool == "adaptive":
+            return self.Dense_2(h.mean(dim=(1, 2)))
+        return self.AttentionPool2d_0(h)
 
 
 _DEFAULT_CHANNEL_MULT = {

@@ -1,21 +1,40 @@
-"""Multi-head self-attention on the kernel layout (N, 3, H, S, D) -> (N, H, S, D).
+"""Multi-head self-attention, kernels #3 and #4 (counterpart of
+``cfm_tpu/ops/pallas_attention.py``).
 
-Counterpart of ``fused_attention_t`` in ``cfm_tpu/ops/pallas_attention.py``.
-The JAX package sends a shape to its Pallas kernel only when ``_gate``
-admits it (S % 128 == 0, D % 64 == 0, within a footprint budget) and
-computes every other shape with the plain composition ported here as
-:func:`attn_reference_t`. The AttentionBlock reaches this module only where
-the fused-block gate fails: at the CIFAR-10 recipe that is ``mid_attn`` at
-4x4 (S = 16), which the plain composition serves on either package.
+- :func:`attn_reference_t` is the plain forward on the kernel layout
+  (N, 3, H, S, D) -> (N, H, S, D), with the TPU kernel ``_fwd_kernel``'s
+  rounding points: logits and softmax in float32, the weights rounded to the
+  input dtype, the value product accumulated in float32 and rounded.
+  :func:`attention_t_bwd_reference` is the plain backward, a batched
+  transcription of ``_bwd_kernel`` (not autograd of the plain forward, which
+  would round at other points). They are the CPU path and the oracles the
+  CUDA kernels are held against.
+- :func:`attention_t` is the wrapper, ``fused_attention_t``'s counterpart. A
+  shape that :func:`gate` refuses takes the plain composition on any device,
+  with autograd through it, as the JAX package does. At a gated shape a CPU
+  tensor runs the plain versions and a CUDA tensor launches
+  ``csrc/attention_fwd.cu`` (adding one to ``attention_t.launches``) or
+  raises. When a gradient is wanted it is a ``torch.autograd.Function`` that
+  saves only ``qkv_t``, as the JAX ``custom_vjp`` does, and whose backward is
+  :func:`attention_t_bwd` (``csrc/attention_bwd.cu`` on CUDA, counted in
+  ``attention_t_bwd.launches``). Nothing falls back.
+- :func:`attention` is the (N, S, 3, H, D) -> (N, S, H, D) entry,
+  ``fused_attention``'s counterpart: the same kernels between two transposes.
 
-The kernel itself is not ported yet. For a CUDA tensor of a shape the gate
-would admit, :func:`attention_t` raises ``NotImplementedError`` rather than
-run the plain composition in the kernel's place.
+The UNet's ``AttentionBlock`` comes here where the fused-block gate
+(``ops/attn_block.py``) fails. At guided-diffusion's ImageNet-64 widths its
+16x16 blocks (C = 576, 9 heads of 64) take kernel #3, while its 32x32
+blocks (S = 1024, over #3's budget) and the CIFAR-10 recipe's ``mid_attn``
+at 4x4 (S = 16) take the plain composition, in both packages.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from cfm_tpu_torch.ops import _build
 
 _VMEM_BUDGET_BYTES = 12 * 1024 * 1024
 
@@ -41,12 +60,157 @@ def attn_reference_t(qkv_t: torch.Tensor, scale: float) -> torch.Tensor:
     return (w.float() @ v.float()).to(qkv_t.dtype)
 
 
+def attention_t_bwd_reference(qkv_t: torch.Tensor, do: torch.Tensor,
+                              scale: float) -> torch.Tensor:
+    """dqkv_t (N, 3, H, S, D) for the output gradient ``do`` (N, H, S, D).
+
+    q, k, v and do upcast from the input dtype; ``wf`` the float32 softmax
+    and ``w`` it rounded to the input dtype; dv = w^T do, dp = do v^T,
+    dw = dp - rowsum(dp * w), ds = wf * dw * scale; dq = ds k and dk = ds^T q
+    with float32 ds; dqkv rounded to the input dtype once.
+    """
+    lp = qkv_t.dtype
+    q, k, v = qkv_t.float().unbind(1)
+    dof = do.float()
+    logits = (q @ k.transpose(-1, -2)) * scale
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    wf = e / e.sum(dim=-1, keepdim=True)
+    w = wf.to(lp).float()
+    dv = w.transpose(-1, -2) @ dof
+    dp = dof @ v.transpose(-1, -2)
+    ds = wf * (dp - (dp * w).sum(dim=-1, keepdim=True)) * scale
+    return torch.stack([ds @ k, ds.transpose(-1, -2) @ q, dv], dim=1).to(lp)
+
+
 def attention_t(qkv_t: torch.Tensor, scale: float) -> torch.Tensor:
-    """(N, 3, H, S, D) -> (N, H, S, D)."""
+    """Multi-head self-attention on the kernel layout: (N, 3, H, S, D) ->
+    (N, H, S, D), softmax(q k^T * scale) v per item and head."""
+    if qkv_t.dim() != 5 or qkv_t.shape[1] != 3:
+        raise ValueError(f"qkv_t must be (N, 3, H, S, D), got shape {tuple(qkv_t.shape)}")
     _, _, H, S, D = qkv_t.shape
-    if qkv_t.device.type == "cuda" and gate(H, S, D, qkv_t.dtype):
-        raise NotImplementedError(
-            f"attention at H={H}, S={S}, D={D} takes the Pallas kernel "
-            "cfm_tpu/ops/pallas_attention.py:fused_attention_t in the JAX "
-            "package, which is not ported to CUDA yet")
-    return attn_reference_t(qkv_t, scale)
+    if not gate(H, S, D, qkv_t.dtype):
+        return attn_reference_t(qkv_t, scale)
+    qkv_t = qkv_t.contiguous()
+    if torch.is_grad_enabled() and qkv_t.requires_grad:
+        return _Attention.apply(qkv_t, scale)
+    return _forward(qkv_t, scale)
+
+
+attention_t.launches = 0
+
+
+def attention(qkv: torch.Tensor, scale: float) -> torch.Tensor:
+    """Multi-head self-attention: (N, S, 3, H, D) -> (N, S, H, D), the JAX
+    ``fused_attention``. It is :func:`attention_t` between two transposes."""
+    return attention_t(qkv.permute(0, 2, 3, 1, 4), scale).transpose(1, 2)
+
+
+class _Attention(torch.autograd.Function):
+    """Attention at a gated shape as an autograd node that saves only qkv_t;
+    the backward recomputes the softmax."""
+
+    @staticmethod
+    def forward(ctx, qkv_t, scale):
+        ctx.save_for_backward(qkv_t)
+        ctx.scale = scale
+        return _forward(qkv_t, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        (qkv_t,) = ctx.saved_tensors
+        return attention_t_bwd(qkv_t, do.contiguous(), ctx.scale), None
+
+
+def _dtype_code(t: torch.Tensor) -> int:
+    """The kernels' dtype argument; raises for what they do not take."""
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the attention kernels take float32 or bfloat16, got {t.dtype}")
+    if t.data_ptr() % 16:
+        raise ValueError("the attention kernels load 16-byte vectors: align the tensor")
+    return 0 if t.dtype == torch.float32 else 1
+
+
+def _forward(qkv_t: torch.Tensor, scale: float) -> torch.Tensor:
+    if qkv_t.device.type == "cpu":
+        return attn_reference_t(qkv_t, scale)
+    dtype = _dtype_code(qkv_t)
+    N, _, H, S, D = qkv_t.shape
+    lib = _lib()
+    smem = lib.attention_fwd_smem(S, D, dtype)
+    limit = torch.cuda.get_device_properties(qkv_t.device).shared_memory_per_block_optin
+    if smem > limit or N > 65535 or H > 65535:
+        raise ValueError(f"shape N={N}, H={H}, S={S}, D={D} exceeds the forward kernel's launch "
+                         f"limits ({smem} B of shared memory, limit {limit}; N, H <= 65535)")
+    out = torch.empty((N, H, S, D), device=qkv_t.device, dtype=qkv_t.dtype)
+    with torch.cuda.device(qkv_t.device):
+        err = lib.attention_fwd(qkv_t.data_ptr(), out.data_ptr(), N, H, S, D, scale, dtype,
+                                torch.cuda.current_stream(qkv_t.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"attention_fwd launch failed: CUDA error {err}")
+    attention_t.launches += 1
+    return out
+
+
+def attention_t_bwd(qkv_t: torch.Tensor, do: torch.Tensor, scale: float) -> torch.Tensor:
+    """dqkv_t (N, 3, H, S, D) of :func:`attention_t` at ``qkv_t`` for the
+    output gradient ``do`` (N, H, S, D), both contiguous.
+
+    On a CUDA tensor this launches the Hopper backward kernel (and adds one to
+    ``attention_t_bwd.launches``); on a CPU tensor it runs
+    :func:`attention_t_bwd_reference`.
+    """
+    if qkv_t.dim() != 5 or qkv_t.shape[1] != 3 or not qkv_t.is_contiguous():
+        raise ValueError(f"qkv_t must be a contiguous (N, 3, H, S, D), got shape "
+                         f"{tuple(qkv_t.shape)}")
+    N, _, H, S, D = qkv_t.shape
+    if tuple(do.shape) != (N, H, S, D) or do.dtype != qkv_t.dtype or do.device != qkv_t.device \
+            or not do.is_contiguous():
+        raise ValueError(f"do must be a contiguous {(N, H, S, D)} {qkv_t.dtype} on "
+                         f"{qkv_t.device}, got {tuple(do.shape)} {do.dtype} on {do.device}")
+    if qkv_t.device.type == "cpu":
+        return attention_t_bwd_reference(qkv_t, do, scale)
+    dtype = _dtype_code(qkv_t)
+    _dtype_code(do)
+    if S % 8 or D % 64 or N * H > 65535:
+        raise ValueError(f"shape N={N}, H={H}, S={S}, D={D} is outside the backward kernel "
+                         f"(S a multiple of 8, D of 64, N * H <= 65535)")
+    lib = _lib_bwd()
+    ws = torch.empty(lib.attention_bwd_workspace(N, H, S), dtype=torch.uint8, device=qkv_t.device)
+    dqkv = torch.empty_like(qkv_t)
+    with torch.cuda.device(qkv_t.device):
+        err = lib.attention_bwd(qkv_t.data_ptr(), do.data_ptr(), dqkv.data_ptr(), ws.data_ptr(),
+                                N, H, S, D, scale, dtype,
+                                torch.cuda.current_stream(qkv_t.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"attention_bwd launch failed: CUDA error {err}")
+    attention_t_bwd.launches += 1
+    return dqkv
+
+
+attention_t_bwd.launches = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("attention_fwd")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.attention_fwd_smem.argtypes = [i, i, i]
+        lib.attention_fwd_smem.restype = ctypes.c_size_t
+        lib.attention_fwd.argtypes = [p, p, i, i, i, i, ctypes.c_float, i, p]
+        lib.attention_fwd.restype = i
+        lib._typed = True
+    return lib
+
+
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.load("attention_bwd")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.attention_bwd_workspace.argtypes = [i, i, i]
+        lib.attention_bwd_workspace.restype = ctypes.c_size_t
+        lib.attention_bwd.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
+        lib.attention_bwd.restype = i
+        lib._typed = True
+    return lib

@@ -232,9 +232,10 @@ def _forward(x, gscale, gbias, wq, bq, wo, bo, n_heads, groups):
     lib = _lib()
     smem = lib.attn_block_fwd_smem(S, D)
     limit = torch.cuda.get_device_properties(x.device).shared_memory_per_block_optin
-    if smem > limit or N > 65535:
-        raise ValueError(f"shape N={N}, S={S}, D={D} exceeds the kernel's launch limits "
-                         f"({smem} B of shared memory, limit {limit}; N <= 65535)")
+    if smem > limit or N > 65535 or S * 3 * C >= 2**31:
+        raise ValueError(f"shape N={N}, S={S}, C={C} exceeds the kernel's launch limits "
+                         f"({smem} B of shared memory, limit {limit}; N <= 65535; an item's "
+                         f"qkv under 2^31 elements)")
     y = torch.empty_like(x)
     stats = torch.empty(2 * N * groups, device=x.device, dtype=torch.float32)
     qkv = torch.empty((N, S, 3 * C), device=x.device, dtype=x.dtype)

@@ -10,31 +10,43 @@ a result:
    count. Refuses to run without CUDA.
 2. Builds every kernel from ``cfm_tpu_torch/csrc`` (one ``nvcc`` per
    source, all at once: the attention-block forward and backward, the
-   auction and the GroupNorm forward and backward) and prints the build time
-   and ``ptxas`` register and shared-memory lines.
+   multi-head attention forward and backward, the auction and the GroupNorm
+   forward and backward) and prints the build time and ``ptxas`` register
+   and shared-memory lines.
 3. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it and at others that take other branches:
    the attention-block forward and backward in float32 (TF32 off) and
    bfloat16 (the backward's bf16 limit shown to catch do and ds rounded to
-   bf16); the auction's permutation, which must be identical, on
+   bf16), at the CIFAR-10 shapes and at the ImageNet-64 8x8 shape (C = 768,
+   12 heads); the multi-head attention forward and backward (#3, #4) at the
+   ImageNet-64 training and generation shapes and at others that take other
+   branches; the auction's permutation, which must be identical, on
    Gaussian, tied, duplicated and rank-1 costs up to n = 512, with its
    assignment cost against scipy's; and the GroupNorm(+SiLU) forward and
    backward (#8, #9) at every (N, H, W, C, dtype, SiLU) that one model
    evaluation of each path gives ``GroupNorm32`` (recorded by wrapping the
-   wrapper for that pass), plus a recentred-variance case in float32.
-4. Times each kernel with CUDA events (the attention forward at the training
-   and the generation batch; the GroupNorm kernels at the largest training
-   shape and summed over one training step's 46 calls) beside its plain
+   wrapper for that pass; the ImageNet-64 paths included), plus a
+   recentred-variance case in float32.
+4. Times each kernel with CUDA events (the attention-block forward at the
+   training and the generation batch; the multi-head attention forward and
+   backward at the ImageNet-64 training shape; the GroupNorm kernels at the
+   largest training shape and summed over one training step's 46 calls)
+   beside its plain
    version, one PyTorch library call of the same function where there is
    one (a yardstick the port never calls; for the auction, scipy's solver
    on the host) and the bound: the larger of bytes over 3.35 TB/s and
    operations over the peak rate for their type (989 TFLOP/s bf16 tensor
    cores, 67 TFLOP/s f32 without them; H100 SXM data-sheet peaks).
-5. Checks generation end to end on a small input: the same weights and
+5. Checks generation end to end on small inputs: the same weights and
    noise on the card and on the CPU (plain versions) give uint8 images
-   within one level and the same NFE. Then one train step of the same
-   small model in f32 with the same draws and dropout masks on both, and
-   one class-conditional step: loss, updated parameters and EMA agree.
+   within one level and the same NFE, for a CIFAR-shaped model and for one
+   that routes like ImageNet-64 (#3 at 16x16, #1 at 8x8, the plain
+   composition at 4x4, scale-shift norm, ResBlock up/down sampling, 10
+   classes). Then one train step of the first in f32 with the same draws
+   and dropout masks on both, one class-conditional step, and one
+   class-conditional step of the second: loss, updated parameters and EMA
+   agree. Then one forward of ``AttentionPool2d``, ``SuperResModel`` and
+   ``EncoderUNetModel`` (every pool) on the card against the CPU.
 6. The generation path: the CIFAR-10 recipe width (128 channels, mult
    (1, 2, 2, 2), 2 res blocks, 4 heads x 64, attention at 16x16, bf16) with
    random seeded weights, euler at 100 steps and dopri5 at rtol = atol =
@@ -58,10 +70,24 @@ a result:
     GroupNorm and no attention-block launches per step; profiled as in 9;
     then ``Trainer.generate`` of 80 images, 8 per class, with euler at 100
     steps: 27 GroupNorm launches per evaluation.
+11. ImageNet-64 generation: guided-diffusion's ImageNet 64x64 UNet (192
+    channels, mult (1, 2, 3, 4), 3 res blocks, attention at 32, 16 and 8
+    with 64 head channels, scale-shift norm, ResBlock up/down sampling,
+    1000 classes; 295,899,267 parameters) in bf16 with random seeded
+    weights, 64 images of 64 labels drawn from the seed, euler at 100
+    steps: 7 multi-head attention (#3), 8 attention-block and 87 GroupNorm
+    launches per evaluation. Prints images per second, ms per evaluation
+    and the peak memory.
+12. ImageNet-64 training: ``make_train_step`` with exact OT-CFM and the
+    labels, bf16, batch 32, dropout 0.1, Adam 1e-4 with the warmup
+    schedule, clip 1.0, EMA 0.9999, on random uint8 images and labels put
+    on the card once; 3 warm-up steps, then 20 with 1 auction, 7 + 7
+    multi-head attention, 8 + 8 attention-block and 87 + 87 GroupNorm
+    launches a step; then three steps profiled as in 9.
 
 The last three lines are the kernels' JSON record (``launches`` summed over
-the paths of phases 6, 8 and 10), the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+the paths of phases 6, 8, 10, 11 and 12), the card's name and power limit,
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -81,6 +107,26 @@ RECIPE = dict(dim=(32, 32, 3), num_channels=128, channel_mult=(1, 2, 2, 2), num_
               num_heads=4, num_head_channels=64, attention_resolutions="16")
 SMALL = dict(dim=(16, 16, 3), num_channels=64, channel_mult=(1, 2, 2), num_res_blocks=1,
              num_heads=4, num_head_channels=64, attention_resolutions="8")
+# guided-diffusion's ImageNet 64x64 flags (openai/guided-diffusion README), with
+# no learn_sigma: a velocity field has 3 output channels.
+IMAGENET64 = dict(dim=(64, 64, 3), num_channels=192, num_res_blocks=3, channel_mult=(1, 2, 3, 4),
+                  num_head_channels=64, attention_resolutions="32,16,8",
+                  use_scale_shift_norm=True, resblock_updown=True, class_cond=True,
+                  num_classes=1000)
+# A small model that routes like IMAGENET64: #3 at 16x16, #1 at 8x8, the plain
+# composition at 4x4, in f32 and bf16.
+IMAGENET_SMALL = dict(dim=(16, 16, 3), num_channels=64, channel_mult=(1, 2, 3), num_res_blocks=1,
+                      num_head_channels=64, attention_resolutions="16,8,4",
+                      use_scale_shift_norm=True, resblock_updown=True, class_cond=True,
+                      num_classes=10)
+IMAGENET_GEN, IMAGENET_BATCH, IMAGENET_STEPS = 64, 32, 20
+# Launches per ImageNet-64 evaluation: the 16x16 blocks take #3, the 8x8 blocks
+# #1, the 32x32 blocks the plain composition.
+IMAGENET_PER_EVAL = dict(attention_fwd=7, attn_block_fwd=8, gn_silu_fwd=87)
+# (N, H, S, D) of the multi-head attention checks: the ImageNet-64 training and
+# generation shapes, the gate's smallest S, a long S, and head dim 128.
+ATTN_SHAPES = ((IMAGENET_BATCH, 9, 256, 64), (IMAGENET_GEN, 9, 256, 64), (4, 1, 128, 64),
+               (2, 2, 512, 64), (4, 2, 256, 128))
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # abs and rel, kernel vs plain version
 # The backward's weight gradients, relative to each one's max-abs. In bf16 the
 # kernel reads up to 5.8e-4 there and rounding do and ds to bf16 (what feeding
@@ -88,9 +134,10 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # abs and rel, kernel vs plain versio
 # shows on every run that the limit sits between the two.
 WGRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 128, 3, 30
-BLOCK_SHAPES = ((64, 64, 256, 4), (8, 72, 128, 2), (8, 64, 256, 2), (4, 136, 384, 2))
+BLOCK_SHAPES = ((64, 64, 256, 4), (8, 72, 128, 2), (8, 64, 256, 2), (4, 136, 384, 2),
+                (IMAGENET_BATCH, 64, 768, 12))  # the last: ImageNet-64's 8x8 blocks
 GRADS = ("dx", "dgscale", "dgbias", "dwq", "dbq", "dwo", "dbo")
-GN_PER_EVAL = {"cifar10": 46, "mnist": 27}  # GroupNorm32 calls per model evaluation
+GN_PER_EVAL = {"cifar10": 46, "mnist": 27, "imagenet64": 87}  # GroupNorm32 calls per evaluation
 MNIST_GEN = 80                              # 8 samples of each of the 10 classes
 # f32 operations per element (non-tensor-core rate): the forward's two
 # statistics passes and its affine + SiLU; the backward's SiLU derivative,
@@ -157,13 +204,12 @@ def check_attn_block(G=32):
     return worst
 
 
-def time_attn_block(N, H=4, G=32):
-    """Phase 4 at S=256, C=256 and batch N (training or generation), bf16."""
+def time_attn_block(N, S=256, C=256, H=4, G=32):
+    """Phase 4 at batch N (training or generation) and S, C, H, bf16."""
     import torch
     import torch.nn.functional as F
     from cfm_tpu_torch.ops import attn_block as ab
 
-    S, C = 256, 256
     D = C // H
     t = block_inputs(N, S, C, torch.bfloat16)
     args = list(t.values()) + [H, G]
@@ -251,6 +297,106 @@ def check_attn_block_bwd(G=32):
             log(f"attn_block_bwd N={N} S={S} C={C} H={H} {dtype}: max error (dx abs, weights "
                 f"relative to max-abs) {line}")
     return worst
+
+
+def attention_inputs(N, H, S, D, dtype, seed=0):
+    """qkv_t (N, 3, H, S, D) and an output gradient (N, H, S, D) on the card."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn((N, 3, H, S, D), generator=g, device="cuda").to(dtype),
+            torch.randn((N, H, S, D), generator=g, device="cuda").to(dtype))
+
+
+def check_attention():
+    """Phase 3: the multi-head attention forward (#3) and backward (#4, through
+    the autograd Function) against their plain versions, element-wise within
+    TOL abs + rel, at ATTN_SHAPES in float32 (TF32 off) and bfloat16. Returns
+    the largest bf16 forward and backward errors at the ImageNet-64 shapes."""
+    import torch
+    from cfm_tpu_torch.device import strict_f32
+    from cfm_tpu_torch.ops import attention as att
+
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for N, H, S, D in ATTN_SHAPES:
+        scale = 1.0 / math.sqrt(D)
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv, do = attention_inputs(N, H, S, D, dtype)
+            leaf = qkv.clone().requires_grad_()
+            launched = (att.attention_t.launches, att.attention_t_bwd.launches)
+            with strict_f32():
+                out = att.attention_t(leaf, scale)
+                out.backward(do)
+                with torch.no_grad():
+                    ref = att.attn_reference_t(qkv, scale)
+                    ref_bwd = att.attention_t_bwd_reference(qkv, do, scale)
+            torch.cuda.synchronize()
+            if (att.attention_t.launches - launched[0], att.attention_t_bwd.launches
+                    - launched[1]) != (1, 1):
+                raise AssertionError(f"attention at N={N} H={H} S={S} D={D} did not launch "
+                                     f"both kernels once")
+            key = str(dtype).split(".")[1]
+            tol, errs = TOL[key], {}
+            for name, a, r in (("fwd", out, ref), ("bwd", leaf.grad, ref_bwd)):
+                e = (a.float() - r.float()).abs()
+                errs[name] = e.max().item()
+                if (e > tol + tol * r.float().abs()).any() or not torch.isfinite(a).all():
+                    raise AssertionError(f"attention_{name} disagrees with its plain version at "
+                                         f"N={N} H={H} S={S} D={D} {dtype}: max error "
+                                         f"{errs[name]:.3e}")
+                if dtype == torch.bfloat16 and (N, H, S, D) in ATTN_SHAPES[:2]:
+                    worst[name] = max(worst[name], errs[name])
+            log(f"attention N={N} H={H} S={S} D={D} {dtype}: max abs err forward "
+                f"{errs['fwd']:.3e}, backward {errs['bwd']:.3e} (within {tol} abs+rel)")
+    return worst
+
+
+def attention_bound(N, H, S, D, backward):
+    """(bound ms, bound_by) of #3 or #4 in bf16 at (N, H, S, D). Bytes: qkv and
+    the output (and do, dqkv) once. Operations: 2 Z S^2 D per product over
+    Z = N H pairs; the forward's two products take bf16 operands; the
+    backward's logits recompute, dp and dv take bf16 operands and dq, dk the
+    f32 ds, at the non-tensor f32 rate."""
+    prod = 2 * N * H * S * S * D
+    elems = N * H * S * D
+    if backward:
+        nbytes, ops_s = 2 * (3 * elems + elems + 3 * elems), (3 * prod / PEAK_BF16_FLOPS
+                                                               + 2 * prod / PEAK_F32_FLOPS)
+    else:
+        nbytes, ops_s = 2 * (3 * elems + elems), 2 * prod / PEAK_BF16_FLOPS
+    bytes_s = nbytes / PEAK_BYTES
+    return max(bytes_s, ops_s) * 1e3, "bytes" if bytes_s >= ops_s else "operations"
+
+
+def time_attention():
+    """Phase 4: #3 and #4 at the ImageNet-64 training shape (N=32, 9 heads,
+    S=256, D=64), bf16, beside their plain versions and the library
+    yardsticks: ``F.scaled_dot_product_attention`` on the same q, k, v for #3
+    and the backward alone of autograd through it for #4."""
+    import torch
+    import torch.nn.functional as F
+    from cfm_tpu_torch.ops import attention as att
+
+    N, H, S, D = ATTN_SHAPES[0]
+    scale = 1.0 / math.sqrt(D)
+    qkv, do = attention_inputs(N, H, S, D, torch.bfloat16)
+    q, k, v = (t.detach().requires_grad_() for t in qkv.unbind(1))
+    with torch.no_grad():
+        fwd = dict(ms=cuda_ms(lambda: att.attention_t(qkv, scale)),
+                   plain_ms=cuda_ms(lambda: att.attn_reference_t(qkv, scale), iters=5),
+                   library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
+    y = F.scaled_dot_product_attention(q, k, v)
+    bwd = dict(ms=cuda_ms(lambda: att.attention_t_bwd(qkv, do, scale)),
+               plain_ms=cuda_ms(lambda: att.attention_t_bwd_reference(qkv, do, scale), iters=5),
+               library_ms=cuda_ms(lambda: torch.autograd.grad(y, (q, k, v), do, retain_graph=True)))
+    out = {}
+    for name, t, backward in (("attention_fwd", fwd, False), ("attention_bwd", bwd, True)):
+        bound_ms, bound_by = attention_bound(N, H, S, D, backward)
+        out[name] = dict(t, bound_ms=bound_ms, bound_by=bound_by)
+        log(f"{name} timing N={N} H={H} S={S} D={D} bf16: kernel {t['ms']:.4f} ms "
+            f"({100 * bound_ms / t['ms']:.2f}% of the {bound_ms:.4f} ms bound by {bound_by}), "
+            f"plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms")
+    return out
 
 
 def auction_cost(n, kind, seed):
@@ -354,15 +500,14 @@ def bwd_flops(N, S, C, H):
     return lp, 4 * att
 
 
-def time_attn_block_bwd(H=4, G=32):
-    """Phase 4 at the training shape (N=128, S=256, C=256), bf16. The
-    yardstick is the backward alone of F.group_norm + F.linear +
-    scaled_dot_product_attention + F.linear + residual in bf16."""
+def time_attn_block_bwd(N=TRAIN_BATCH, S=256, C=256, H=4, G=32):
+    """Phase 4 at a training shape (by default CIFAR-10's, N=128, S=256,
+    C=256), bf16. The yardstick is the backward alone of F.group_norm +
+    F.linear + scaled_dot_product_attention + F.linear + residual in bf16."""
     import torch
     import torch.nn.functional as F
     from cfm_tpu_torch.ops import attn_block as ab
 
-    N, S, C = TRAIN_BATCH, 256, 256
     D = C // H
     t = block_inputs(N, S, C, torch.bfloat16)
     dy = block_inputs(N, S, C, torch.bfloat16, seed=1)["x"]
@@ -400,11 +545,13 @@ def mnist_model(device="cuda"):
     return build_model(load_config("mnist_otcfm_cond"), device)
 
 
-def record_gn_shapes():
+def record_gn_shapes(imagenet):
     """Phase 3: the (N, H, W, C, groups, dtype, SiLU) tuples, with their counts,
     that ``GroupNorm32`` gives the GroupNorm wrapper in one model evaluation of
     each path at its batch: CIFAR-10 generation (512) and training (128, in
-    train mode), MNIST training (128) and generation (80, 8 per class)."""
+    train mode), MNIST training (128) and generation (80, 8 per class), and
+    the ImageNet-64 model ``imagenet`` in generation (64) and training (32, in
+    train mode)."""
     import torch
     from cfm_tpu_torch.models import unet
 
@@ -418,15 +565,17 @@ def record_gn_shapes():
     unet.fused_group_norm_silu = recording
     try:
         recipe, mnist = seeded_model(RECIPE, torch.bfloat16, "cuda", seed=0), mnist_model()
+        train = dict(train=True, generator=torch.Generator(device="cuda"))
         with torch.no_grad():
             for name, model, n, dim, kw in (
                     ("cifar10 generation", recipe, GEN_BATCH, RECIPE["dim"], {}),
-                    ("cifar10 training", recipe, TRAIN_BATCH, RECIPE["dim"],
-                     dict(train=True, generator=torch.Generator(device="cuda"))),
+                    ("cifar10 training", recipe, TRAIN_BATCH, RECIPE["dim"], train),
                     ("mnist training", mnist, TRAIN_BATCH, (28, 28, 1), {}),
-                    ("mnist generation", mnist, MNIST_GEN, (28, 28, 1), {})):
+                    ("mnist generation", mnist, MNIST_GEN, (28, 28, 1), {}),
+                    ("imagenet64 generation", imagenet, IMAGENET_GEN, IMAGENET64["dim"], {}),
+                    ("imagenet64 training", imagenet, IMAGENET_BATCH, IMAGENET64["dim"], train)):
                 seen.clear()
-                y = (torch.arange(n, device="cuda") % 10,) if model is mnist else ()
+                y = (torch.arange(n, device="cuda") % 10,) if model is not recipe else ()
                 model(torch.rand(n, device="cuda"), torch.randn((n,) + dim, device="cuda"), *y, **kw)
                 paths[name] = {k: seen.count(k) for k in dict.fromkeys(seen)}
                 if len(seen) != GN_PER_EVAL[name.split()[0]]:
@@ -588,53 +737,104 @@ def time_gn(train_shapes):
     return out
 
 
-def seeded_model(cfg, dtype, device, seed, dropout=0.0):
-    """A UNet with random seeded weights; the zero-initialised layers (the
-    ResBlock and output zero convs, the attention out-projections) get small
-    seeded values so the field is non-trivial and smooth."""
+def randomize_zero_layers(model, seed):
+    """Gives the zero-initialised layers (the ResBlock and output zero convs,
+    the attention out-projections, a zero-initialised head) small seeded
+    values, so the function is non-trivial and smooth."""
     import torch
-    from cfm_tpu_torch.models.unet import AttentionBlock, Conv, UNetModelWrapper
+    from cfm_tpu_torch.models.unet import AttentionBlock, Conv, Dense
 
-    model = UNetModelWrapper(**cfg, dtype=dtype, seed=seed, dropout=dropout, device="cpu")
-    g = torch.Generator().manual_seed(seed + 1)
+    g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
-            zero = [m.weight] if isinstance(m, Conv) and m.zero_init else []
+            zero = [m.weight] if isinstance(m, (Conv, Dense)) and m.zero_init else []
             zero += [m.proj_weight] if isinstance(m, AttentionBlock) else []
             for p in zero:
                 p.copy_(torch.randn(p.shape, generator=g) * 0.3 / math.sqrt(p[0].numel()))
-    return model.to(device)
+    return model
 
 
-def check_small_generation():
-    """Phase 5: the same weights and noise on the card and on the CPU."""
+def seeded_model(cfg, dtype, device, seed, dropout=0.0):
+    """A UNet with random seeded weights (:func:`randomize_zero_layers`)."""
+    from cfm_tpu_torch.models.unet import UNetModelWrapper
+
+    model = UNetModelWrapper(**cfg, dtype=dtype, seed=seed, dropout=dropout, device="cpu")
+    return randomize_zero_layers(model, seed + 1).to(device)
+
+
+def check_small_generation(cfg):
+    """Phase 5: the same weights, noise (and labels) on the card and on the CPU."""
     import torch
     from cfm_tpu_torch.device import strict_f32
     from cfm_tpu_torch.generate import generate
 
-    x0 = torch.randn((4,) + SMALL["dim"], generator=torch.Generator().manual_seed(3))
+    x0 = torch.randn((4,) + cfg["dim"], generator=torch.Generator().manual_seed(3))
+    y = torch.arange(4) % 10 if cfg.get("class_cond") else None
     with strict_f32():
         for method in ("euler", "dopri5"):
             out = {}
             for dev in ("cpu", "cuda"):
-                model = seeded_model(SMALL, torch.float32, dev, seed=2)
-                out[dev] = generate(model, 4, x_shape=SMALL["dim"], method=method, n_steps=4,
-                                    x0=x0, device=dev)
+                model = seeded_model(cfg, torch.float32, dev, seed=2)
+                out[dev] = generate(model, 4, x_shape=cfg["dim"], method=method, n_steps=4,
+                                    x0=x0, y=y, device=dev)
             diff = (out["cuda"].images.cpu().int() - out["cpu"].images.int()).abs().max().item()
-            log(f"small generation {method}: nfe cuda {out['cuda'].nfe} cpu {out['cpu'].nfe}, "
-                f"max uint8 difference {diff}")
+            log(f"small generation {method} ({'ImageNet-64 routing' if y is not None else 'CIFAR'}"
+                f"): nfe cuda {out['cuda'].nfe} cpu {out['cpu'].nfe}, max uint8 difference {diff}")
             if diff > 1 or out["cuda"].nfe != out["cpu"].nfe:
                 raise AssertionError(f"small {method} generation: card and CPU disagree")
 
 
+def check_new_models():
+    """Phase 5: one forward of ``AttentionPool2d``, ``SuperResModel`` (an odd
+    5x5 low-resolution input) and ``EncoderUNetModel`` (every pool) in f32
+    (TF32 off), the same weights and inputs on the card and on the CPU,
+    within 1e-4 of the output's max-abs. Their UNets route like
+    IMAGENET_SMALL: #3 at 16x16, #1 at 8x8, the plain composition at 4x4."""
+    import copy
+
+    import torch
+    from cfm_tpu_torch.device import strict_f32
+    from cfm_tpu_torch.models.unet import (AttentionPool2d, EncoderUNetModel, SuperResModel,
+                                           UNetModel)
+
+    g = torch.Generator().manual_seed(5)
+    x, t = torch.randn((2, 16, 16, 3), generator=g), torch.tensor([0.3, 0.7])
+    trunk = dict(model_channels=64, num_res_blocks=1, attention_resolutions=(1, 2, 4),
+                 channel_mult=(1, 2, 3), num_head_channels=64, use_scale_shift_norm=True,
+                 resblock_updown=True)
+    cases = [("AttentionPool2d", lambda: AttentionPool2d(64, 192, 3, 10),
+              (torch.randn((2, 8, 8, 192), generator=g),)),
+             ("SuperResModel", lambda: SuperResModel(UNetModel(6, out_channels=3, **trunk)),
+              (t, x, torch.randn((2, 5, 5, 3), generator=g)))]
+    cases += [(f"EncoderUNetModel {pool}", lambda pool=pool: EncoderUNetModel(
+        3, out_channels=10, pool=pool, image_size=16, **trunk), (t, x))
+        for pool in ("adaptive", "attention", "spatial", "spatial_v2")]
+    with strict_f32():
+        for name, build, args in cases:
+            cpu = randomize_zero_layers(build(), seed=6)
+            card = copy.deepcopy(cpu).cuda()
+            with torch.no_grad():
+                ref, out = cpu(*args), card(*(a.cuda() for a in args))
+            torch.cuda.synchronize()
+            if not ref.abs().max().item() > 0:
+                raise AssertionError(f"{name}: the output is 0, so the check would see nothing")
+            err = (out.cpu() - ref).abs().max().item() / ref.abs().max().item()
+            log(f"{name} forward f32: card vs CPU {err:.2e} of the output's max-abs, shape "
+                f"{tuple(out.shape)}")
+            if not err <= 1e-4 or out.shape != ref.shape:
+                raise AssertionError(f"{name}: card and CPU disagree ({err})")
+
+
 def kernel_fns():
     """The launch-counting wrapper of every kernel, by its name in the JSON record."""
+    from cfm_tpu_torch.ops import attention as att
     from cfm_tpu_torch.ops import attn_block as ab
     from cfm_tpu_torch.ops import auction as au
     from cfm_tpu_torch.ops import groupnorm as gn
 
     return {"attn_block_fwd": ab.fused_attention_block,
             "attn_block_bwd": ab.fused_attention_block_bwd,
+            "attention_fwd": att.attention_t, "attention_bwd": att.attention_t_bwd,
             "auction": au.pallas_auction_assignment,
             "gn_silu_fwd": gn.fused_group_norm_silu, "gn_silu_bwd": gn.fused_group_norm_silu_bwd}
 
@@ -648,14 +848,15 @@ def read_counts():
     return {name: fn.launches for name, fn in kernel_fns().items()}
 
 
-def check_small_train_step(class_cond=False):
-    """Phase 5: one train step of the small model in f32 (TF32 off) with the
+def check_small_train_step(cfg):
+    """Phase 5: one train step of a small model in f32 (TF32 off) with the
     same draws and the same dropout masks (rate 0.1, drawn from a CPU
-    generator on both sides) on the card and on the CPU; with ``class_cond``
-    the model has a 10-class embedding and the step carries labels through
-    the coupling. Both sides ask for the "pallas" solver, so the card runs
-    the auction, both attention-block kernels and both GroupNorm kernels and
-    the CPU their plain versions.
+    generator on both sides) on the card and on the CPU; a class-conditional
+    ``cfg`` has a 10-class embedding and the step carries labels through the
+    coupling. Both sides ask for the "pallas" solver, so the card runs the
+    auction, both attention-block kernels (and for IMAGENET_SMALL both
+    multi-head attention kernels) and both GroupNorm kernels and the CPU
+    their plain versions.
     Loss and grad norm agree to 1e-5 relative; each gradient to 1e-4 of its
     tensor's max-abs (or of 1e-3 of the largest gradient, for the tensors
     whose true gradient is 0 and whose values are f32 noise); the updated
@@ -672,11 +873,11 @@ def check_small_train_step(class_cond=False):
 
     B, lr = 8, 2e-4
     rng = np.random.default_rng(4)
-    x0, x1, eps = (torch.from_numpy(rng.standard_normal((B,) + SMALL["dim"]).astype(np.float32))
+    x0, x1, eps = (torch.from_numpy(rng.standard_normal((B,) + cfg["dim"]).astype(np.float32))
                    for _ in range(3))
     t, u = (torch.from_numpy(rng.uniform(size=B).astype(np.float32)) for _ in range(2))
     y0, y1 = (torch.from_numpy(rng.integers(0, 10, B)) for _ in range(2))
-    cfg = dict(SMALL, class_cond=True, num_classes=10) if class_cond else SMALL
+    class_cond = cfg.get("class_cond", False)
     runs = {}
     with strict_f32():
         for dev in ("cpu", "cuda"):
@@ -700,7 +901,9 @@ def check_small_train_step(class_cond=False):
     got = card["launched"]
     if any(cpu["launched"].values()) or got["auction"] != 1 or got["attn_block_fwd"] == 0 \
             or got["attn_block_fwd"] != got["attn_block_bwd"] or got["gn_silu_fwd"] == 0 \
-            or got["gn_silu_fwd"] != got["gn_silu_bwd"]:
+            or got["gn_silu_fwd"] != got["gn_silu_bwd"] \
+            or got["attention_fwd"] != got["attention_bwd"] \
+            or (cfg is IMAGENET_SMALL and got["attention_fwd"] == 0):
         raise AssertionError(f"small train step launches: cpu {cpu['launched']}, card {got}")
     for k in ("loss", "grad_norm"):
         a, b = card["metrics"][k], cpu["metrics"][k]
@@ -722,7 +925,9 @@ def check_small_train_step(class_cond=False):
     if worst_g > 1e-4 or worst > 1e-6:
         raise AssertionError(f"small train step: gradients differ by {worst_g} of their "
                              f"scale, parameters or EMA by {worst}")
-    log(f"small {'class-conditional ' if class_cond else ''}train step f32, dropout 0.1: loss "
+    what = ("ImageNet-64-routed class-conditional " if cfg is IMAGENET_SMALL
+            else "class-conditional " if class_cond else "")
+    log(f"small {what}train step f32, dropout 0.1: loss "
         f"card {card['metrics']['loss']:.7f} cpu {cpu['metrics']['loss']:.7f}, grad norm card "
         f"{card['metrics']['grad_norm']:.6f} cpu {cpu['metrics']['grad_norm']:.6f}, max "
         f"gradient difference {worst_g:.2e} of scale, max parameter/EMA difference "
@@ -783,7 +988,7 @@ KERNEL_GROUPS = (
     ("GroupNorm kernels (#8 forward, #9 backward)",
      ("gn_silu_fwd_kernel", "gn_silu_bwd_kernel", "gn_silu_wgrad_kernel")),
     ("auction kernel", ("auction_kernel",)),
-    ("attn_block kernels (forward and backward)",
+    ("attention kernels (#1, #2, #3, #4: their stages share code)",
      ("mma_gemm_kernel", "attention_mma_kernel", "gn_stats_kernel", "round_transpose_kernel",
       "attention_kernel", "gemm_kernel", "bmma_kernel", "fgemm_kernel", "softmax_rows_kernel",
       "softmax_bwd_rows_kernel", "colsum_partial_kernel", "sum_parts_kernel", "gn_bwd_kernel")),
@@ -942,6 +1147,108 @@ def profile_train_step(trainer, ms_per_step, steps=3):
         log(f"  {e.self_cpu_time_total / steps / 1e3:9.3f} ms x{e.count // steps:<5d} {e.key[:80]}")
 
 
+def imagenet_generation(model):
+    """Phase 11: IMAGENET_GEN images of the ImageNet-64 model (bf16) for
+    labels drawn from the seed, euler at 100 steps. The launch counts,
+    set to 0 just before, must be IMAGENET_PER_EVAL per evaluation and
+    nothing else. Returns them."""
+    import torch
+    from cfm_tpu_torch.generate import generate
+
+    y = torch.randint(0, IMAGENET64["num_classes"], (IMAGENET_GEN,),
+                      generator=torch.Generator().manual_seed(11)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = generate(model, IMAGENET_GEN, x_shape=IMAGENET64["dim"], method="euler", n_steps=100,
+                   generator=gen, y=y)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launched, img = read_counts(), out.images
+    log(f"generation imagenet64 euler-100 bf16: {IMAGENET_GEN} images in {sec:.3f} s = "
+        f"{IMAGENET_GEN / sec:.2f} imgs/s, {1e3 * sec / max(out.nfe, 1):.2f} ms per evaluation, "
+        f"NFE {out.nfe}, max memory allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+        f"launches {launched}, uint8 mean {img.float().mean().item():.2f} std "
+        f"{img.float().std().item():.2f}")
+    if img.dtype != torch.uint8 or tuple(img.shape) != (IMAGENET_GEN,) + IMAGENET64["dim"]:
+        raise AssertionError(f"imagenet64 generation: images of {img.dtype} {tuple(img.shape)}")
+    if img.float().std().item() < 1.0:
+        raise AssertionError("imagenet64 generation: images are constant")
+    want = dict.fromkeys(launched, 0)
+    want.update({k: v * out.nfe for k, v in IMAGENET_PER_EVAL.items()})
+    if launched != want or out.nfe != 100:
+        raise AssertionError(f"imagenet64 generation: launches {launched} for NFE {out.nfe}, "
+                             f"expected {want}")
+    return launched
+
+
+def imagenet_training(model, warmup=3, profiled=3):
+    """Phase 12: the class-conditional OT-CFM step of the ImageNet-64 model
+    (bf16, batch IMAGENET_BATCH, dropout 0.1, Adam 1e-4 with the 5k-step
+    warmup, clip 1.0, EMA 0.9999) on random uint8 images and labels made
+    from the seed and put on the card once; y0 = y1, as the Trainer pairs
+    them. ``warmup`` steps, then IMAGENET_STEPS with every launch count set
+    to 0 just before and checked just after, then ``profiled`` steps under
+    the device profiler. Returns the counts of the timed steps."""
+    import numpy as np
+    import torch
+    from cfm_tpu_torch.data.images import normalize_images
+    from cfm_tpu_torch.paths import ExactOptimalTransportConditionalFlowMatcher
+    from cfm_tpu_torch.train import init_train_state, make_optimizer, make_train_step
+
+    B = IMAGENET_BATCH
+    n_batches = warmup + IMAGENET_STEPS + profiled
+    rng = np.random.default_rng(12)
+    images = torch.from_numpy(rng.integers(0, 256, (n_batches * B,) + IMAGENET64["dim"],
+                                           dtype=np.uint8)).cuda()
+    labels = torch.from_numpy(rng.integers(0, IMAGENET64["num_classes"], n_batches * B)).cuda()
+    opt = make_optimizer(lr=1e-4, grad_clip=1.0)
+    state = init_train_state(model, opt)
+    step = make_train_step(ExactOptimalTransportConditionalFlowMatcher(), model, opt,
+                           ema_decay=0.9999, train_mode=True, class_conditional=True)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    losses = []
+
+    def run(n):
+        for _ in range(n):
+            i = state.step * B
+            x1, y = normalize_images(images[i:i + B]), labels[i:i + B]
+            x0 = torch.randn(x1.shape, generator=g, device="cuda")
+            losses.append(step(state, x0, x1, y, y, generator=g)["loss"])
+
+    run(warmup)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses.clear()
+    zero_counts()
+    t0 = time.perf_counter()
+    run(IMAGENET_STEPS)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = read_counts()
+    values = [float(v) for v in losses]
+    log(f"training imagenet64 bf16 batch {B}: {IMAGENET_STEPS} steps in {sec:.3f} s = "
+        f"{1e3 * sec / IMAGENET_STEPS:.2f} ms per step, {IMAGENET_STEPS * B / sec:.1f} imgs/s; "
+        f"loss first {values[0]:.5f} last {values[-1]:.5f}; max memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches {launches}")
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"non-finite imagenet64 training loss: {values}")
+    per_step = dict(auction=1, attention_fwd=7, attention_bwd=7, attn_block_fwd=8,
+                    attn_block_bwd=8, gn_silu_fwd=GN_PER_EVAL["imagenet64"],
+                    gn_silu_bwd=GN_PER_EVAL["imagenet64"])
+    want = {k: per_step.get(k, 0) * IMAGENET_STEPS for k in launches}
+    if launches != want:
+        raise AssertionError(f"imagenet64 training launches {launches}, expected {want}")
+    wall_ms = device_profile(lambda: run(profiled),
+                             f"an imagenet64 train step (batch {B}, bf16; mean of {profiled})",
+                             per=profiled)
+    log(f"  the same steps took {1e3 * sec / IMAGENET_STEPS:.2f} ms each untraced, "
+        f"{wall_ms:.2f} ms under device tracing")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -965,19 +1272,29 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {name}: {line.strip()}")
 
+    imagenet = seeded_model(IMAGENET64, torch.bfloat16, "cuda", seed=0, dropout=0.1)
+    log(f"ImageNet-64 UNet: {sum(p.numel() for p in imagenet.parameters())} parameters, bf16")
+
     err = check_attn_block()
     err_bwd = check_attn_block_bwd()
+    err_attn = check_attention()
     check_auction()
-    gn_paths = record_gn_shapes()
+    gn_paths = record_gn_shapes(imagenet)
     err_gn = check_gn(gn_paths)
     time_attn_block(GEN_BATCH)
+    time_attn_block(IMAGENET_BATCH, S=64, C=768, H=12)
     timing = time_attn_block(TRAIN_BATCH)
     timing_bwd = time_attn_block_bwd()
+    time_attn_block_bwd(IMAGENET_BATCH, S=64, C=768, H=12)
+    timing_attn = time_attention()
     timing_auction = time_auction()
     timing_gn = time_gn(gn_paths["cifar10 training"])
-    check_small_generation()
-    check_small_train_step()
-    check_small_train_step(class_cond=True)
+    check_small_generation(SMALL)
+    check_small_generation(IMAGENET_SMALL)
+    check_small_train_step(SMALL)
+    check_small_train_step(dict(SMALL, class_cond=True, num_classes=10))
+    check_small_train_step(IMAGENET_SMALL)
+    check_new_models()
     launches = {"generation": main_path()}
     profile_evaluation()
     per_step = dict(auction=1, attn_block_fwd=5, attn_block_bwd=5,
@@ -991,6 +1308,9 @@ def main() -> int:
         "mnist_otcfm_cond", "build/no_mnist", per_step)
     profile_train_step(trainer, ms_per_step)
     launches["mnist generation"] = mnist_generation(trainer)
+    del trainer
+    launches["imagenet64 generation"] = imagenet_generation(imagenet)
+    launches["imagenet64 training"] = imagenet_training(imagenet)
     total = {k: sum(run[k] for run in launches.values()) for k in kernel_fns()}
     log(f"launches by path {launches}; summed {total}")
 
@@ -1000,6 +1320,12 @@ def main() -> int:
              replaces="cfm_tpu/ops/pallas_attn_block.py:97", max_abs_err=err, **timing),
         dict(name="attn_block_bwd", route="cuda", source=src + "attn_block_bwd.cu",
              replaces="cfm_tpu/ops/pallas_attn_block.py:111", max_abs_err=err_bwd, **timing_bwd),
+        dict(name="attention_fwd", route="cuda", source=src + "attention_fwd.cu",
+             replaces="cfm_tpu/ops/pallas_attention.py:69", max_abs_err=err_attn["fwd"],
+             **timing_attn["attention_fwd"]),
+        dict(name="attention_bwd", route="cuda", source=src + "attention_bwd.cu",
+             replaces="cfm_tpu/ops/pallas_attention.py:90", max_abs_err=err_attn["bwd"],
+             **timing_attn["attention_bwd"]),
         dict(name="auction", route="cuda", source=src + "auction.cu",
              replaces="cfm_tpu/ops/pallas_auction.py:67", max_abs_err=0.0,
              **{k: v for k, v in timing_auction.items() if k not in ("host_ms", "rounds")}),

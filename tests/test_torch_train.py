@@ -183,6 +183,32 @@ def test_class_conditional_step_matches_jax_step():
     1% of the parameters; whole tensors at noise level are structural here
     (the time-and-class projections into GroupNorms of one channel per
     group, which remove a per-channel shift: true gradient 0)."""
+    _class_conditional_step_case(MNIST, seed=13)
+
+
+# chip_smoke.py's phase-5 model: the ImageNet-64 UNet's routing at a small
+# width (kernels #3 and #4 at 16x16, #1 and #2 at 8x8, the plain composition
+# at 4x4), with scale-shift norm and ResBlock up/down sampling.
+IMAGENET_SMALL = dict(dim=(16, 16, 3), num_channels=64, channel_mult=(1, 2, 3), num_res_blocks=1,
+                      num_head_channels=64, attention_resolutions="16,8,4",
+                      use_scale_shift_norm=True, resblock_updown=True, class_cond=True,
+                      num_classes=10)
+
+
+def test_imagenet64_like_class_conditional_step_matches_jax_step(monkeypatch):
+    """The step of :func:`test_class_conditional_step_matches_jax_step`, at
+    the same tolerances and noise-level rule, on a model whose gradients run
+    through kernels #4 and #2: the JAX side runs ``_bwd_kernel`` of both
+    Pallas modules in interpret mode, the port their plain transcriptions."""
+    from cfm_tpu.ops import pallas_attention as pa
+    from cfm_tpu.ops import pallas_attn_block as pab
+
+    monkeypatch.setattr(pa, "INTERPRET", True)
+    monkeypatch.setattr(pab, "INTERPRET", True)
+    _class_conditional_step_case(IMAGENET_SMALL, seed=16)
+
+
+def _class_conditional_step_case(cfg, seed):
     import jax
     import jax.numpy as jnp
     import optax
@@ -197,15 +223,15 @@ def test_class_conditional_step_matches_jax_step():
     from test_torch_unet import random_flax_params
 
     B, lr, warmup, decay, sigma = 4, 1e-3, 5, 0.99, 0.1
-    m = junet.UNetModelWrapper(**MNIST)
-    params = random_flax_params(m, jnp.zeros((1,)), jnp.zeros((1,) + MNIST["dim"]),
-                                jnp.zeros((1,), jnp.int32), seed=13)
-    rng = np.random.default_rng(14)
-    x0 = rng.standard_normal((B,) + MNIST["dim"]).astype(np.float32)
-    x1 = np.tanh(rng.standard_normal((B,) + MNIST["dim"])).astype(np.float32)
+    m = junet.UNetModelWrapper(**cfg)
+    params = random_flax_params(m, jnp.zeros((1,)), jnp.zeros((1,) + cfg["dim"]),
+                                jnp.zeros((1,), jnp.int32), seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    x0 = rng.standard_normal((B,) + cfg["dim"]).astype(np.float32)
+    x1 = np.tanh(rng.standard_normal((B,) + cfg["dim"])).astype(np.float32)
     y0, y1 = np.array([1, 2, 3, 4]), np.array([7, 0, 9, 5])
     t = rng.uniform(size=B).astype(np.float32)
-    key = jax.random.PRNGKey(15)
+    key = jax.random.PRNGKey(seed + 2)
     tj, xt, ut, _, y1_, eps, bad = JOT(sigma=sigma).guided_sample_location_and_conditional_flow(
         key, *(jnp.asarray(a) for a in (x0, x1, y0, y1)), t=jnp.asarray(t), return_noise=True,
         return_coupling_status=True)
@@ -222,7 +248,7 @@ def test_class_conditional_step_matches_jax_step():
 
     loss_ref, gnorm_ref, g_ref, new_ref, ema_ref = jax_step(params)
 
-    model = UNetModelWrapper(**MNIST, device="cpu")
+    model = UNetModelWrapper(**cfg, device="cpu")
     model.load_state_dict(unet_params_from_flax(params))
     topt = ttr.make_optimizer(lr=lr, warmup_steps=warmup, grad_clip=1.0)
     state = ttr.init_train_state(model, topt)

@@ -264,3 +264,159 @@ def test_fast_dropout_matches_jax_given_the_same_bits(monkeypatch):
         out = tunet.FastDropout(0.1)(torch.from_numpy(x).to(td), train=True,
                                      generator=torch.Generator())
         np.testing.assert_array_equal(out.float().numpy(), np.asarray(ref, np.float32))
+
+
+# The ImageNet-64 UNet's routing at a CPU-sized width (chip_smoke.py's phase-5
+# model): its 16x16 blocks (C = 64, one head of 64) take kernel #3, its 8x8
+# blocks (C = 128) the fused block #1, its 4x4 blocks the plain composition,
+# in f32 and in bf16; scale-shift norm, ResBlock up/down sampling, 10 classes.
+IMAGENET_SMALL = dict(dim=(16, 16, 3), num_channels=64, channel_mult=(1, 2, 3), num_res_blocks=1,
+                      num_head_channels=64, attention_resolutions="16,8,4",
+                      use_scale_shift_norm=True, resblock_updown=True, class_cond=True,
+                      num_classes=10)
+
+
+@pytest.mark.parametrize("dtype,tol", [("f32", 1e-4), ("bf16", 3e-2)])
+def test_imagenet64_like_unet_forward_matches_flax(monkeypatch, dtype, tol):
+    """As :func:`test_unet_forward_matches_flax`, with the JAX side running
+    kernel #3 (``pallas_attention.INTERPRET``) and #1 in interpret mode."""
+    from cfm_tpu.ops import pallas_attention as pa
+
+    monkeypatch.setattr(pab, "INTERPRET", True)
+    monkeypatch.setattr(pa, "INTERPRET", True)
+    jdtype, tdtype = {"f32": (jnp.float32, torch.float32),
+                      "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    m = junet.UNetModelWrapper(**IMAGENET_SMALL, dtype=jdtype)
+    params = random_flax_params(m, jnp.zeros((1,)), jnp.zeros((1, 16, 16, 3)),
+                                jnp.zeros((1,), jnp.int32), seed=5)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 16, 16, 3)).astype(np.float32)
+    t, y = np.array([0.4, 0.8], np.float32), np.array([3, 7])
+    apply = jax.jit(m.apply)  # one compiled program: eager interpret mode takes 4-5 times longer
+    y_jax = np.asarray(apply({"params": params}, jnp.asarray(t), jnp.asarray(x), jnp.asarray(y)),
+                       np.float32)
+    model = _port_model(IMAGENET_SMALL, tdtype, params)
+    with torch.no_grad():
+        out = model(torch.from_numpy(t), torch.from_numpy(x), torch.from_numpy(y))
+    scale = np.abs(y_jax).max()
+    np.testing.assert_allclose(out.numpy() / scale, y_jax / scale, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("side,C,route", [(8, 768, {"f32": "plain", "bf16": "#1"}),
+                                          (16, 576, {"f32": "#3", "bf16": "#3"}),
+                                          (32, 384, {"f32": "plain", "bf16": "plain"})])
+def test_attention_blocks_route_as_in_jax_at_imagenet64_widths(monkeypatch, side, C, route,
+                                                               dtype):
+    """Each attention shape of the ImageNet-64 UNet (64 head channels) takes
+    the route the JAX AttentionBlock's gates give it (``use_fused_block``,
+    then ``_gate`` inside ``fused_attention_t``): the port's block, run on
+    the CPU, is watched for which function it reaches."""
+    from cfm_tpu.ops import pallas_attention as pa
+    from cfm_tpu_torch.ops import attention as tatt
+
+    monkeypatch.setattr(pab, "INTERPRET", True)   # lifts only the backend clauses
+    monkeypatch.setattr(pa, "INTERPRET", True)
+    jdtype, tdtype = {"f32": (jnp.float32, torch.float32),
+                      "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    H, S = C // 64, side * side
+    want = ("#1" if pab.use_fused_block(S, C, H, jdtype)
+            else "#3" if pa._gate(H, S, 64, jnp.dtype(jdtype)) else "plain")
+    assert want == route[dtype]
+    seen = []
+    for mod, name, tag in ((tunet, "fused_attention_block", "#1"), (tatt, "_forward", "#3"),
+                           (tatt, "attn_reference_t", "plain")):
+        def watch(*a, _f=getattr(mod, name), _tag=tag):
+            seen.append(_tag)
+            return _f(*a)
+        monkeypatch.setattr(mod, name, watch)
+    block = tunet.AttentionBlock(C, num_head_channels=64, dtype=tdtype)
+    with torch.no_grad():
+        block(torch.zeros(1, side, side, C, dtype=tdtype))
+    assert seen[0] == want
+
+
+def test_attention_pool_matches_flax():
+    """f32 at 1e-5: the pool's own softmax on both sides."""
+    m = junet.AttentionPool2d(embed_dim=32, num_heads=4, output_dim=7)
+    x = np.random.default_rng(7).standard_normal((2, 4, 4, 32)).astype(np.float32)
+    params = random_flax_params(m, jnp.asarray(x), seed=8)
+    ref = np.asarray(m.apply({"params": params}, jnp.asarray(x)))
+    pool = tunet.AttentionPool2d(16, 32, 4, 7)
+    pool.load_state_dict(unet_params_from_flax(params), strict=True)
+    with torch.no_grad():
+        out = pool(torch.from_numpy(x)).numpy()
+    assert out.shape == (2, 7)
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-5)
+
+
+_BASE = dict(in_channels=6, model_channels=16, out_channels=3, num_res_blocks=1,
+             attention_resolutions=(2,), channel_mult=(1, 2), num_head_channels=8)
+
+
+@pytest.mark.parametrize("low", [8, 5])
+def test_super_res_model_matches_flax(low):
+    """An even (8 -> 16, factor 2) and an odd (5 -> 16) low-resolution size:
+    the bilinear resize alone to 1e-6, the model to 1e-4 of its output's
+    scale."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, 16, 16, 3)).astype(np.float32)
+    low_res = rng.standard_normal((2, low, low, 3)).astype(np.float32)
+    t = np.array([0.1, 0.6], np.float32)
+    resized = np.asarray(jax.image.resize(jnp.asarray(low_res), (2, 16, 16, 3), method="bilinear"))
+    ours = F.interpolate(torch.from_numpy(low_res).permute(0, 3, 1, 2), size=(16, 16),
+                         mode="bilinear", align_corners=False, antialias=False)
+    np.testing.assert_allclose(ours.permute(0, 2, 3, 1).numpy(), resized, atol=1e-6, rtol=1e-6)
+    m = junet.SuperResModel(base=junet.UNetModel(**_BASE))
+    params = random_flax_params(m, jnp.asarray(t), jnp.asarray(x), jnp.asarray(low_res), seed=10)
+    ref = np.asarray(m.apply({"params": params}, jnp.asarray(t), jnp.asarray(x),
+                             jnp.asarray(low_res)))
+    model = tunet.SuperResModel(tunet.UNetModel(**_BASE))
+    model.load_state_dict(unet_params_from_flax(params), strict=True)
+    with torch.no_grad():
+        out = model(torch.from_numpy(t), torch.from_numpy(x), torch.from_numpy(low_res)).numpy()
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(out / scale, ref / scale, atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="larger"):
+        model(torch.from_numpy(t), torch.from_numpy(x)[:, :4, :4], torch.from_numpy(low_res))
+
+
+_ENCODER = dict(in_channels=3, model_channels=16, out_channels=5, num_res_blocks=1,
+                attention_resolutions=(2,), channel_mult=(1, 2), num_head_channels=8,
+                use_scale_shift_norm=True)
+
+
+@pytest.mark.parametrize("pool", ["adaptive", "attention", "spatial", "spatial_v2"])
+def test_encoder_unet_matches_flax(pool):
+    """Every pool in f32 at 1e-4 of the output's scale; the spatial pools'
+    Dense takes the summed channels of every collected feature map."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 8, 8, 3)).astype(np.float32)
+    t = np.array([0.2, 0.9], np.float32)
+    m = junet.EncoderUNetModel(**_ENCODER, pool=pool)
+    params = random_flax_params(m, jnp.asarray(t), jnp.asarray(x), seed=12)
+    ref = np.asarray(m.apply({"params": params}, jnp.asarray(t), jnp.asarray(x)))
+    model = tunet.EncoderUNetModel(**_ENCODER, pool=pool, image_size=8)
+    model.load_state_dict(unet_params_from_flax(params), strict=True)
+    if pool.startswith("spatial"):
+        assert model.Dense_2.weight.shape[1] == 16 + 16 + 16 + 32 + 32  # stem, 3 blocks, middle
+    with torch.no_grad():
+        out = model(torch.from_numpy(t), torch.from_numpy(x)).numpy()
+    assert out.shape == (2, 5) and out.dtype == np.float32
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(out / scale, ref / scale, atol=1e-4, rtol=1e-4)
+
+
+def test_encoder_attention_pool_needs_head_channels():
+    """JAX asserts ``num_head_channels`` for the attention pool when the
+    module first runs; the port refuses it when the module is built."""
+    kw = dict(_ENCODER, num_head_channels=-1, num_heads=2, pool="attention")
+    with pytest.raises(AssertionError, match="num_head_channels"):
+        jax.eval_shape(junet.EncoderUNetModel(**kw).init, jax.random.PRNGKey(0),
+                       jnp.zeros((1,)), jnp.zeros((1, 8, 8, 3)))
+    with pytest.raises(ValueError, match="num_head_channels"):
+        tunet.EncoderUNetModel(**kw, image_size=8)
+    with pytest.raises(ValueError, match="Unknown pool"):
+        tunet.EncoderUNetModel(**dict(_ENCODER, pool="max"))
