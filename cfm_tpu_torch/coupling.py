@@ -8,8 +8,13 @@ method takes an explicit ``torch.Generator``, or the draws themselves
 degenerate-plan flag is returned as a device tensor and never read on the
 host inside a step.
 
-The entropic methods ("sinkhorn", "unbalanced", "partial") and non-uniform
-marginals are not ported yet (ROADMAP.md queue 1 item 6).
+:func:`wasserstein` is the exact W1/W2 distance between equal-sized clouds
+through one assignment solve (on the card at n = 2048, the 2-D evaluation's
+size, the row-tiled auction kernel).
+
+The entropic methods ("sinkhorn", "unbalanced", "partial"), non-uniform
+marginals and the exact solver for unequal sizes are not ported yet
+(ROADMAP.md queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -119,3 +124,24 @@ class OTPlanSampler:
         out = (x0[i], x1[j], y0[i] if y0 is not None else None,
                y1[j] if y1 is not None else None)
         return out + (bad,) if return_status else out
+
+
+def wasserstein(x0: torch.Tensor, x1: torch.Tensor, method: Optional[str] = None,
+                power: int = 2, solver: str = "auto") -> torch.Tensor:
+    """Exact Wasserstein-1 or -2 distance between equal-sized minibatches, a
+    0-d tensor on their device: the mean cost of the optimal assignment
+    under ||x - y|| (power 1) or ||x - y||^2 (power 2, square-rooted)."""
+    if power not in (1, 2):
+        raise ValueError(f"power must be 1 or 2, got {power}")
+    if method not in (None, "exact"):
+        if method == "sinkhorn":
+            raise NotImplementedError(f"wasserstein(method='sinkhorn') {_NOT_PORTED}")
+        raise ValueError(f"Unknown method: {method}")
+    if x0.shape[0] != x1.shape[0]:
+        raise NotImplementedError(f"wasserstein between clouds of unequal sizes (the exact "
+                                  f"general-marginal solver) {_NOT_PORTED}")
+    M = sq_euclidean_cost(x0, x1)
+    if power == 1:
+        M = torch.sqrt(M + 1e-30)
+    ret = M.gather(1, solve_assignment(M, solver)[:, None]).mean()
+    return torch.sqrt(ret) if power == 2 else ret

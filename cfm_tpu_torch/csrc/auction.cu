@@ -27,12 +27,8 @@
 // above that its rows are read from global memory, where they stay
 // L2-resident for n <= 512.
 //
-// Per-column winner without a second scan. A bidding row packs
-// (order-preserving bits of its bid) << 32 | ~row into a word and applies
-// atomicMax on its column's word. The maximum is the highest bid and, among
-// equal bids, the smallest row: the same winner as the TPU kernel's
-// first-row rule, whatever order the atomics land in. Zero bids are made +0
-// first, so -0 and +0 tie as they compare.
+// Per-column winner without a second scan: one 64-bit atomicMax of the
+// packed bid word per bidding row (auction_common.cuh).
 //
 // What bounds it. A solve is thousands of short rounds, each two or three
 // block-wide barriers plus a row scan per unassigned row: latency, not bytes
@@ -44,19 +40,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "auction_common.cuh"
+
 namespace {
 
+using namespace auction;
+
 constexpr int kThreads = 1024;
-constexpr float kNeg = -3.0e38f;  // the TPU kernel's "no bid" value
-
-__device__ __forceinline__ uint32_t order_bits(float f) {
-  const uint32_t u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float from_order_bits(uint32_t u) {
-  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
-}
 
 __global__ void __launch_bounds__(kThreads)
 auction_kernel(const float* __restrict__ benefit_g, const float* __restrict__ eps0_p,
@@ -108,11 +98,8 @@ auction_kernel(const float* __restrict__ benefit_g, const float* __restrict__ ep
         if (j != bj) sv = fmaxf(sv, __fsub_rn(row[j], prices[j]));
       for (int o = 16; o > 0; o >>= 1) sv = fmaxf(sv, __shfl_xor_sync(0xffffffffu, sv, o));
       if (lane == 0) {
-        float bid = __fadd_rn(__fadd_rn(prices[bj], __fsub_rn(bv, sv)), eps);
-        if (bid == 0.f) bid = 0.f;  // -0 -> +0: equal bids must pack equal
-        if (bid > kNeg)
-          atomicMax(&bids[bj], ((unsigned long long)order_bits(bid) << 32) |
-                                   (unsigned long long)(~(uint32_t)r));
+        const float bid = bid_value(prices[bj], bv, sv, eps);
+        if (bid > kNeg) atomicMax(&bids[bj], pack_bid(bid, r));
       }
     }
     __syncthreads();
@@ -120,7 +107,7 @@ auction_kernel(const float* __restrict__ benefit_g, const float* __restrict__ ep
     for (int j = tid; j < n; j += kThreads) {
       const unsigned long long w = bids[j];
       if (w) {
-        const int r = (int)(~(uint32_t)(w & 0xffffffffull));
+        const int r = packed_row(w);
         const int prev = owner[j];
         if (prev >= 0)
           assign[prev] = -1;
@@ -128,7 +115,7 @@ auction_kernel(const float* __restrict__ benefit_g, const float* __restrict__ ep
           atomicAdd(&s_assigned, 1);
         owner[j] = r;
         assign[r] = j;
-        prices[j] = from_order_bits((uint32_t)(w >> 32));
+        prices[j] = packed_bid(w);
         bids[j] = 0ull;
       }
     }

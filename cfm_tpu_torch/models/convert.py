@@ -1,4 +1,8 @@
-"""Flax UNet parameters -> a ``state_dict`` of :class:`UNetModel`.
+"""Flax parameters -> a ``state_dict`` of the port's models.
+
+:func:`mlp_params_from_flax` maps the 2-D ``MLP``'s ``Dense_k/{kernel,bias}``
+to ``Dense_k.{weight,bias}``, the (in, out) kernel transposed.
+:func:`unet_params_from_flax` maps the UNet family's trees.
 
 The torch modules carry the flax scope names, so each leaf maps by its path:
 
@@ -57,6 +61,18 @@ def _convert_leaf(name: str, a: np.ndarray) -> Tuple[str, np.ndarray]:
     if name == "bias":
         return "bias", a
     raise ValueError(f"unknown flax parameter {name!r}")
+
+
+def mlp_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``params``: the flax ``MLP``'s ``params`` collection. Returns float32
+    CPU tensors keyed like ``MLP.state_dict()``."""
+    out = {}
+    for path, a in _leaves(params):
+        if len(path) != 2 or not path[0].startswith("Dense_") or path[1] not in ("kernel", "bias"):
+            raise ValueError(f"unexpected MLP parameter {'/'.join(path)}")
+        name, value = ("weight", a.T) if path[1] == "kernel" else ("bias", a)
+        out[f"{path[0]}.{name}"] = torch.tensor(value)  # a copy: flax arrays are read-only
+    return out
 
 
 def unet_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

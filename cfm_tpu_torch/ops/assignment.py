@@ -10,8 +10,9 @@ a permutation, so an assignment solve is the exact OT solve.
   the host, the port's counterpart of the JAX package's native JV solver.
 - :func:`solve_assignment`: dispatch. "auto" resolves by the cost's device:
   the CPU takes "hungarian"; CUDA takes "pallas" (the dense auction kernel,
-  ``ops/auction.py``) for 0 < n <= 512, "pallas_tiled" (not ported: raises)
-  for the tiled kernel's range, and "auction" otherwise.
+  ``ops/auction.py``) for 0 < n <= 512, "pallas_tiled" (the row-tiled
+  auction kernel) for 1024 <= n <= 4096 with n a multiple of 256 (of 128 at
+  4096), and "auction" otherwise.
 """
 
 from __future__ import annotations

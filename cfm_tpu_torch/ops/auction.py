@@ -1,4 +1,6 @@
-"""The dense epsilon-scaled auction (counterpart of ``cfm_tpu/ops/pallas_auction.py``).
+"""The epsilon-scaled auctions (counterpart of ``cfm_tpu/ops/pallas_auction.py``).
+
+The dense auction (TPU kernel #5, n <= 512):
 
 - :func:`auction_assignment_onehot` is the plain PyTorch version: a
   transcription of the TPU kernel's ``_round_body`` loop as
@@ -9,17 +11,25 @@
 - :func:`pallas_auction_assignment` is the wrapper. A CPU tensor goes to the
   plain version; a CUDA tensor launches the hand-written Hopper kernel
   (``csrc/auction.cu``) or raises. It never falls back.
-- :func:`_sanitize_perm` completes a partial matching into a permutation,
-  outside the kernel as in the JAX package.
 
-The tiled variant for n in 1024..4096 (``pallas_auction_assignment_tiled``)
-is not ported yet.
+The row-tiled auction (TPU kernel #6, n = 1024..4096, the 2-D evaluation's
+exact W1/W2 at n = 2048):
+
+- :func:`auction_assignment_tiled_reference` is its plain version, a
+  transcription of ``_make_tiled_kernel``: compact price and owner state,
+  bids reduced row tile by row tile, the earlier tile winning ties. It
+  gives the same permutation and round count as the dense auction.
+- :func:`pallas_auction_assignment_tiled` is the wrapper, with the Hopper
+  kernel ``csrc/auction_tiled.cu`` on CUDA tensors.
+
+:func:`_sanitize_perm` completes a partial matching into a permutation,
+outside the kernels as in the JAX package.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -151,17 +161,120 @@ pallas_auction_assignment.launches = 0
 pallas_auction_assignment.last_rounds = None
 
 
+def _tile(n: int) -> int:
+    """The TPU kernel's row tile: 128 at n >= 4096, else 256."""
+    return 128 if n >= 4096 else 256
+
+
+def auction_assignment_tiled_reference(cost: torch.Tensor, num_phases: int = 12,
+                                       tile: Optional[int] = None) -> Tuple[torch.Tensor, int]:
+    """Plain version of the row-tiled kernel: (perm (n,) int64, rounds).
+
+    Each round, the rows that own no column bid (an owned row's bids are the
+    TPU kernel's ``_NEG``, so only the unassigned rows are computed); each
+    tile of ``tile`` rows keeps per column its best bid and the first row
+    that made it, and across tiles the earlier one wins ties. The round
+    count and the unassigned rows are read on the host every round.
+    """
+    n = cost.shape[0]
+    tile = tile or _tile(n)
+    if n % tile:
+        raise ValueError(f"n={n} must be a multiple of the row tile {tile}")
+    dev = cost.device
+    benefit = -cost.float()
+    eps, eps_final = _eps_schedule(benefit, num_phases)
+    price = torch.zeros(n, device=dev)
+    owner = torch.full((n,), -1, dtype=torch.long, device=dev)
+    ids = torch.arange(n, device=dev)
+    nt = n // tile
+    rounds, owned, cap = 0, 0, 200 * n + 20000
+    while owned < n and rounds < cap:
+        assigned = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+        assigned[torch.where(owner >= 0, owner, n)] = True
+        rows = torch.nonzero(~assigned[:n])[:, 0]          # ascending
+        values = benefit[rows] - price
+        v1 = values.amax(dim=1, keepdim=True)
+        jbest = torch.where(values >= v1, ids, n).amin(dim=1, keepdim=True)
+        v2 = torch.where(ids == jbest, _NEG, values).amax(dim=1)
+        jbest = jbest[:, 0]
+        bid = price[jbest] + (v1[:, 0] - v2) + eps
+        # Per (tile, column): the best bid, then the first row among its bidders.
+        slot = (rows // tile) * n + jbest
+        tile_best = torch.full((nt * n,), _NEG, device=dev).scatter_reduce(0, slot, bid, "amax")
+        is_win = (bid >= tile_best[slot]) & (bid > _NEG)
+        tile_row = torch.full((nt * n,), n, dtype=torch.long, device=dev).scatter_reduce(
+            0, torch.where(is_win, slot, 0), torch.where(is_win, rows, n), "amin")
+        tile_best, tile_row = tile_best.view(nt, n), tile_row.view(nt, n)
+        # Across tiles the earlier tile wins ties: the first tile at the max.
+        win_bid = tile_best.amax(dim=0)
+        tiles = torch.arange(nt, device=dev)[:, None]
+        first = torch.where((tile_best >= win_bid) & (tile_best > _NEG), tiles, nt).amin(dim=0)
+        has = win_bid > _NEG
+        win_row = tile_row.gather(0, torch.clamp(first, max=nt - 1)[None])[0]
+        owner = torch.where(has, win_row, owner)
+        price = torch.where(has, win_bid, price)
+        rounds += 1
+        owned = int((owner >= 0).sum())
+        if owned >= n and bool(eps > eps_final):
+            owner = torch.full_like(owner, -1)
+            owned = 0
+            eps = eps / 4.0
+    perm = torch.full((n + 1,), n, dtype=torch.long, device=dev)
+    perm[torch.where(owner >= 0, owner, n)] = ids
+    return _sanitize_perm(perm[:n], n), rounds
+
+
 def pallas_auction_assignment_tiled(cost: torch.Tensor, num_phases: int = 12) -> torch.Tensor:
-    raise NotImplementedError(
-        "the row-tiled auction (TPU kernel #6, n in 1024..4096) is not ported yet "
-        "(ROADMAP.md queue 2)")
+    """Exact assignment of the square cost (n, n), n a multiple of the row
+    tile (256, or 128 at n >= 4096): perm (n,) int64.
+
+    On a CUDA tensor this launches the Hopper kernel (adding one to
+    ``pallas_auction_assignment_tiled.launches``; the round count and the
+    row scans are left on the device in ``.last_rounds`` and
+    ``.last_row_scans``); on a CPU tensor it runs
+    :func:`auction_assignment_tiled_reference`.
+    """
+    if cost.dim() != 2 or cost.shape[0] != cost.shape[1]:
+        raise ValueError(f"cost must be square (n, n), got {tuple(cost.shape)}")
+    n = cost.shape[0]
+    if n == 0 or n % _tile(n):
+        raise ValueError(f"the tiled auction takes n a positive multiple of {_tile(n)}, got n={n}")
+    if cost.device.type == "cpu":
+        return auction_assignment_tiled_reference(cost, num_phases)[0]
+    if cost.device.type != "cuda":
+        raise ValueError(f"unsupported device {cost.device}")
+    benefit = (-cost.float()).contiguous()
+    eps0, eps_final = _eps_schedule(benefit, num_phases)
+    perm = torch.empty(n, dtype=torch.int32, device=cost.device)
+    rounds = torch.empty(1, dtype=torch.int32, device=cost.device)
+    scans = torch.empty(1, dtype=torch.int64, device=cost.device)
+    lib = _lib("auction_tiled")
+    with torch.cuda.device(cost.device):
+        err = lib.auction_tiled_solve(benefit.data_ptr(), eps0.data_ptr(), eps_final.data_ptr(),
+                                      perm.data_ptr(), rounds.data_ptr(), scans.data_ptr(), n,
+                                      torch.cuda.current_stream(cost.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"tiled auction launch failed: CUDA error {err}")
+    pallas_auction_assignment_tiled.launches += 1
+    pallas_auction_assignment_tiled.last_rounds = rounds
+    pallas_auction_assignment_tiled.last_row_scans = scans
+    return _sanitize_perm(perm, n)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("auction")
+pallas_auction_assignment_tiled.launches = 0
+pallas_auction_assignment_tiled.last_rounds = None
+pallas_auction_assignment_tiled.last_row_scans = None
+
+_ARGTYPES = {"auction": ("auction_solve", 5),            # pointers before n
+             "auction_tiled": ("auction_tiled_solve", 6)}
+
+
+def _lib(name: str = "auction") -> ctypes.CDLL:
+    lib = _build.load(name)
     if not getattr(lib, "_typed", False):
+        fn, n_ptrs = _ARGTYPES[name]
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.auction_solve.argtypes = [p] * 5 + [i, p]
-        lib.auction_solve.restype = i
+        getattr(lib, fn).argtypes = [p] * n_ptrs + [i, p]
+        getattr(lib, fn).restype = i
         lib._typed = True
     return lib

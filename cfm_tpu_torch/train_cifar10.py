@@ -12,7 +12,6 @@ Checkpointing and evaluation are not ported yet: ``--output_dir`` is accepted
 and nothing is written, and a run long enough to reach a checkpoint
 (``--save_step``) or an evaluation (``trainer.eval_interval``) is refused;
 pass ``--save_step 0 --override trainer.eval_interval=0`` for a long run.
-The icfm and otcfm models are ported; fm and si wait for the other matchers.
 """
 
 from __future__ import annotations
@@ -48,9 +47,6 @@ def main(argv=None) -> Trainer:
     args = p.parse_args(argv)
 
     matcher = MODEL_TO_MATCHER[args.model]
-    if matcher not in ("icfm", "otcfm"):
-        raise NotImplementedError(f"--model {args.model} is not ported yet (ROADMAP.md queue 1 "
-                                  f"item 6); the port has otcfm and icfm")
     cfg = load_config(f"cifar10_{matcher}", [
         f"optim.lr={args.lr}",
         f"optim.warmup_steps={args.warmup}",

@@ -1,7 +1,7 @@
 """MNIST flow matching on one card, unconditional or class-conditional
 (counterpart of ``examples/train_mnist.py``).
 
-Presets: ``mnist_icfm`` and ``mnist_otcfm``, or with ``--conditional``
+Presets: ``mnist_<matcher>`` (icfm, otcfm, fm, sbcfm, vpcfm), or with ``--conditional``
 ``mnist_otcfm_cond`` (OT-CFM whose coupling carries the labels into the
 UNet's class embedding). After training it samples from the EMA parameters
 with euler at ``eval.ode_steps`` steps (100 in the presets): 80 images, 8
@@ -13,8 +13,8 @@ Usage:
   python -m cfm_tpu_torch.train_mnist --matcher otcfm --steps 2000
   python -m cfm_tpu_torch.train_mnist --conditional --synthetic
 
-The fm, sbcfm and vpcfm matchers wait for ROADMAP.md queue 1 item 6, and
-``--sde`` (a score head sampled by SDE) for item 2.
+``--sde`` (a score head sampled by SDE) waits for ROADMAP.md queue 1 items
+2 and 6.
 """
 
 from __future__ import annotations

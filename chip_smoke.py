@@ -10,9 +10,9 @@ a result:
    count. Refuses to run without CUDA.
 2. Builds every kernel from ``cfm_tpu_torch/csrc`` (one ``nvcc`` per
    source, all at once: the attention-block forward and backward, the
-   multi-head attention forward and backward, the auction and the GroupNorm
-   forward and backward) and prints the build time and ``ptxas`` register
-   and shared-memory lines.
+   multi-head attention forward and backward, the dense and the tiled
+   auction and the GroupNorm forward and backward) and prints the build time
+   and ``ptxas`` register and shared-memory lines.
 3. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it and at others that take other branches:
    the attention-block forward and backward in float32 (TF32 off) and
@@ -22,7 +22,11 @@ a result:
    ImageNet-64 training and generation shapes and at others that take other
    branches; the auction's permutation, which must be identical, on
    Gaussian, tied, duplicated and rank-1 costs up to n = 512, with its
-   assignment cost against scipy's; and the GroupNorm(+SiLU) forward and
+   assignment cost against scipy's; the tiled auction's (#6) permutation and
+   round count, identical to its plain version's, on the four kinds at
+   n = 256, 1024 and 2048, and on the 2-D evaluation's W1 and W2 costs at
+   1024 and 2048 (W1 at 4096 held to scipy's optimum only); and the
+   GroupNorm(+SiLU) forward and
    backward (#8, #9) at every (N, H, W, C, dtype, SiLU) that one model
    evaluation of each path gives ``GroupNorm32`` (recorded by wrapping the
    wrapper for that pass; the ImageNet-64 paths included), plus a
@@ -30,8 +34,9 @@ a result:
 4. Times each kernel with CUDA events (the attention-block forward at the
    training and the generation batch; the multi-head attention forward and
    backward at the ImageNet-64 training shape; the GroupNorm kernels at the
-   largest training shape and summed over one training step's 46 calls)
-   beside its plain
+   largest training shape and summed over one training step's 46 calls; the
+   tiled auction at n = 1024, 2048 and 4096 on the W1 evaluation cost, with
+   its rounds and row scans) beside its plain
    version, one PyTorch library call of the same function where there is
    one (a yardstick the port never calls; for the auction, scipy's solver
    on the host) and the bound: the larger of bytes over 3.35 TB/s and
@@ -46,7 +51,10 @@ a result:
    and dropout masks on both, one class-conditional step, and one
    class-conditional step of the second: loss, updated parameters and EMA
    agree. Then one forward of ``AttentionPool2d``, ``SuperResModel`` and
-   ``EncoderUNetModel`` (every pool) on the card against the CPU.
+   ``EncoderUNetModel`` (every pool) on the card against the CPU. Then one
+   f32 2-D OT-CFM step of the preset's MLP (batch 256, the dense auction on
+   the card) and W1 and W2 of two 2048-point clouds (the tiled auction on
+   the card, scipy on the CPU), card against CPU.
 6. The generation path: the CIFAR-10 recipe width (128 channels, mult
    (1, 2, 2, 2), 2 res blocks, 4 heads x 64, attention at 16x16, bf16) with
    random seeded weights, euler at 100 steps and dopri5 at rtol = atol =
@@ -84,9 +92,16 @@ a result:
     on the card once; 3 warm-up steps, then 20 with 1 auction, 7 + 7
     multi-head attention, 8 + 8 attention-block and 87 + 87 GroupNorm
     launches a step; then three steps profiled as in 9.
+13. The 2-D tutorial: ``Trainer`` on ``2d_otcfm`` as the preset gives it
+    (MLP width 64, batch 256, 5000 steps, W1 and W2 on 2048 points every
+    1000 steps): 5000 dense (#5) and 10 tiled (#6) auction launches. Prints
+    ms per step and each evaluation's W1, W2, NFE and seconds; the final W2
+    must be under 1.1. Then three steps profiled as in 9.
+14. ``cli.main(["train", ...])`` for 300 steps of ``2d_icfm``, ``2d_fm``,
+    ``2d_sbcfm`` and ``2d_vpcfm``, each ending with its final evaluation.
 
 The last three lines are the kernels' JSON record (``launches`` summed over
-the paths of phases 6, 8, 10, 11 and 12), the card's name and power limit,
+the paths of phases 6, 8 and 10 to 14), the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.
 """
 
@@ -490,6 +505,103 @@ def time_auction():
                 host_ms=host_ms, rounds=rounds)
 
 
+def check_auction_tiled():
+    """Phase 3: the tiled auction kernel (#6) must give its plain version's
+    perm and round count on Gaussian, tied, duplicated and rank-1 costs at
+    n = 256, 1024 and 2048 (the 2-D evaluation's size), and on the
+    evaluation's W1 and W2 costs at 1024 and 2048. The plain version takes
+    about 1 ms a round on the card (rank 1 at n = 2048, where every row bids
+    in most rounds, some 60k rounds), so at n = 4096 (row tile 128, the
+    benefit in HBM) the kernel's permutation is held to scipy's alone: every
+    checked permutation must be valid and its cost within 1e-5 relative of
+    scipy's optimum."""
+    import torch
+    from scipy.optimize import linear_sum_assignment
+    from cfm_tpu_torch.ops import auction as au
+
+    fn = au.pallas_auction_assignment_tiled
+    kinds = ("gauss", "ties", "dups", "rank1", "w1", "w2")
+    cases = [(256, k) for k in kinds[:4]] + [(1024, k) for k in kinds]
+    cases += [(2048, k) for k in kinds] + [(4096, "w1")]
+    for n, kind in cases:
+        cost = (eval_cost(n, seed=n, power=int(kind[1])) if kind in ("w1", "w2")
+                else auction_cost(n, kind, seed=n))
+        perm = fn(cost)
+        torch.cuda.synchronize()
+        k_rounds, scans = int(fn.last_rounds.item()), int(fn.last_row_scans.item())
+        line = f"tiled auction n={n} {kind}: {k_rounds} rounds, {scans} row scans"
+        if n < 4096:
+            t0 = time.perf_counter()
+            ref, rounds = au.auction_assignment_tiled_reference(cost)
+            torch.cuda.synchronize()
+            if not torch.equal(perm, ref) or k_rounds != rounds:
+                raise AssertionError(f"{line}: the kernel's perm or round count ({k_rounds} vs "
+                                     f"{rounds}) differs from its plain version")
+            line += f"; identical to the plain version ({time.perf_counter() - t0:.1f} s)"
+        if sorted(perm.tolist()) != list(range(n)):
+            raise AssertionError(f"{line}: not a permutation")
+        c = cost.double().cpu().numpy()
+        r, col = linear_sum_assignment(c)
+        opt, got = c[r, col].sum(), c[r, perm.cpu().numpy()].sum()
+        if abs(got - opt) > 1e-5 * max(abs(opt), 1e-30):
+            raise AssertionError(f"{line}: cost {got} vs scipy's {opt}")
+        log(f"{line}; cost {got:.6f}, scipy's optimum {opt:.6f}")
+
+
+def eval_cost(n, seed, power=1):
+    """The 2-D evaluation's cost: n points of the moons target against n
+    others (a trained model's samples lie on the moons), squared distances
+    (power 2) or their square roots (power 1, the harder solve)."""
+    import torch
+    from cfm_tpu_torch.data.toy import sample_moons
+    from cfm_tpu_torch.ops.cost import sq_euclidean_cost
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = sq_euclidean_cost(sample_moons(g, n), sample_moons(g, n))
+    return torch.sqrt(c + 1e-30) if power == 1 else c
+
+
+def time_auction_tiled():
+    """Phase 4: #6 at n = 1024, 2048 (the 2-D evaluation's size) and 4096 on
+    the W1 evaluation cost, beside its plain version, scipy's solver on the
+    host and a bound. The kernel's time is the wrapper's. The bound counts
+    the work this run's data needs: the row scans the kernel counted times n
+    elements, as element operations over the f32 rate and as bytes (4 a
+    value) over the HBM rate; it is loose, as dependent rounds set the time.
+    No PyTorch call computes an assignment."""
+    import torch
+    from scipy.optimize import linear_sum_assignment
+    from cfm_tpu_torch.ops import auction as au
+
+    fn = au.pallas_auction_assignment_tiled
+    for n in (1024, 2048, 4096):
+        cost = eval_cost(n, seed=n + 1)
+        ms = cuda_ms(lambda: fn(cost), iters=3, warmup=1)
+        rounds, scans = int(fn.last_rounds.item()), int(fn.last_row_scans.item())
+        plain = "not timed at 4096 (70k+ rounds of about 1.5 ms)"
+        if n < 4096:
+            t0 = time.perf_counter()
+            au.auction_assignment_tiled_reference(cost)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            plain = f"{plain_ms:.1f} ms"
+        c = cost.double().cpu().numpy()
+        t0 = time.perf_counter()
+        linear_sum_assignment(c)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ops_s, bytes_s = scans * n / PEAK_F32_FLOPS, scans * n * 4 / PEAK_BYTES
+        bound_ms = max(ops_s, bytes_s) * 1e3
+        log(f"tiled auction timing n={n} (W1 evaluation cost): kernel {ms:.3f} ms for {rounds} "
+            f"rounds ({1e3 * ms / rounds:.3f} us per round) and {scans} row scans "
+            f"({scans / n:.1f} per row); bound {bound_ms:.4f} ms by "
+            f"{'bytes' if bytes_s >= ops_s else 'operations'} (loose); plain {plain}; "
+            f"scipy on the host {host_ms:.1f} ms (host time)")
+        if n == 2048:
+            out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by="bytes" if bytes_s >= ops_s else "operations", library_ms=None)
+    return out
+
+
 def bwd_flops(N, S, C, H):
     """(bf16-operand FLOPs, f32-operand FLOPs) of the backward, recompute
     included: qkv, logits, attn, dattn, dwo, dwq, dtokens take model-dtype
@@ -836,6 +948,7 @@ def kernel_fns():
             "attn_block_bwd": ab.fused_attention_block_bwd,
             "attention_fwd": att.attention_t, "attention_bwd": att.attention_t_bwd,
             "auction": au.pallas_auction_assignment,
+            "auction_tiled": au.pallas_auction_assignment_tiled,
             "gn_silu_fwd": gn.fused_group_norm_silu, "gn_silu_bwd": gn.fused_group_norm_silu_bwd}
 
 
@@ -935,6 +1048,146 @@ def check_small_train_step(cfg):
         f"{got}")
 
 
+def check_2d_step_and_w2():
+    """Phase 5: one 2-D OT-CFM step in f32 (TF32 off) of the preset's MLP at
+    batch 256, the same weights, batch and draws on the card and on the
+    CPU: the card's coupling is the dense auction kernel (#5), the CPU's
+    scipy's solver (the same optimum on these tie-free clouds). Loss and grad norm within 1e-5 relative, parameters and
+    EMA within 1e-6. Then W1 and W2 of two 2048-point clouds: the card
+    through #6, the CPU through scipy, within 1e-5 relative."""
+    import numpy as np
+    import torch
+    from cfm_tpu_torch.coupling import wasserstein
+    from cfm_tpu_torch.device import strict_f32
+    from cfm_tpu_torch.models.mlp import MLP
+    from cfm_tpu_torch.paths import ExactOptimalTransportConditionalFlowMatcher
+    from cfm_tpu_torch.train import StepDraws, init_train_state, make_optimizer, make_train_step
+
+    B = 256
+    rng = np.random.default_rng(13)
+    x0, x1, eps = (torch.from_numpy(rng.standard_normal((B, 2)).astype(np.float32) * s)
+                   for s in (3.0, 1.5, 1.0))
+    t, u = (torch.from_numpy(rng.uniform(size=B).astype(np.float32)) for _ in range(2))
+    runs = {}
+    with strict_f32():
+        for dev in ("cpu", "cuda"):
+            model = MLP(2, seed=3, device=dev)
+            opt = make_optimizer(lr=2e-3, warmup_steps=0)
+            state = init_train_state(model, opt)
+            step = make_train_step(ExactOptimalTransportConditionalFlowMatcher(sigma=0.1), model,
+                                   opt, ema_decay=0.99)
+            before = read_counts()
+            m = step(state, x0.to(dev), x1.to(dev), draws=StepDraws(t.to(dev), eps.to(dev),
+                                                                    u.to(dev)))
+            torch.cuda.synchronize()
+            runs[dev] = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                             params=[p.detach().cpu() for p in state.params],
+                             ema=[e.cpu() for e in state.ema_params],
+                             launched={k: v - before[k] for k, v in read_counts().items()})
+    cpu, card = runs["cpu"], runs["cuda"]
+    worst = max((a - b).abs().max().item() for k in ("params", "ema")
+                for a, b in zip(card[k], cpu[k]))
+    log(f"2-D OT-CFM step f32, batch {B}: loss card {card['loss']:.7f} cpu {cpu['loss']:.7f}, "
+        f"grad norm card {card['grad_norm']:.6f} cpu {cpu['grad_norm']:.6f}, max parameter/EMA "
+        f"difference {worst:.2e}, card launches {card['launched']}")
+    if any(cpu["launched"].values()) or card["launched"]["auction"] != 1:
+        raise AssertionError(f"2-D step launches: cpu {cpu['launched']}, card {card['launched']}")
+    for k in ("loss", "grad_norm"):
+        if not abs(card[k] - cpu[k]) <= 1e-5 * abs(cpu[k]):
+            raise AssertionError(f"2-D step {k}: card {card[k]} vs CPU {cpu[k]}")
+    if not worst <= 1e-6:
+        raise AssertionError(f"2-D step: parameters or EMA differ by {worst}")
+    a, b = (torch.from_numpy(rng.standard_normal((2048, 2)).astype(np.float32) + s)
+            for s in (0.0, 0.5))
+    for power in (1, 2):
+        with strict_f32():
+            before = read_counts()["auction_tiled"]
+            w_card = float(wasserstein(a.cuda(), b.cuda(), power=power))
+            launched = read_counts()["auction_tiled"] - before
+            w_cpu = float(wasserstein(a, b, power=power))
+        log(f"W{power} of two 2048-point clouds: card {w_card:.7f} ({launched} tiled auction "
+            f"launch), CPU (scipy) {w_cpu:.7f}")
+        if launched != 1 or not abs(w_card - w_cpu) <= 1e-5 * w_cpu:
+            raise AssertionError(f"W{power}: card {w_card} ({launched} launches) vs CPU {w_cpu}")
+
+
+def twod_training():
+    """Phase 13: ``Trainer`` on ``2d_otcfm`` as the preset gives it (MLP
+    width 64, batch 256, Adam 2e-3, EMA 0.99, 5000 steps, W1/W2 on 2048
+    points every 1000 steps) with ``trainer.ckpt_interval=0`` (and the loss
+    logged every 1000 steps instead of 100). The launch
+    counts are set to 0 just before ``fit`` and read just after: one dense
+    auction (#5) a step, two tiled auctions (#6) an evaluation. Prints ms per
+    step (evaluations excluded) and each evaluation; the final W2 must be
+    under 1.1 (the JAX package's 800-step gate), printed beside the 2-moons
+    band's OT-CFM threshold. Then three more steps profiled as in phase 9.
+    Returns the counts of the 5000 steps."""
+    import torch
+    from cfm_tpu_torch.config import load_config
+    from cfm_tpu_torch.trainer import Trainer
+
+    cfg = load_config("2d_otcfm", ["trainer.ckpt_interval=0", "trainer.log_interval=1000"])
+    trainer = Trainer(cfg)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = read_counts()
+    steps, evals = cfg.trainer.total_steps, trainer.eval_log
+    eval_sec = sum(e["seconds"] for e in evals)
+    log(f"training 2d_otcfm: {steps} steps and {len(evals)} evaluations in {sec:.3f} s; "
+        f"{1e3 * (sec - eval_sec) / steps:.3f} ms per step without the evaluations; "
+        f"launches {launches}")
+    for e in evals:
+        log(f"  evaluation at step {e['step']}: W1 {e['w1']:.6f} W2 {e['w2']:.6f} NFE "
+            f"{e['nfe']:.0f}, {e['seconds']:.3f} s")
+    band = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                        "moons_w2_band.json")
+    with open(band) as fh:
+        ot = json.load(fh)["otcfm"]
+    threshold = ot["mean"] + 2 * ot["std"] + 0.05
+    w2 = evals[-1]["w2"] if evals else float("nan")
+    log(f"2d_otcfm final W2 {w2:.6f} (gate 1.1; the 2-moons band's OT-CFM threshold "
+        f"{threshold:.3f} is for 20k steps at lr 1e-3 and 1024 points)")
+    want = dict.fromkeys(launches, 0)
+    want.update(auction=steps, auction_tiled=2 * len(evals))
+    if launches != want or len(evals) != steps // cfg.trainer.eval_interval:
+        raise AssertionError(f"2d_otcfm launches {launches}, expected {want}")
+    if not w2 < 1.1 or any(e["nfe"] != 100 for e in evals):
+        raise AssertionError(f"2d_otcfm: final W2 {w2}, evaluations {evals}")
+    au = kernel_fns()["auction"]
+    log(f"  the last step's dense auction (n = 256): {int(au.last_rounds.item())} rounds")
+    profile_train_step(trainer, 1e3 * (sec - eval_sec) / steps)
+    return launches
+
+
+def twod_cli_runs(steps=300):
+    """Phase 14: ``cli.main(["train", ...])`` for ``steps`` steps of each
+    other 2-D preset, ending with the final evaluation (two #6 launches);
+    SB-CFM's exact coupling launches #5 once a step."""
+    from cfm_tpu_torch import cli
+
+    out = {}
+    for kind in ("icfm", "fm", "sbcfm", "vpcfm"):
+        zero_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["train", f"2d_{kind}", f"trainer.total_steps={steps}",
+                       "trainer.ckpt_interval=0", "trainer.eval_interval=0",
+                       f"trainer.log_interval={steps}"])
+        sec = time.perf_counter() - t0
+        launched = read_counts()
+        log(f"cli train 2d_{kind}: {steps} steps and the final evaluation in {sec:.2f} s, "
+            f"launches {launched}")
+        want = dict.fromkeys(launched, 0)
+        want.update(auction=steps if kind == "sbcfm" else 0, auction_tiled=2)
+        if rc != 0 or launched != want:
+            raise AssertionError(f"cli 2d_{kind}: rc {rc}, launches {launched}, expected {want}")
+        out[f"cli 2d_{kind}"] = launched
+    return out
+
+
 def main_path():
     """Phase 6: generation at the recipe width; returns the launch counts of
     both runs together."""
@@ -987,7 +1240,7 @@ def profile_evaluation():
 KERNEL_GROUPS = (
     ("GroupNorm kernels (#8 forward, #9 backward)",
      ("gn_silu_fwd_kernel", "gn_silu_bwd_kernel", "gn_silu_wgrad_kernel")),
-    ("auction kernel", ("auction_kernel",)),
+    ("auction kernels (#5, #6)", ("auction_kernel", "auction_tiled_kernel")),
     ("attention kernels (#1, #2, #3, #4: their stages share code)",
      ("mma_gemm_kernel", "attention_mma_kernel", "gn_stats_kernel", "round_transpose_kernel",
       "attention_kernel", "gemm_kernel", "bmma_kernel", "fgemm_kernel", "softmax_rows_kernel",
@@ -1127,8 +1380,8 @@ def profile_train_step(trainer, ms_per_step, steps=3):
     from torch.profiler import ProfilerActivity, profile
 
     wall_ms = device_profile(lambda: trainer.fit(trainer.state.step + steps),
-                             f"a {trainer.cfg.name} train step (batch 128, bf16; mean of {steps})",
-                             per=steps)
+                             f"a {trainer.cfg.name} train step (batch "
+                             f"{trainer.cfg.data.batch_size}; mean of {steps})", per=steps)
     log(f"  the same steps took {ms_per_step:.2f} ms each untraced, "
         f"{wall_ms:.2f} ms under device tracing")
     step = trainer.state.step
@@ -1279,6 +1532,7 @@ def main() -> int:
     err_bwd = check_attn_block_bwd()
     err_attn = check_attention()
     check_auction()
+    check_auction_tiled()
     gn_paths = record_gn_shapes(imagenet)
     err_gn = check_gn(gn_paths)
     time_attn_block(GEN_BATCH)
@@ -1288,6 +1542,7 @@ def main() -> int:
     time_attn_block_bwd(IMAGENET_BATCH, S=64, C=768, H=12)
     timing_attn = time_attention()
     timing_auction = time_auction()
+    timing_tiled = time_auction_tiled()
     timing_gn = time_gn(gn_paths["cifar10 training"])
     check_small_generation(SMALL)
     check_small_generation(IMAGENET_SMALL)
@@ -1295,6 +1550,7 @@ def main() -> int:
     check_small_train_step(dict(SMALL, class_cond=True, num_classes=10))
     check_small_train_step(IMAGENET_SMALL)
     check_new_models()
+    check_2d_step_and_w2()
     launches = {"generation": main_path()}
     profile_evaluation()
     per_step = dict(auction=1, attn_block_fwd=5, attn_block_bwd=5,
@@ -1311,6 +1567,8 @@ def main() -> int:
     del trainer
     launches["imagenet64 generation"] = imagenet_generation(imagenet)
     launches["imagenet64 training"] = imagenet_training(imagenet)
+    launches["2d_otcfm training"] = twod_training()
+    launches.update(twod_cli_runs())
     total = {k: sum(run[k] for run in launches.values()) for k in kernel_fns()}
     log(f"launches by path {launches}; summed {total}")
 
@@ -1329,6 +1587,8 @@ def main() -> int:
         dict(name="auction", route="cuda", source=src + "auction.cu",
              replaces="cfm_tpu/ops/pallas_auction.py:67", max_abs_err=0.0,
              **{k: v for k, v in timing_auction.items() if k not in ("host_ms", "rounds")}),
+        dict(name="auction_tiled", route="cuda", source=src + "auction_tiled.cu",
+             replaces="cfm_tpu/ops/pallas_auction.py:220", max_abs_err=0.0, **timing_tiled),
         dict(name="gn_silu_fwd", route="cuda", source=src + "groupnorm.cu",
              replaces="cfm_tpu/ops/pallas_groupnorm.py:60", max_abs_err=err_gn["out"],
              **timing_gn["gn_silu_fwd"]),

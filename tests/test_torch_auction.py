@@ -3,13 +3,14 @@ against JAX.
 
 The dense auction's plain version must give the identical permutation to
 ``cfm_tpu.ops.pallas_auction.auction_assignment_onehot_xla``, the JAX
-package's own CPU oracle for the TPU kernel (which has no interpret switch),
-on random and tied costs. The scatter auction, the completion of partial
-matchings and the dispatch rules are held against JAX too, and every
-permutation's cost against the JV optimum of ``lap_solve`` to 1e-5
-relative. The CUDA kernel is checked against the plain version by the
-``cuda``-marked test, which skips without a card. The JAX package is
-imported inside the tests that use it.
+package's own CPU oracle for the TPU kernels (which have no interpret
+switch), on random and tied costs; so must the row-tiled auction's plain
+version, at small row tiles, with the dense version's round count. The
+scatter auction, the completion of partial matchings and the dispatch rules
+are held against JAX too, and every permutation's cost against the JV
+optimum of ``lap_solve`` to 1e-5 relative. The CUDA kernels are checked
+against their plain versions by the ``cuda``-marked tests, which skip
+without a card. The JAX package is imported inside the tests that use it.
 """
 
 import numpy as np
@@ -130,8 +131,9 @@ def test_resolve_solver_follows_the_jax_rules():
     assert tas.resolve_solver("auto", 4096, "cuda") == "pallas_tiled"
     assert tas.resolve_solver("auto", 600, "cuda") == "auction"
     assert tas.resolve_solver("auction", 128, "cuda") == "auction"
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        tas.solve_assignment(torch.zeros(4, 4), "pallas_tiled")
+    c = torch.from_numpy(_cost(256, "gauss", seed=6))
+    assert torch.equal(tas.solve_assignment(c, "pallas_tiled"),
+                       tau.auction_assignment_tiled_reference(c)[0])
     with pytest.raises(ValueError, match="Unknown"):
         tas.solve_assignment(torch.zeros(4, 4), "simplex")
 
@@ -148,6 +150,59 @@ def test_wrapper_rejects_bad_inputs():
         tau.pallas_auction_assignment(torch.zeros(3, 4))
     with pytest.raises(ValueError, match="unsupported device"):
         tau.pallas_auction_assignment(torch.zeros(4, 4, device="meta"))
+
+
+@pytest.mark.parametrize("kind", ["gauss", "ties", "dups", "rank1"])
+@pytest.mark.parametrize("n,tile", [(64, 16), (128, 32)])
+def test_tiled_plain_auction_equals_jax_onehot_oracle(n, tile, kind):
+    """Row tiles of 16 and 32: the permutation of the JAX oracle and the
+    dense plain version's round count (the TPU kernels share the round)."""
+    c = _cost(n, kind, seed=7)
+    perm, rounds = tau.auction_assignment_tiled_reference(torch.from_numpy(c), tile=tile)
+    assert perm.dtype == torch.long and sorted(perm.tolist()) == list(range(n))
+    np.testing.assert_array_equal(perm.numpy(), _jax_onehot(c))
+    assert rounds == tau.auction_assignment_onehot(torch.from_numpy(c))[1]
+
+
+def test_tiled_wrapper_on_cpu_is_the_plain_version_and_counts_nothing():
+    c = torch.from_numpy(_cost(256, "gauss", seed=8))
+    before = tau.pallas_auction_assignment_tiled.launches
+    ref, _ = tau.auction_assignment_tiled_reference(c)
+    assert torch.equal(tau.pallas_auction_assignment_tiled(c), ref)
+    assert tau.pallas_auction_assignment_tiled.launches == before
+
+
+def test_tiled_wrapper_rejects_bad_inputs():
+    with pytest.raises(ValueError, match="square"):
+        tau.pallas_auction_assignment_tiled(torch.zeros(256, 512))
+    for n in (0, 384, 4224 + 64):  # the JAX kernel's assert: n a multiple of its tile
+        with pytest.raises(ValueError, match="multiple of"):
+            tau.pallas_auction_assignment_tiled(torch.zeros(n, n))
+    with pytest.raises(ValueError, match="multiple of the row tile 32"):
+        tau.auction_assignment_tiled_reference(torch.zeros(48, 48), tile=32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tau.pallas_auction_assignment_tiled(torch.zeros(256, 256, device="meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gauss", "ties", "dups"])
+@pytest.mark.parametrize("n", [1024, 2048])
+def test_tiled_kernel_matches_plain_on_cuda(n, kind):
+    """The permutation and round count of the plain version. (On rank1,
+    where every row bids in most rounds, the plain version takes 30k-60k
+    rounds of about 1 ms on the card at these sizes; chip_smoke.py checks
+    it at n = 256, 1024 and 2048.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("the tiled auction kernel runs only on a CUDA device")
+    c = torch.from_numpy(_cost(n, kind, seed=9)).cuda()
+    before = tau.pallas_auction_assignment_tiled.launches
+    perm = tas.solve_assignment(c)
+    ref, rounds = tau.auction_assignment_tiled_reference(c)
+    torch.cuda.synchronize()
+    assert tau.pallas_auction_assignment_tiled.launches == before + 1
+    assert int(tau.pallas_auction_assignment_tiled.last_rounds) == rounds
+    assert int(tau.pallas_auction_assignment_tiled.last_row_scans) >= n
+    assert torch.equal(perm, ref)
 
 
 @pytest.mark.cuda

@@ -2,8 +2,8 @@
 train_mnist.py) on the CPU, at a tiny configuration: it trains with finite
 losses, unconditionally and class-conditionally, generates from the EMA
 parameters, refuses what is not ported yet (the mesh, checkpoints,
-evaluation, other presets and matchers), and nothing runs on the CPU unless
-asked for.
+the image branch's evaluation, the score head, unknown presets and sets),
+and nothing runs on the CPU unless asked for.
 """
 
 import numpy as np
@@ -24,10 +24,11 @@ TINY_MNIST = ["model.num_channels=32", "model.channel_mult=(1, 2)", "data.batch_
 
 
 def test_config_presets_and_overrides_match_jax():
+    from cfm_tpu.config import available_presets
     from cfm_tpu.config import load_config as jload
 
-    for name in ("cifar10_icfm", "cifar10_otcfm", "mnist_icfm", "mnist_otcfm",
-                 "mnist_otcfm_cond"):
+    assert tcfg.available_presets() == [p for p in available_presets() if p != "2d_sf2m"]
+    for name in tcfg.available_presets():
         cfg, ref = tcfg.load_config(name), jload(name)
         assert cfg.name == ref.name
         for group in ("model", "matcher", "data", "optim", "trainer", "eval"):
@@ -43,10 +44,9 @@ def test_config_presets_and_overrides_match_jax():
     with pytest.raises(ValueError):
         tcfg.load_config("cifar10_otcfm", ["optim.lr"])
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tcfg.load_config("2d_otcfm")
-    for name in ("mnist_fm", "mnist_sbcfm", "mnist_vpcfm"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            tcfg.load_config(name)
+        tcfg.load_config("configs/2d_otcfm.yaml")
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        tcfg.load_config("2d_sf2m")
 
 
 @pytest.mark.parametrize("matcher", ["otcfm", "icfm"])
@@ -85,10 +85,10 @@ def test_trainer_refuses_what_is_not_ported(monkeypatch):
     with pytest.raises(NotImplementedError, match="data-parallel mesh"):
         ttrn.Trainer(tcfg.load_config("cifar10_otcfm", TINY), device="cpu")
     for override, error, match in (
-            (["matcher.kind='fm'"], NotImplementedError, "queue 1 item 6"),
+            (["matcher.score_head=True"], NotImplementedError, "queue 1 item 6"),
             (["model.class_cond=True", "matcher.kind='icfm'"], ValueError,
              "class-conditional training needs a coupled matcher"),
-            (["data.dataset='moons'"], NotImplementedError, "2-D branch")):
+            (["data.dataset='nope'"], ValueError, "Unknown 2D dataset")):
         cfg = tcfg.load_config("cifar10_otcfm", TINY + ["trainer.data_parallel=False"] + override)
         with pytest.raises(error, match=match):
             ttrn.Trainer(cfg, device="cpu")
@@ -111,8 +111,8 @@ def test_train_cifar10_entry_point(capsys):
     trainer = train_cifar10.main(args)
     assert trainer.state.step == 2 and trainer.cfg.name == "cifar10_otcfm"
     assert "using synthetic data" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        train_cifar10.main(["--model", "fm", "--device", "cpu"])
+    trainer = train_cifar10.main(["--model", "si", "--synthetic", "--total_steps", "1"] + args[5:])
+    assert trainer.state.step == 1 and trainer.cfg.matcher.kind == "vpcfm"
 
 
 @pytest.mark.parametrize("on_device", [True, False])
@@ -162,5 +162,5 @@ def test_train_mnist_entry_point(tmp_path, capsys):
     assert "saved 80 samples (NFE 2)" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="queue 1 item 2"):
         train_mnist.main(["--sde", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        train_mnist.main(["--matcher", "sbcfm", "--device", "cpu"])
+    trainer = train_mnist.main(["--matcher", "sbcfm", "--synthetic", "--steps", "1"] + args[4:])
+    assert trainer.state.step == 1 and trainer.cfg.name == "mnist_sbcfm"
