@@ -1,12 +1,14 @@
 """Configuration: the fields the trainer reads, the JAX package's presets
-(``2d_*``, ``cifar10_*`` and ``mnist_*`` for the five matchers, and
-``mnist_otcfm_cond``) and dotted ``key=value`` overrides (counterpart of
-``cfm_tpu/config.py``).
+(``2d_*``, ``cifar10_*`` and ``mnist_*`` for the five matchers, ``2d_sf2m``
+and ``mnist_otcfm_cond``) and dotted ``key=value`` overrides (counterpart
+of ``cfm_tpu/config.py``).
 
 ``load_config("2d_otcfm", ["optim.lr=1e-3", "trainer.total_steps=1000"])``
 
-``2d_sf2m`` (SB-CFM with a score head) waits for the score-head loss
-(ROADMAP.md queue 1 item 6); YAML files and the debug overlays for queue 1
+``2d_sf2m`` is [SF]2M: SB-CFM at sigma 1 with a score head, whose
+coupling is the exact plan unless ``matcher.ot_method=sinkhorn`` (the
+entropic plan of reg 2 sigma^2). ``eval.sde`` waits for SDE generation
+(ROADMAP.md queue 1 item 2); YAML files and the debug overlays for queue 1
 item 9.
 """
 
@@ -40,8 +42,8 @@ class ModelConfig:
 class MatcherConfig:
     kind: str = "otcfm"              # icfm | otcfm | fm | sbcfm | vpcfm
     sigma: float = 0.0
-    ot_method: str = "exact"         # sbcfm's coupling; "sinkhorn" is not ported
-    score_head: bool = False         # [SF]2M's score head: not ported, refused
+    ot_method: str = "exact"         # sbcfm's coupling: exact | sinkhorn
+    score_head: bool = False         # [SF]2M's score head
 
 
 @dataclass
@@ -89,6 +91,7 @@ class EvalConfig:
     ode_method: str = "dopri5"
     ode_steps: int = 100             # for fixed-step generation
     num_eval_samples: int = 2048
+    sde: bool = False                # SDE generation metrics: not ported, refused
 
 
 @dataclass
@@ -102,15 +105,16 @@ class Config:
     eval: EvalConfig = field(default_factory=EvalConfig)
 
 
-def _preset_2d(matcher: str) -> Config:
+def _preset_2d(matcher: str, **kw) -> Config:
     """The 2-D tutorial, as ``cfm_tpu/config.py:_preset_2d``: 8 Gaussians (a
     standard normal for the target FM, whose path ignores x0) to moons, a
     width-64 MLP, batch 256, Adam 2e-3 without warmup, EMA 0.99, 5000
-    steps, W1/W2 on 2048 points every 1000."""
+    steps, W1/W2 on 2048 points every 1000. ``kw`` are matcher fields
+    (sigma defaults to 0.1)."""
     return Config(
         name=f"2d_{matcher}",
         model=ModelConfig(kind="mlp", width=64),
-        matcher=MatcherConfig(kind=matcher, sigma=0.1),
+        matcher=MatcherConfig(kind=matcher, sigma=kw.pop("sigma", 0.1), **kw),
         data=DataConfig(dataset="moons", source="gaussian" if matcher == "fm" else "8gaussians",
                         batch_size=256),
         optim=OptimConfig(lr=2e-3, warmup_steps=0, ema_decay=0.99),
@@ -157,6 +161,7 @@ for _m in ("icfm", "otcfm", "fm", "sbcfm", "vpcfm"):
     PRESETS[f"2d_{_m}"] = lambda m=_m: _preset_2d(m)
     PRESETS[f"cifar10_{_m}"] = lambda m=_m: _preset_cifar10(m)
     PRESETS[f"mnist_{_m}"] = lambda m=_m: _preset_mnist(m)
+PRESETS["2d_sf2m"] = lambda: _preset_2d("sbcfm", sigma=1.0, score_head=True)
 PRESETS["mnist_otcfm_cond"] = lambda: _preset_mnist("otcfm", class_cond=True)
 
 
@@ -166,9 +171,6 @@ def available_presets() -> List[str]:
 
 def load_config(preset: Optional[str] = None, overrides: Sequence[str] = ()) -> Config:
     """A preset with ``group.field=value`` overrides (values literal-eval'd)."""
-    if preset == "2d_sf2m":
-        raise NotImplementedError("preset '2d_sf2m': the score head and its loss are not ported "
-                                  "yet (ROADMAP.md queue 1 item 6)")
     if preset is not None and preset not in PRESETS:
         raise NotImplementedError(f"preset {preset!r} is not ported yet (ROADMAP.md queue 1 "
                                   f"item 9); the port has {available_presets()}")

@@ -6,12 +6,14 @@ explicit ``torch.Generator`` on the device it samples on (``device``
 defaults to the generator's). ``torch.Generator`` draws differ from
 ``jax.random``'s, so the two packages give the same distributions, not the
 same points; the layouts, scales and noise levels are the JAX package's.
+A draw copies nothing from the host: the generators' constant vectors are
+made once per device and cached (:func:`_const`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -22,6 +24,19 @@ Sampler = Callable[..., torch.Tensor]
 _BLOB_CENTERS = ((1.8049405813217163, 7.813803672790527),
                  (-2.064957857131958, -0.5637611746788025),
                  (2.461986780166626, 1.337265968322754))
+
+
+_CONSTS: Dict[Tuple[tuple, torch.device], torch.Tensor] = {}
+
+
+def _const(values: tuple, device) -> torch.Tensor:
+    """The float32 tensor of ``values`` on ``device``, made at the first call
+    and cached: building it from a Python list on every draw would copy a
+    pageable host buffer to the card and wait for it."""
+    key = (values, torch.device(device))
+    if key not in _CONSTS:
+        _CONSTS[key] = torch.tensor(values, dtype=torch.float32, device=device)
+    return _CONSTS[key]
 
 
 def _dev(generator: Generator, device) -> torch.device:
@@ -78,8 +93,8 @@ def pinwheel(generator: Generator, n: int, device=None, n_arms: int = 5) -> torc
     rate 0.25, row-vector rotation, scale 7.5)."""
     device = _dev(generator, device)
     arm = _choice(generator, n, n_arms, device)
-    feats = (_normal(generator, (n, 2), device) * torch.tensor([0.3, 0.1], device=device)
-             + torch.tensor([1.0, 0.0], device=device))
+    feats = (_normal(generator, (n, 2), device) * _const((0.3, 0.1), device)
+             + _const((1.0, 0.0), device))
     angles = arm * (2 * math.pi / n_arms) + 0.25 * torch.exp(feats[:, 0])
     c, s = torch.cos(angles), torch.sin(angles)
     x = c * feats[:, 0] + s * feats[:, 1]
@@ -137,7 +152,7 @@ def gaussian_mixture(generator: Generator, n: int, device=None,
     """Isotropic Gaussian mixture with uniform weights (default: two
     components at (-2, 0) and (2, 0))."""
     device = _dev(generator, device)
-    means = (torch.tensor([[-2.0, 0.0], [2.0, 0.0]], device=device) if means is None
+    means = (_const(((-2.0, 0.0), (2.0, 0.0)), device) if means is None
              else torch.as_tensor(means, dtype=torch.float32, device=device))
     comp = _choice(generator, n, means.shape[0], device)
     return means[comp] + math.sqrt(var) * _normal(generator, (n, 2), device)
@@ -161,7 +176,7 @@ def blobs(generator: Generator, n: int, device=None, n_centers: int = 3,
     if n_centers != len(_BLOB_CENTERS):
         raise ValueError(f"blobs has {len(_BLOB_CENTERS)} fixed centers, got n_centers={n_centers}")
     device = _dev(generator, device)
-    centers = torch.tensor(_BLOB_CENTERS, device=device)
+    centers = _const(_BLOB_CENTERS, device)
     comp = _choice(generator, n, n_centers, device)
     return centers[comp] + std * _normal(generator, (n, 2), device)
 

@@ -1,7 +1,9 @@
 """Flax parameters -> a ``state_dict`` of the port's models.
 
 :func:`mlp_params_from_flax` maps the 2-D ``MLP``'s ``Dense_k/{kernel,bias}``
-to ``Dense_k.{weight,bias}``, the (in, out) kernel transposed.
+to ``Dense_k.{weight,bias}``, the (in, out) kernel transposed;
+:func:`mlp_pair_params_from_flax` maps the [SF]2M trainer's
+``{"flow": ..., "score": ...}`` pair to the flow and score MLPs.
 :func:`unet_params_from_flax` maps the UNet family's trees.
 
 The torch modules carry the flax scope names, so each leaf maps by its path:
@@ -73,6 +75,14 @@ def mlp_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         name, value = ("weight", a.T) if path[1] == "kernel" else ("bias", a)
         out[f"{path[0]}.{name}"] = torch.tensor(value)  # a copy: flax arrays are read-only
     return out
+
+
+def mlp_pair_params_from_flax(params: Mapping[str, Any]
+                              ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """``params``: JAX's ``{"flow": variables, "score": variables}`` (each a
+    flax ``MLP``'s variables with a ``params`` collection). Returns the flow
+    and the score MLP's state dicts."""
+    return tuple(mlp_params_from_flax(params[k]["params"]) for k in ("flow", "score"))
 
 
 def unet_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

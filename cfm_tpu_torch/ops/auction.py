@@ -118,8 +118,8 @@ def _sanitize_perm(perm: torch.Tensor, n: int) -> torch.Tensor:
     first_owner = torch.full((n + 1,), n, dtype=torch.long, device=perm.device)
     first_owner = first_owner.scatter_reduce(0, safe, rows, "amin")
     invalid = invalid | (first_owner[torch.clamp(perm, 0, n - 1)] != rows)
-    owned = torch.zeros(n + 1, dtype=torch.bool, device=perm.device)
-    owned[torch.where(invalid, n, perm)] = True
+    owned = torch.zeros(n + 1, dtype=torch.bool, device=perm.device).scatter_(
+        0, torch.where(invalid, n, perm), True)  # a scalar fill: no host-to-device copy
     return _complete_assignment(torch.where(invalid, -1, perm),
                                 torch.where(owned[:n], 0, -1))
 

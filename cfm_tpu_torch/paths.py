@@ -1,16 +1,19 @@
 """Conditional probability paths and flow matchers (counterpart of
 ``cfm_tpu/paths.py``): I-CFM, OT-CFM (with its label-carrying sampling for
 class-conditional training), Lipman et al.'s target FM, SB-CFM with the
-exact coupling, and the variance-preserving interpolant; the score-head
-pieces ``compute_lambda`` and ``compute_score_target``.
+exact or the entropic coupling, and the variance-preserving interpolant;
+the score-head pieces ``compute_lambda`` and ``compute_score_target``.
 
 Every sampling method takes an explicit ``torch.Generator``. The draws can
-also be handed in (``t=``, ``eps=``, ``plan_noise=``), which is how the
-tests give both packages the same numbers. With a generator, a coupled
-matcher draws the plan uniforms first, then t, then the path noise.
+also be handed in (``t=``, ``eps=``, ``plan_noise=``, and on the flash
+route ``gumbel=`` and ``uniform_j=``), which is how the tests give both
+packages the same numbers. With a generator, a coupled matcher draws the
+coupling's numbers first (the plan uniforms; on the flash route the Gumbel
+noise, then the fallback's partners), then t, then the path noise.
 
-SB-CFM's entropic coupling (``ot_method="sinkhorn"``) waits for ROADMAP.md
-queue 1 item 6 and raises.
+SB-CFM couples with the entropic plan of reg = 2 sigma^2 when
+``ot_method="sinkhorn"`` ([SF]2M), on the flash route at 2048^2 entries on
+the card (``coupling.OTPlanSampler._use_flash``).
 """
 
 from __future__ import annotations
@@ -93,14 +96,18 @@ class _CoupledMixin:
 
     def sample_location_and_conditional_flow(
             self, generator, x0, x1, t=None, return_noise: bool = False,
-            return_coupling_status: bool = False, eps=None, plan_noise=None):
+            return_coupling_status: bool = False, eps=None, plan_noise=None, gumbel=None,
+            uniform_j=None):
         """Coupled (t, xt, ut[, eps][, degenerate]); ``plan_noise`` are the
-        plan-sampling uniforms (see :meth:`OTPlanSampler.sample_map`)."""
+        plan-sampling uniforms (see :meth:`OTPlanSampler.sample_map`),
+        ``gumbel`` and ``uniform_j`` the flash route's draws (see
+        :meth:`OTPlanSampler.sample_plan`)."""
         if getattr(self, "_skip_coupling", False):
             return ConditionalFlowMatcher.sample_location_and_conditional_flow(
                 self, generator, x0, x1, t, return_noise, return_coupling_status, eps)
         x0, x1, bad = self.ot_sampler.sample_plan(generator, x0, x1, return_status=True,
-                                                  noise=plan_noise)
+                                                  noise=plan_noise, gumbel=gumbel,
+                                                  uniform_j=uniform_j)
         out = ConditionalFlowMatcher.sample_location_and_conditional_flow(
             self, generator, x0, x1, t, return_noise, False, eps)
         return out + (bad,) if return_coupling_status else out
@@ -146,9 +153,9 @@ class TargetConditionalFlowMatcher(ConditionalFlowMatcher):
 
 
 class SchrodingerBridgeConditionalFlowMatcher(_CoupledMixin, ConditionalFlowMatcher):
-    """SB-CFM: the Brownian-bridge path sigma_t = sigma sqrt(t (1 - t)) on
-    pairs re-drawn from the exact minibatch OT plan;
-    u_t = (1 - 2t) / (2t (1 - t) + 1e-8) (xt - mu_t) + x1 - x0."""
+    """SB-CFM / [SF]2M: the Brownian-bridge path sigma_t = sigma sqrt(t (1 - t))
+    on pairs re-drawn from the minibatch OT plan, exact or entropic with
+    reg = 2 sigma^2; u_t = (1 - 2t) / (2t (1 - t) + 1e-8) (xt - mu_t) + x1 - x0."""
 
     def __init__(self, sigma: Union[float, int] = 1.0, ot_method: str = "exact",
                  solver: str = "auto"):
@@ -158,7 +165,7 @@ class SchrodingerBridgeConditionalFlowMatcher(_CoupledMixin, ConditionalFlowMatc
             warnings.warn("Small sigma values may lead to numerical instability.")
         super().__init__(sigma)
         self.ot_method = ot_method
-        self.ot_sampler = OTPlanSampler(method=ot_method, solver=solver)
+        self.ot_sampler = OTPlanSampler(method=ot_method, reg=2 * sigma ** 2, solver=solver)
 
     def compute_sigma_t(self, t):
         return self.sigma * torch.sqrt(t * (1 - t))

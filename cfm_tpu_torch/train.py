@@ -2,11 +2,13 @@
 ``cfm_tpu/train.py``).
 
 The step is the JAX step's arithmetic in eager PyTorch: the coupled path
-sample (exact OT through the auction kernel on the card), the UNet forward
-and backward (the attention blocks through their forward and backward
-kernels), global-norm clip, Adam with the warmup schedule, EMA. It reads
-nothing back to the host: the metrics are 0-d device tensors and the
-learning rate is a host-side function of the host-side step count.
+sample (exact OT through the auction kernel on the card, or the entropic
+plan through the flash Sinkhorn kernel at 2048^2), the model's forward and
+backward (the UNet's attention blocks through their kernels), optionally a
+score head's loss ([SF]2M), global-norm clip, Adam with the warmup
+schedule, EMA. It reads nothing back to the host: the metrics are 0-d device
+tensors and the learning rate is a host-side function of the host-side step
+count.
 
 The random draws are split from the arithmetic (:class:`StepDraws`): with a
 generator the step draws them itself, or a test hands in the same numbers it
@@ -109,7 +111,8 @@ def make_optimizer(lr: float = 2e-4, warmup_steps: int = 5000, grad_clip: float 
 @dataclasses.dataclass
 class TrainState:
     """The model's parameters (updated in place), their EMA copies, the
-    optimizer state and the host-side step count."""
+    optimizer state and the host-side step count. With a score head the
+    lists hold the flow model's parameters first, then the score model's."""
 
     params: List[torch.nn.Parameter]
     ema_params: List[torch.Tensor]
@@ -117,8 +120,13 @@ class TrainState:
     step: int = 0
 
 
-def init_train_state(model: torch.nn.Module, optimizer: Optimizer) -> TrainState:
+def init_train_state(model: torch.nn.Module, optimizer: Optimizer,
+                     score_model: Optional[torch.nn.Module] = None) -> TrainState:
+    """The state of ``model`` (and ``score_model``: one optimizer, clip and
+    EMA span both heads, as optax does over JAX's {"flow", "score"} pair)."""
     params = list(model.parameters())
+    if score_model is not None:
+        params += list(score_model.parameters())
     # The EMA starts as a copy of the parameters, not an alias.
     return TrainState(params, [p.detach().clone() for p in params], optimizer.init(params))
 
@@ -130,22 +138,35 @@ class StepDraws:
     t (B,) and eps (like x0) feed the path; plan_u (B,) are the uniforms of
     the coupling's plan sampling (None for an uncoupled matcher); dropout is
     the generator the UNet draws its uint8 masks from (None without dropout).
+    On the flash route the coupling draws instead gumbel (B, m), each row's
+    Gumbel noise over the m partners, and uniform_j (B,), the partners of
+    the uniform fallback.
     """
 
     t: torch.Tensor
     eps: torch.Tensor
     plan_u: Optional[torch.Tensor] = None
     dropout: Optional[torch.Generator] = None
+    gumbel: Optional[torch.Tensor] = None
+    uniform_j: Optional[torch.Tensor] = None
 
     @classmethod
     def draw(cls, generator: torch.Generator, x0: torch.Tensor, coupled: bool,
-             dropout: bool) -> "StepDraws":
-        """Draw in the matcher's order: plan uniforms, t, then eps."""
+             dropout: bool, flash_m: Optional[int] = None) -> "StepDraws":
+        """Draw in the matcher's order: the coupling's numbers (the plan
+        uniforms, or with ``flash_m`` partners on the flash route the Gumbel
+        noise and the fallback's partners), t, then eps."""
         B, dev = x0.shape[0], x0.device
-        plan_u = torch.rand(B, generator=generator, device=dev) if coupled else None
+        plan_u = gumbel = uniform_j = None
+        if flash_m is not None:
+            gumbel = -torch.empty((B, flash_m), device=dev).exponential_(
+                generator=generator).log()
+            uniform_j = torch.randint(0, flash_m, (B,), generator=generator, device=dev)
+        elif coupled:
+            plan_u = torch.rand(B, generator=generator, device=dev)
         t = torch.rand(B, generator=generator, device=dev, dtype=x0.dtype)
         eps = torch.randn(x0.shape, generator=generator, device=dev, dtype=x0.dtype)
-        return cls(t, eps, plan_u, generator if dropout else None)
+        return cls(t, eps, plan_u, generator if dropout else None, gumbel, uniform_j)
 
 
 def _is_coupled(matcher) -> bool:
@@ -154,7 +175,8 @@ def _is_coupled(matcher) -> bool:
 
 def make_train_step(matcher, model: torch.nn.Module, optimizer: Optimizer,
                     ema_decay: float = 0.9999, train_mode: bool = False,
-                    class_conditional: bool = False) -> Callable:
+                    class_conditional: bool = False,
+                    score_model: Optional[torch.nn.Module] = None) -> Callable:
     """Build ``step(state, x0, x1, generator=None, draws=None) -> metrics``,
     or with ``class_conditional`` ``step(state, x0, x1, y0, y1,
     generator=None, draws=None)``: the labels ride through the coupling
@@ -162,9 +184,13 @@ def make_train_step(matcher, model: torch.nn.Module, optimizer: Optimizer,
     called as ``model(t, xt, y1)``, as in the JAX step.
 
     ``train_mode`` runs the model with dropout (masks from the draws'
-    generator). The metrics are 0-d device tensors: ``loss``, ``flow_loss``,
-    ``coupling_degenerate`` (1.0 when the plan fell back to the uniform
-    coupling) and ``grad_norm`` (before clipping).
+    generator). With ``score_model`` (the [SF]2M score head; the state from
+    ``init_train_state(model, optimizer, score_model)``) the loss adds
+    mean((lambda_t s + eps)^2), lambda from ``matcher.compute_lambda``. The
+    metrics are 0-d device tensors: ``loss``, ``flow_loss`` (and
+    ``score_loss``), ``coupling_degenerate`` (1.0 when the plan fell back to
+    the uniform coupling) and ``grad_norm`` (before clipping, over every
+    parameter of the state).
     """
     coupled = _is_coupled(matcher)
     if class_conditional and not hasattr(matcher, "guided_sample_location_and_conditional_flow"):
@@ -176,31 +202,43 @@ def make_train_step(matcher, model: torch.nn.Module, optimizer: Optimizer,
         if coupled:
             kw["plan_noise"] = draws.plan_u
         if class_conditional:
-            t, xt, ut, _, y1_, _, bad = matcher.guided_sample_location_and_conditional_flow(
+            t, xt, ut, _, y1_, eps, bad = matcher.guided_sample_location_and_conditional_flow(
                 None, x0, x1, y0=y0, y1=y1, **kw)
-            return t, xt, ut, (y1_,), bad
-        t, xt, ut, _, bad = matcher.sample_location_and_conditional_flow(None, x0, x1, **kw)
-        return t, xt, ut, (), bad
+            return t, xt, ut, eps, (y1_,), bad
+        if coupled:
+            kw.update(gumbel=draws.gumbel, uniform_j=draws.uniform_j)
+        t, xt, ut, eps, bad = matcher.sample_location_and_conditional_flow(None, x0, x1, **kw)
+        return t, xt, ut, eps, (), bad
+
+    def call(net, t, xt, cond, draws):
+        if train_mode:
+            return net(t, xt, *cond, train=True, generator=draws.dropout)
+        return net(t, xt, *cond)
 
     def run(state, x0, x1, y0, y1, generator, draws) -> Dict[str, torch.Tensor]:
         if draws is None:
-            draws = StepDraws.draw(generator, x0, coupled, train_mode)
-        t, xt, ut, cond, bad = flow(draws, x0, x1, y0, y1)
-        if train_mode:
-            vt = model(t, xt, *cond, train=True, generator=draws.dropout)
-        else:
-            vt = model(t, xt, *cond)
-        flow_loss = torch.mean(torch.square(vt - ut))
+            flash = coupled and not class_conditional and matcher.ot_sampler._use_flash(x0, x1)
+            draws = StepDraws.draw(generator, x0, coupled, train_mode,
+                                   flash_m=x1.shape[0] if flash else None)
+        t, xt, ut, eps, cond, bad = flow(draws, x0, x1, y0, y1)
+        flow_loss = torch.mean(torch.square(call(model, t, xt, cond, draws) - ut))
+        metrics = {"flow_loss": flow_loss.detach(), "coupling_degenerate": bad.float()}
+        loss = flow_loss
+        if score_model is not None:
+            st = call(score_model, t, xt, cond, draws)
+            lam = matcher.compute_lambda(t).reshape(-1, *([1] * (st.dim() - 1)))
+            score_loss = torch.mean(torch.square(lam * st + eps))
+            metrics["score_loss"] = score_loss.detach()
+            loss = flow_loss + score_loss
         for p in state.params:
             p.grad = None
-        flow_loss.backward()
+        loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in state.params]
-        grad_norm = optimizer.apply(state.params, grads, state.opt_state)
+        metrics["grad_norm"] = optimizer.apply(state.params, grads, state.opt_state)
         ema_update(state.ema_params, state.params, ema_decay)
         state.step += 1
-        loss = flow_loss.detach()
-        return {"loss": loss, "flow_loss": loss, "coupling_degenerate": bad.float(),
-                "grad_norm": grad_norm}
+        metrics["loss"] = loss.detach()
+        return metrics
 
     if class_conditional:
         def step(state: TrainState, x0: torch.Tensor, x1: torch.Tensor, y0: torch.Tensor,

@@ -19,11 +19,16 @@ labels), and the step carries them through the coupling into the model's
 class embedding. ``generate`` samples from the EMA parameters by ODE
 integration. The loss is read back only at ``log_interval``.
 
+With ``matcher.score_head`` ([SF]2M, the ``2d_sf2m`` preset) a second model
+of the same kind, its initial weights from its own seed, learns the score:
+one optimizer, clip and EMA span both heads, and ``generate`` and
+``evaluate`` use the flow head's EMA parameters.
+
 Not ported yet, and refused loudly when asked for: checkpointing (``fit``
 raises if a checkpoint would fall due), the image branch's evaluation
-(tracking FID, ROADMAP.md queue 1 item 4), the score head (item 6), SDE
-generation (item 2) and the data-parallel mesh (raises with more than one
-card unless ``trainer.data_parallel=False``). Class-conditional I-CFM is
+(tracking FID, ROADMAP.md queue 1 item 4), SDE generation and the
+``eval.sde`` metrics (item 2) and the data-parallel mesh (raises with more
+than one card unless ``trainer.data_parallel=False``). Class-conditional I-CFM is
 refused as the JAX package fails on it: its matcher carries no labels. The
 harness writes no log files; ``eval_log`` keeps the evaluations.
 """
@@ -97,11 +102,14 @@ def _source_gen(cfg: Config):
     return two_dim_data(cfg.data.source, dim)
 
 
-def build_model(cfg: Config, device: DeviceLike = None):
+def build_model(cfg: Config, device: DeviceLike = None, seed: Optional[int] = None):
+    """The configured model, its initial weights drawn from ``seed``
+    (default ``trainer.seed``)."""
     m = cfg.model
+    seed = cfg.trainer.seed if seed is None else seed
     if m.kind == "mlp":
         dim = (_vector_dim(cfg) or 2) if cfg.data.dataset in _2D_SETS else int(np.prod(m.image_dim))
-        return MLP(dim=dim, w=m.width, seed=cfg.trainer.seed, device=device)
+        return MLP(dim=dim, w=m.width, seed=seed, device=device)
     if m.kind != "unet":
         raise ValueError(f"Unknown model kind: {m.kind}")
     return UNetModelWrapper(
@@ -110,8 +118,7 @@ def build_model(cfg: Config, device: DeviceLike = None):
         num_head_channels=m.num_head_channels, attention_resolutions=m.attention_resolutions,
         dropout=m.dropout, use_scale_shift_norm=m.use_scale_shift_norm,
         resblock_updown=m.resblock_updown, class_cond=m.class_cond, num_classes=m.num_classes,
-        dtype=torch.bfloat16 if m.bf16 else torch.float32, seed=cfg.trainer.seed,
-        device=device)
+        dtype=torch.bfloat16 if m.bf16 else torch.float32, seed=seed, device=device)
 
 
 class Trainer:
@@ -120,9 +127,9 @@ class Trainer:
     def __init__(self, cfg: Config, device: DeviceLike = None):
         self.cfg = cfg
         self.is_image = cfg.data.dataset in ("cifar10", "mnist")
-        if cfg.matcher.score_head:
-            raise NotImplementedError("the score head ([SF]2M) is not ported yet (ROADMAP.md "
-                                      "queue 1 item 6)")
+        if cfg.eval.sde:
+            raise NotImplementedError("eval.sde (SDE generation and the sde_kl / sde_w2 "
+                                      "metrics) is not ported yet (ROADMAP.md queue 1 item 2)")
         if cfg.trainer.data_parallel and torch.cuda.device_count() > 1:
             raise NotImplementedError(
                 "the data-parallel mesh is not ported yet (ROADMAP.md queue 1 item 10); "
@@ -130,14 +137,19 @@ class Trainer:
         self.device = resolve_device(device)
         self.matcher = build_matcher(cfg)
         self.model = build_model(cfg, self.device)
+        # The score head's weights come from a seed of their own, as JAX folds
+        # 1 into the flow head's init key.
+        self.score_model = (build_model(cfg, self.device, seed=cfg.trainer.seed + 1)
+                            if cfg.matcher.score_head else None)
         self.optimizer = make_optimizer(lr=cfg.optim.lr, warmup_steps=cfg.optim.warmup_steps,
                                         grad_clip=cfg.optim.grad_clip,
                                         weight_decay=cfg.optim.weight_decay)
-        self.state: TrainState = init_train_state(self.model, self.optimizer)
+        self.state: TrainState = init_train_state(self.model, self.optimizer, self.score_model)
         dropout = cfg.model.kind == "unet" and cfg.model.dropout > 0  # the MLP has none
         self.step_fn = make_train_step(self.matcher, self.model, self.optimizer,
                                        ema_decay=cfg.optim.ema_decay, train_mode=dropout,
-                                       class_conditional=cfg.model.class_cond)
+                                       class_conditional=cfg.model.class_cond,
+                                       score_model=self.score_model)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.trainer.seed)
         print(f"model: {cfg.model.kind}  params: {sum(p.numel() for p in self.state.params):,}"
               f"  device: {self.device}")
@@ -262,12 +274,14 @@ class Trainer:
         return key
 
     def _ema(self) -> torch.nn.Module:
-        """The model with the EMA parameters (a copy kept across calls)."""
+        """The (flow) model with its EMA parameters, the first entries of the
+        state's EMA list (a copy kept across calls)."""
         if self._ema_model is None:
             self._ema_model = copy.deepcopy(self.model).requires_grad_(False)
             self._ema_model.zero_grad(set_to_none=True)
         with torch.no_grad():
-            for p, e in zip(self._ema_model.parameters(), self.state.ema_params):
+            flow = list(self._ema_model.parameters())
+            for p, e in zip(flow, self.state.ema_params[:len(flow)]):
                 p.copy_(e)
         return self._ema_model
 

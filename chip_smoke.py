@@ -11,8 +11,8 @@ a result:
 2. Builds every kernel from ``cfm_tpu_torch/csrc`` (one ``nvcc`` per
    source, all at once: the attention-block forward and backward, the
    multi-head attention forward and backward, the dense and the tiled
-   auction and the GroupNorm forward and backward) and prints the build time
-   and ``ptxas`` register and shared-memory lines.
+   auction, the GroupNorm forward and backward and flash Sinkhorn) and
+   prints the build time and ``ptxas`` register and shared-memory lines.
 3. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it and at others that take other branches:
    the attention-block forward and backward in float32 (TF32 off) and
@@ -30,13 +30,19 @@ a result:
    backward (#8, #9) at every (N, H, W, C, dtype, SiLU) that one model
    evaluation of each path gives ``GroupNorm32`` (recorded by wrapping the
    wrapper for that pass; the ImageNet-64 paths included), plus a
-   recentred-variance case in float32.
+   recentred-variance case in float32; and flash Sinkhorn (#7) at the
+   2d_sf2m path's shape (n = m = 2048, d = 2, reg 2), at n != m with tails,
+   at d = 32, with a non-uniform loga and at a small reg: f and g within
+   1e-4 relative + 1e-5 reg absolute of the plain version after 50
+   iterations, and at tol 1e-6 stopping counts within 1 of each other and
+   both implied plans within the tolerance.
 4. Times each kernel with CUDA events (the attention-block forward at the
    training and the generation batch; the multi-head attention forward and
    backward at the ImageNet-64 training shape; the GroupNorm kernels at the
    largest training shape and summed over one training step's 46 calls; the
    tiled auction at n = 1024, 2048 and 4096 on the W1 evaluation cost, with
-   its rounds and row scans) beside its plain
+   its rounds and row scans; flash Sinkhorn at the 2d_sf2m path's shape,
+   with its iterations) beside its plain
    version, one PyTorch library call of the same function where there is
    one (a yardstick the port never calls; for the auction, scipy's solver
    on the host) and the bound: the larger of bytes over 3.35 TB/s and
@@ -96,13 +102,31 @@ a result:
     (MLP width 64, batch 256, 5000 steps, W1 and W2 on 2048 points every
     1000 steps): 5000 dense (#5) and 10 tiled (#6) auction launches. Prints
     ms per step and each evaluation's W1, W2, NFE and seconds; the final W2
-    must be under 1.1. Then three steps profiled as in 9.
+    must be under 1.1. Then three steps profiled as in 9, with the
+    host-to-device copies and stream synchronisations counted per step.
 14. ``cli.main(["train", ...])`` for 300 steps of ``2d_icfm``, ``2d_fm``,
-    ``2d_sbcfm`` and ``2d_vpcfm``, each ending with its final evaluation.
+    ``2d_sbcfm``, ``2d_vpcfm`` and ``2d_sf2m``, each ending with its final
+    evaluation.
+15. No host synchronisation in a step: after warm-up, one ``2d_otcfm`` step
+    and one ``2d_sf2m`` step on the flash route (``matcher.ot_method=sinkhorn
+    data.batch_size=2048``), each with its data draw, under
+    ``torch.cuda.set_sync_debug_mode("error")``, calling the step function
+    directly (``Trainer.fit``'s logging read is by design).
+16. The entropic path, [SF]2M: ``Trainer`` on ``2d_sf2m`` with
+    ``matcher.ot_method=sinkhorn data.batch_size=2048``: the untrained flow
+    evaluated, 3 warm-up steps, then 1000 steps with one evaluation at their
+    end, every launch count set to 0 just before: one flash Sinkhorn (#7) a
+    step and two tiled auctions (#6) for the evaluation. Prints ms per step,
+    the losses, the degenerate-coupling flags (all 0) and the iterations per
+    solve; the final W2 must beat the untrained flow's. Then three steps
+    profiled as in 13.
+17. ``wasserstein(x0, x1, method="sinkhorn", power=2)`` of 2048 8-Gaussian
+    points against 2048 moons points at reg 2: one #7 launch on the card,
+    within 1e-4 relative of the same call on the CPU (the dense Sinkhorn).
 
 The last three lines are the kernels' JSON record (``launches`` summed over
-the paths of phases 6, 8 and 10 to 14), the card's name and power limit,
-and ``{"ok": true, "device": {...}}``.
+the paths of phases 6, 8, 10 to 14, 16 and 17), the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -158,6 +182,24 @@ MNIST_GEN = 80                              # 8 samples of each of the 10 classe
 # statistics passes and its affine + SiLU; the backward's SiLU derivative,
 # two column sums and dx, each recomputing norm.
 GN_FWD_OPS, GN_BWD_OPS = 12, 30
+# The entropic path: 2d_sf2m with the flash coupling at batch 2048.
+SF2M = ["matcher.ot_method=sinkhorn", "data.batch_size=2048", "trainer.ckpt_interval=0"]
+SF2M_WARMUP, SF2M_STEPS, SF2M_REG = 3, 1000, 2.0
+# (n, m, d, reg, non-uniform loga, what) of the flash Sinkhorn checks.
+FLASH_CASES = ((2048, 2048, 2, SF2M_REG, False, "the 2d_sf2m path"),
+               (1000, 1536, 2, 0.5, False, "n != m, tails"),
+               (2048, 2048, 32, 4.0, False, "d = 32"),
+               (2048, 2048, 2, SF2M_REG, True, "non-uniform loga"),
+               (512, 512, 2, 0.05, False, "small reg"))
+FLASH_TOL, FLASH_CAP = 1e-6, 3000
+
+
+def flash_ops(d):
+    """Operations per cost entry and pass of #7: d multiply-adds (2d) for
+    the dot product, the norms' add, the -2 x.y term, the subtraction from
+    the potential, the scale by 1/reg, the subtraction of the running max,
+    the exp (counted as one operation) and the add to the running sum."""
+    return 2 * d + 7
 
 
 def log(*a):
@@ -942,6 +984,7 @@ def kernel_fns():
     from cfm_tpu_torch.ops import attention as att
     from cfm_tpu_torch.ops import attn_block as ab
     from cfm_tpu_torch.ops import auction as au
+    from cfm_tpu_torch.ops import flash_sinkhorn as fs
     from cfm_tpu_torch.ops import groupnorm as gn
 
     return {"attn_block_fwd": ab.fused_attention_block,
@@ -949,7 +992,8 @@ def kernel_fns():
             "attention_fwd": att.attention_t, "attention_bwd": att.attention_t_bwd,
             "auction": au.pallas_auction_assignment,
             "auction_tiled": au.pallas_auction_assignment_tiled,
-            "gn_silu_fwd": gn.fused_group_norm_silu, "gn_silu_bwd": gn.fused_group_norm_silu_bwd}
+            "gn_silu_fwd": gn.fused_group_norm_silu, "gn_silu_bwd": gn.fused_group_norm_silu_bwd,
+            "flash_sinkhorn": fs.flash_sinkhorn}
 
 
 def zero_counts():
@@ -1166,11 +1210,12 @@ def twod_training():
 def twod_cli_runs(steps=300):
     """Phase 14: ``cli.main(["train", ...])`` for ``steps`` steps of each
     other 2-D preset, ending with the final evaluation (two #6 launches);
-    SB-CFM's exact coupling launches #5 once a step."""
+    SB-CFM's exact coupling (``2d_sbcfm``, and ``2d_sf2m`` as the preset
+    gives it) launches #5 once a step."""
     from cfm_tpu_torch import cli
 
     out = {}
-    for kind in ("icfm", "fm", "sbcfm", "vpcfm"):
+    for kind in ("icfm", "fm", "sbcfm", "vpcfm", "sf2m"):
         zero_counts()
         t0 = time.perf_counter()
         rc = cli.main(["train", f"2d_{kind}", f"trainer.total_steps={steps}",
@@ -1181,7 +1226,7 @@ def twod_cli_runs(steps=300):
         log(f"cli train 2d_{kind}: {steps} steps and the final evaluation in {sec:.2f} s, "
             f"launches {launched}")
         want = dict.fromkeys(launched, 0)
-        want.update(auction=steps if kind == "sbcfm" else 0, auction_tiled=2)
+        want.update(auction=steps if kind in ("sbcfm", "sf2m") else 0, auction_tiled=2)
         if rc != 0 or launched != want:
             raise AssertionError(f"cli 2d_{kind}: rc {rc}, launches {launched}, expected {want}")
         out[f"cli 2d_{kind}"] = launched
@@ -1241,6 +1286,7 @@ KERNEL_GROUPS = (
     ("GroupNorm kernels (#8 forward, #9 backward)",
      ("gn_silu_fwd_kernel", "gn_silu_bwd_kernel", "gn_silu_wgrad_kernel")),
     ("auction kernels (#5, #6)", ("auction_kernel", "auction_tiled_kernel")),
+    ("flash Sinkhorn (#7)", ("flash_sinkhorn_kernel",)),
     ("attention kernels (#1, #2, #3, #4: their stages share code)",
      ("mma_gemm_kernel", "attention_mma_kernel", "gn_stats_kernel", "round_transpose_kernel",
       "attention_kernel", "gemm_kernel", "bmma_kernel", "fgemm_kernel", "softmax_rows_kernel",
@@ -1398,6 +1444,9 @@ def profile_train_step(trainer, ms_per_step, steps=3):
         f"recorded calls; the largest:")
     for e in ops[:10]:
         log(f"  {e.self_cpu_time_total / steps / 1e3:9.3f} ms x{e.count // steps:<5d} {e.key[:80]}")
+    waits = {k: sum(e.count for e in ops if e.key == k) / steps
+             for k in ("cudaStreamSynchronize", "cudaMemcpyAsync", "cudaDeviceSynchronize")}
+    log(f"  per step (the window's closing synchronize included): {waits}")
 
 
 def imagenet_generation(model):
@@ -1502,6 +1551,237 @@ def imagenet_training(model, warmup=3, profiled=3):
     return launches
 
 
+def sinkhorn_clouds(n, m, d, seed):
+    """Centred f32 clouds: at d = 2 the 2d_sf2m path's, n points of 8
+    Gaussians against m of moons; otherwise two Gaussian clouds."""
+    import torch
+    from cfm_tpu_torch.data.toy import eight_gaussians, sample_moons
+    from cfm_tpu_torch.ops import flash_sinkhorn as fs
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if d == 2:
+        x, y = eight_gaussians(g, n), sample_moons(g, m)
+    else:
+        x = torch.randn(n, d, generator=g, device="cuda")
+        y = torch.randn(m, d, generator=g, device="cuda") * 1.3 + 0.5
+    return fs._center(x, y)
+
+
+def implied_row_error_f64(x, y, f, g, loga, reg):
+    """sum_i |sum_j pi_ij - a_i| of the plan pi_ij = exp((f_i + g_j - c_ij) /
+    reg), from the f32 potentials in f64 (for the log: the loop's f32
+    statistic is about 1e-7 away at n = 1000-2048)."""
+    import torch
+
+    x, y, f, g, loga = (v.double() for v in (x, y, f, g, loga))
+    c = x.square().sum(1)[:, None] + y.square().sum(1)[None, :] - 2.0 * x @ y.T
+    lse = torch.logsumexp((g[None, :] - c) / reg, dim=1) + f / reg
+    return float((lse.exp() - loga.exp()).abs().sum())
+
+
+def check_flash_sinkhorn():
+    """Phase 3: flash Sinkhorn (#7) against its plain version on the card at
+    FLASH_CASES. After a fixed 50 iterations (tol 0) f and g agree within
+    1e-4 |ref| + 1e-5 reg element-wise. At tol 1e-6 (cap FLASH_CAP) the two
+    stop within one iteration of each other (the kernel checks every
+    iteration, as the plain version does) and, when they stop before the
+    cap, each implied plan meets the tolerance by the plain version's f32
+    stopping statistic (``flash_row_error``; its f64 value is logged). A
+    rerun gives the same bits (the kernel sums the error in a fixed order).
+    Returns the largest |f - f_ref|, |g - g_ref| after 50 iterations."""
+    import numpy as np
+    import torch
+    from cfm_tpu_torch.ops import flash_sinkhorn as fs
+
+    fn, worst = fs.flash_sinkhorn, 0.0
+    for n, m, d, reg, weighted, what in FLASH_CASES:
+        x, y = sinkhorn_clouds(n, m, d, seed=n + d)
+        w = torch.from_numpy(np.random.default_rng(n).uniform(0.5, 1.5, n).astype(np.float32))
+        la = torch.log((w / w.sum()) if weighted else torch.full((n,), 1.0 / n)).cuda()
+        lb = torch.full((m,), 1.0 / m, device="cuda").log()
+        f, g = fn(x, y, la, lb, reg, 50, 0.0)
+        torch.cuda.synchronize()
+        k_it = int(fn.last_iters.item())
+        fr, gr, p_it = fs.flash_sinkhorn_reference(x, y, la, lb, reg, 50, 0.0)
+        ratio = max(((f - fr).abs() / (1e-4 * fr.abs() + 1e-5 * reg)).max().item(),
+                    ((g - gr).abs() / (1e-4 * gr.abs() + 1e-5 * reg)).max().item())
+        err = max((f - fr).abs().max().item(), (g - gr).abs().max().item())
+        worst = max(worst, err)
+        line = (f"flash sinkhorn ({n}, {m}, d={d}) reg {reg}, {what}: 50 iterations "
+                f"({k_it} and {p_it}): max |df|, |dg| {err:.3e}, {ratio:.3f} of the tolerance")
+        if k_it != 50 or p_it != 50 or not ratio <= 1.0:
+            raise AssertionError(line)
+        f, g = fn(x, y, la, lb, reg, FLASH_CAP, FLASH_TOL)
+        f2, g2 = fn(x, y, la, lb, reg, FLASH_CAP, FLASH_TOL)
+        torch.cuda.synchronize()
+        k_it = int(fn.last_iters.item())
+        fr, gr, p_it = fs.flash_sinkhorn_reference(x, y, la, lb, reg, FLASH_CAP, FLASH_TOL)
+        ek, ep = (float(fs.flash_row_error(x, y, a, b, la, reg)) for a, b in ((f, g), (fr, gr)))
+        ek64, ep64 = (implied_row_error_f64(x, y, a, b, la, reg) for a, b in ((f, g), (fr, gr)))
+        line += (f"; tol {FLASH_TOL}: stops at {k_it} (kernel) and {p_it} (plain), implied row "
+                 f"errors {ek:.3e} and {ep:.3e} (f64: {ek64:.3e} and {ep64:.3e}), rerun "
+                 f"identical {torch.equal(f, f2)}")
+        if abs(k_it - p_it) > 1 or not (torch.equal(f, f2) and torch.equal(g, g2)):
+            raise AssertionError(line)
+        if max(k_it, p_it) < FLASH_CAP and not max(ek, ep) <= FLASH_TOL:
+            raise AssertionError(line)
+        log(line)
+    return worst
+
+
+def time_flash_sinkhorn():
+    """Phase 4: #7 at the 2d_sf2m path's shape and reg (2048 8-Gaussian
+    points against 2048 moons points, tol 1e-6), the wrapper's time by CUDA
+    events, beside one run of the plain version (host clock) and the bound:
+    this run's iterations x 3 passes x n m entries x flash_ops(d) over the
+    f32 rate, against the clouds, marginals and potentials (bytes) over the
+    HBM rate. No single PyTorch call computes these potentials."""
+    import torch
+    from cfm_tpu_torch.ops import flash_sinkhorn as fs
+
+    n = m = 2048
+    d, fn = 2, fs.flash_sinkhorn
+    x, y = sinkhorn_clouds(n, m, d, seed=41)
+    la = torch.full((n,), 1.0 / n, device="cuda").log()
+    lb = torch.full((m,), 1.0 / m, device="cuda").log()
+    ms = cuda_ms(lambda: fn(x, y, la, lb, SF2M_REG, FLASH_CAP, FLASH_TOL), iters=20, warmup=3)
+    iters = int(fn.last_iters.item())
+    t0 = time.perf_counter()
+    _, _, p_it = fs.flash_sinkhorn_reference(x, y, la, lb, SF2M_REG, FLASH_CAP, FLASH_TOL)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ops_s = iters * 3 * n * m * flash_ops(d) / PEAK_F32_FLOPS
+    bytes_s = 4 * ((n + m) * d + 2 * (n + m)) / PEAK_BYTES
+    bound_ms = max(ops_s, bytes_s) * 1e3
+    by = "operations" if ops_s >= bytes_s else "bytes"
+    log(f"flash sinkhorn timing ({n}, {m}, d={d}) reg {SF2M_REG} tol {FLASH_TOL}: kernel "
+        f"{ms:.4f} ms for {iters} iterations ({1e3 * ms / iters:.2f} us each); plain {plain_ms:.1f} "
+        f"ms ({p_it} iterations; a host read each); bound {bound_ms:.4f} ms by {by} "
+        f"({flash_ops(d)} operations an entry, 3 passes an iteration); library: none")
+    # The same 100 iterations (tol 0) at 2048 and at 256 points: a 64th of the
+    # entries at 256, so its time per iteration is the floor the three grid
+    # barriers, the launch and the per-row warp reductions set.
+    for k in (2048, 256):
+        xs, ys = sinkhorn_clouds(k, k, d, seed=42)
+        lk = torch.full((k,), 1.0 / k, device="cuda").log()
+        t = cuda_ms(lambda: fn(xs, ys, lk, lk, SF2M_REG, 100, 0.0), iters=10, warmup=2)
+        log(f"  100 iterations at n = m = {k}: {t:.4f} ms, {10 * t:.2f} us an iteration")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=None)
+
+
+def sync_free_steps():
+    """Phase 15: one 2d_otcfm step and one 2d_sf2m step on the flash route,
+    data draw included, under set_sync_debug_mode("error"), after three
+    warm-up steps: any host synchronisation raises and fails the run."""
+    import torch
+    from cfm_tpu_torch.config import load_config
+    from cfm_tpu_torch.trainer import Trainer
+
+    for preset, overrides in (("2d_otcfm", ["trainer.ckpt_interval=0"]), ("2d_sf2m", SF2M)):
+        trainer = Trainer(load_config(preset, overrides))
+        for _ in range(3):
+            trainer.step_fn(trainer.state, *trainer._vectors(), generator=trainer.generator)
+        torch.cuda.synchronize()
+        before = read_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            x0, x1 = trainer._vectors()
+            metrics = trainer.step_fn(trainer.state, x0, x1, generator=trainer.generator)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in read_counts().items() if v != before[k]}
+        want = {"flash_sinkhorn": 1} if preset == "2d_sf2m" else {"auction": 1}
+        log(f"{preset} step (batch {trainer.cfg.data.batch_size}) with its data draw under "
+            f"set_sync_debug_mode('error'): no synchronisation; loss "
+            f"{float(metrics['loss']):.5f}, launches {launched}")
+        if launched != want:
+            raise AssertionError(f"{preset} sync-free step launches {launched}, expected {want}")
+
+
+def sf2m_training():
+    """Phase 16: ``Trainer`` on ``2d_sf2m`` with the entropic coupling at
+    batch 2048. Returns the launch counts of the SF2M_STEPS steps and their
+    evaluation."""
+    import numpy as np
+    import torch
+    from cfm_tpu_torch.config import load_config
+    from cfm_tpu_torch.ops import flash_sinkhorn as fs
+    from cfm_tpu_torch.trainer import Trainer
+
+    cfg = load_config("2d_sf2m", SF2M + ["trainer.log_interval=100000", "trainer.eval_interval=0"])
+    trainer = Trainer(cfg)
+    untrained = trainer.evaluate()
+    trainer.fit(SF2M_WARMUP)
+    total = SF2M_WARMUP + SF2M_STEPS
+    cfg.trainer.eval_interval = total  # one evaluation, at the end of the timed run
+    step_fn, recorded = trainer.step_fn, []
+
+    def recording_step(*args, **kwargs):
+        metrics = step_fn(*args, **kwargs)
+        recorded.append((metrics, fs.flash_sinkhorn.last_iters))
+        return metrics
+
+    trainer.step_fn = recording_step
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer.fit(total)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = read_counts()
+    trainer.step_fn = step_fn
+    ev = trainer.eval_log[-1]
+    ms = 1e3 * (sec - ev["seconds"]) / SF2M_STEPS
+    keys = ("flow_loss", "score_loss", "coupling_degenerate")
+    vals = {k: np.array([float(mt[k]) for mt, _ in recorded]) for k in keys}
+    iters = np.array([int(it.item()) for _, it in recorded])
+    log(f"training 2d_sf2m (entropic coupling, reg {SF2M_REG}, batch 2048): {SF2M_STEPS} steps and "
+        f"one evaluation in {sec:.3f} s; {ms:.3f} ms per step without the evaluation; launches "
+        f"{launches}; flash Sinkhorn iterations per solve mean {iters.mean():.1f} min "
+        f"{iters.min()} max {iters.max()}")
+    log(f"  flow_loss first {vals['flow_loss'][0]:.4f} last {vals['flow_loss'][-1]:.4f}; "
+        f"score_loss first {vals['score_loss'][0]:.4f} last {vals['score_loss'][-1]:.4f}; "
+        f"coupling_degenerate sum {vals['coupling_degenerate'].sum():.0f}")
+    log(f"  evaluation at step {ev['step']}: W1 {ev['w1']:.6f} W2 {ev['w2']:.6f} NFE "
+        f"{ev['nfe']:.0f}, {ev['seconds']:.3f} s; the untrained flow: W1 {untrained['w1']:.6f} "
+        f"W2 {untrained['w2']:.6f}")
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_sinkhorn=SF2M_STEPS, auction_tiled=2)
+    if launches != want or len(recorded) != SF2M_STEPS:
+        raise AssertionError(f"2d_sf2m launches {launches}, expected {want}")
+    if vals["coupling_degenerate"].any() or not all(np.isfinite(v).all() for v in vals.values()):
+        raise AssertionError(f"2d_sf2m: degenerate couplings or non-finite losses {vals}")
+    if not ev["w2"] < untrained["w2"] or ev["nfe"] != 100:
+        raise AssertionError(f"2d_sf2m: final W2 {ev['w2']} vs the untrained {untrained['w2']}")
+    profile_train_step(trainer, ms)
+    return launches
+
+
+def wasserstein_sinkhorn():
+    """Phase 17: the entropic W2 of 2048 8-Gaussian points against 2048 moons
+    points at reg 2: on the card through #7 (one launch), on the CPU through
+    the dense Sinkhorn, within 1e-4 relative."""
+    import torch
+    from cfm_tpu_torch.coupling import wasserstein
+    from cfm_tpu_torch.data.toy import eight_gaussians, sample_moons
+
+    g = torch.Generator(device="cuda").manual_seed(43)
+    x0, x1 = eight_gaussians(g, 2048), sample_moons(g, 2048)
+    zero_counts()
+    w_card = float(wasserstein(x0, x1, method="sinkhorn", reg=SF2M_REG, power=2))
+    launched = read_counts()
+    t0 = time.perf_counter()
+    w_cpu = float(wasserstein(x0.cpu(), x1.cpu(), method="sinkhorn", reg=SF2M_REG, power=2))
+    log(f"wasserstein(method='sinkhorn', reg {SF2M_REG}, power 2) at 2048 points: card {w_card:.7f} "
+        f"(launches {launched}), CPU {w_cpu:.7f} ({time.perf_counter() - t0:.1f} s)")
+    want = dict.fromkeys(launched, 0)
+    want["flash_sinkhorn"] = 1
+    if launched != want or not abs(w_card - w_cpu) <= 1e-4 * w_cpu:
+        raise AssertionError(f"sinkhorn W2: card {w_card} ({launched}) vs CPU {w_cpu}")
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -1535,6 +1815,7 @@ def main() -> int:
     check_auction_tiled()
     gn_paths = record_gn_shapes(imagenet)
     err_gn = check_gn(gn_paths)
+    err_flash = check_flash_sinkhorn()
     time_attn_block(GEN_BATCH)
     time_attn_block(IMAGENET_BATCH, S=64, C=768, H=12)
     timing = time_attn_block(TRAIN_BATCH)
@@ -1544,6 +1825,7 @@ def main() -> int:
     timing_auction = time_auction()
     timing_tiled = time_auction_tiled()
     timing_gn = time_gn(gn_paths["cifar10 training"])
+    timing_flash = time_flash_sinkhorn()
     check_small_generation(SMALL)
     check_small_generation(IMAGENET_SMALL)
     check_small_train_step(SMALL)
@@ -1569,6 +1851,9 @@ def main() -> int:
     launches["imagenet64 training"] = imagenet_training(imagenet)
     launches["2d_otcfm training"] = twod_training()
     launches.update(twod_cli_runs())
+    sync_free_steps()
+    launches["2d_sf2m training"] = sf2m_training()
+    launches["sinkhorn wasserstein"] = wasserstein_sinkhorn()
     total = {k: sum(run[k] for run in launches.values()) for k in kernel_fns()}
     log(f"launches by path {launches}; summed {total}")
 
@@ -1595,6 +1880,8 @@ def main() -> int:
         dict(name="gn_silu_bwd", route="cuda", source=src + "groupnorm.cu",
              replaces="cfm_tpu/ops/pallas_groupnorm.py:88", max_abs_err=err_gn["dx"],
              **timing_gn["gn_silu_bwd"]),
+        dict(name="flash_sinkhorn", route="cuda", source=src + "flash_sinkhorn.cu",
+             replaces="cfm_tpu/ops/flash_sinkhorn.py:54", max_abs_err=err_flash, **timing_flash),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

@@ -1,9 +1,12 @@
-"""The port's exact OT coupling and matchers (cfm_tpu_torch/coupling.py,
-paths.py, ops/cost.py, utils.py) against JAX, on shared numpy inputs.
+"""The port's OT coupling and matchers (cfm_tpu_torch/coupling.py, paths.py,
+ops/cost.py, utils.py) against JAX, on shared numpy inputs.
 
-Plans must be equal when both sides solve with the same algorithm, and the
-plan-sampling indices equal when the port is handed JAX's own uniforms; the
-batch is a power of two so that the CDF of the 1/n plan is exact in f32.
+Exact plans must be equal when both sides solve with the same algorithm,
+and the plan-sampling indices equal when the port is handed JAX's own
+uniforms; the batch is a power of two so that the CDF of the 1/n plan is
+exact in f32. The entropic, unbalanced, partial and general-marginal plans
+agree within rtol 1e-4, atol 1e-7, and the flash route's pairs are equal
+given the Gumbel noise and fallback partners JAX draws from its key.
 """
 
 import numpy as np
@@ -124,13 +127,162 @@ def test_degenerate_plan_falls_back_to_uniform_and_flags_it(monkeypatch):
 
 
 def test_unported_methods_and_marginals_raise():
+    """An unknown method still raises. The entropic methods and the exact
+    plan between batches of unequal sizes, which raised before the entropic
+    branch was ported, now build and match JAX (the exact plan to 1e-6: both
+    are the unique LP optimum, from a network simplex or HiGHS)."""
+    import jax.numpy as jnp
+
+    from cfm_tpu.coupling import OTPlanSampler
+
     with pytest.raises(ValueError, match="Unknown method"):
         tcp.OTPlanSampler("simplex")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tcp.OTPlanSampler("sinkhorn")
-    x0, x1 = (torch.from_numpy(a) for a in _clouds(4, seed=6))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tcp.OTPlanSampler("exact").get_map(x0, x1[:3])
+    s = tcp.OTPlanSampler("sinkhorn")
+    assert (s.reg, s.reg_m, s.num_iters, s.flash) == (0.05, 1.0, 1000, None)
+    x0, x1 = _clouds(4, seed=6)
+    ref = OTPlanSampler("exact").get_map(jnp.asarray(x0), jnp.asarray(x1[:3]))
+    plan = tcp.OTPlanSampler("exact").get_map(torch.from_numpy(x0), torch.from_numpy(x1[:3]))
+    np.testing.assert_allclose(plan.numpy(), np.asarray(ref), atol=1e-6)
+
+
+def _plan_clouds(n, m, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, 2)).astype(np.float32),
+            (rng.standard_normal((m, 2)) * 1.2 + 1.0).astype(np.float32))
+
+
+@pytest.mark.parametrize("method", ["exact", "sinkhorn", "unbalanced", "partial"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_get_map_of_every_method_matches_jax(method, weighted):
+    """At n = 48, m = 40 (and weighted marginals): the plan within rtol 1e-4,
+    atol 1e-7, the same degenerate flag."""
+    import jax.numpy as jnp
+
+    from cfm_tpu.coupling import OTPlanSampler
+
+    n, m = 48, 40
+    x0, x1 = _plan_clouds(n, m, seed=20)
+    rng = np.random.default_rng(21)
+    a, b = (rng.uniform(0.5, 1.5, k).astype(np.float32) for k in (n, m))
+    a, b = a / a.sum(), b / b.sum()
+    kw = dict(reg=0.5, reg_m=(1.0, 2.0))
+    ja = dict(a=jnp.asarray(a), b=jnp.asarray(b)) if weighted else {}
+    ta = dict(a=torch.from_numpy(a), b=torch.from_numpy(b)) if weighted else {}
+    ref, bad_ref = OTPlanSampler(method, **kw).get_map(jnp.asarray(x0), jnp.asarray(x1),
+                                                       return_status=True, **ja)
+    plan, bad = tcp.OTPlanSampler(method, **kw).get_map(torch.from_numpy(x0),
+                                                        torch.from_numpy(x1),
+                                                        return_status=True, **ta)
+    np.testing.assert_allclose(plan.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-7)
+    assert bool(bad) == bool(bad_ref) is False
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_sinkhorn_sample_plan_matches_jax_on_both_routes(flash):
+    """flash=False: pairs from the dense plan by JAX's uniforms; flash=True
+    (on the CPU the potentials come from the dense twin): x0 in order and
+    one partner per row by Gumbel-max with the noise JAX draws from its
+    sampling key. The same pairs either way."""
+    import jax
+    import jax.numpy as jnp
+
+    from cfm_tpu.coupling import OTPlanSampler
+
+    n = 64
+    x0, x1 = _plan_clouds(n, n, seed=22)
+    key = jax.random.PRNGKey(23)
+    js = OTPlanSampler("sinkhorn", reg=0.5, flash=flash)
+    a_ref, b_ref, bad_ref = js.sample_plan(key, jnp.asarray(x0), jnp.asarray(x1),
+                                           return_status=True)
+    ts = tcp.OTPlanSampler("sinkhorn", reg=0.5, flash=flash)
+    if flash:
+        ks, ku = jax.random.split(key)
+        draws = dict(gumbel=torch.from_numpy(np.array(jax.random.gumbel(
+                         jax.random.split(ks, 1)[0], (n, n)))),
+                     uniform_j=torch.from_numpy(np.array(jax.random.randint(ku, (n,), 0, n))))
+    else:
+        draws = dict(noise=torch.from_numpy(np.array(jax.random.uniform(key, (n,)))))
+    a, b, bad = ts.sample_plan(None, torch.from_numpy(x0), torch.from_numpy(x1),
+                               return_status=True, **draws)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(a_ref))
+    np.testing.assert_array_equal(b.numpy(), np.asarray(b_ref))
+    assert bool(bad) == bool(bad_ref) is False
+    if flash:
+        assert torch.equal(a, torch.from_numpy(x0))
+
+
+def test_flash_route_falls_back_to_uniform_partners_like_jax():
+    """A solve cut at 2 iterations at a small reg misses its row masses by
+    far more than half: both packages flag it and pair each row with the
+    fallback's uniform partner."""
+    import jax
+    import jax.numpy as jnp
+
+    from cfm_tpu.coupling import OTPlanSampler
+
+    n = 32
+    x0, x1 = _plan_clouds(n, n, seed=24)
+    key = jax.random.PRNGKey(25)
+    _, b_ref, bad_ref = OTPlanSampler("sinkhorn", reg=0.01, num_iters=2, flash=True).sample_plan(
+        key, jnp.asarray(x0), jnp.asarray(x1), return_status=True)
+    ks, ku = jax.random.split(key)
+    uj = np.array(jax.random.randint(ku, (n,), 0, n))
+    _, b, bad = tcp.OTPlanSampler("sinkhorn", reg=0.01, num_iters=2, flash=True).sample_plan(
+        None, torch.from_numpy(x0), torch.from_numpy(x1), return_status=True,
+        gumbel=torch.zeros(n, n), uniform_j=torch.from_numpy(uj))
+    assert bool(bad) and bool(bad_ref)
+    np.testing.assert_array_equal(b.numpy(), np.asarray(b_ref))
+    np.testing.assert_array_equal(b.numpy(), x1[uj])
+
+
+def test_flash_route_is_taken_only_where_jax_takes_it():
+    """Auto-routing: never on the CPU (JAX's CPU run never does either); on
+    the card for sinkhorn at 2048^2 entries and above within the point
+    budget; never for another method, without replacement or with a
+    normalised cost."""
+    s = tcp.OTPlanSampler("sinkhorn")
+    cpu = torch.zeros(2048, 2)
+    assert not s._use_flash(cpu, cpu)
+    assert tcp._flash_route(2048, 2048, 2, "cuda") and not tcp._flash_route(1024, 2048, 2, "cuda")
+    assert not tcp._flash_route(2048, 2048, 3072, "cuda")  # 4 d (n + m) over 8 MiB
+    assert tcp.OTPlanSampler("sinkhorn", flash=True)._use_flash(cpu, cpu)
+    assert not tcp.OTPlanSampler("sinkhorn", flash=True)._use_flash(cpu, cpu, replace=False)
+    assert not tcp.OTPlanSampler("exact", flash=True)._use_flash(cpu, cpu)
+    assert not tcp.OTPlanSampler("sinkhorn", flash=True, normalize_cost=True)._use_flash(cpu, cpu)
+
+
+def test_sbcfm_entropic_coupled_sampling_matches_jax_given_its_draws():
+    """SB-CFM with the entropic coupling on the flash route (forced: on the
+    CPU the potentials come from the dense twin): handed the Gumbel noise,
+    the fallback partners, t and eps JAX draws from its key, the port gives
+    JAX's t, xt, ut and eps (1e-6)."""
+    import jax
+    import jax.numpy as jnp
+
+    from cfm_tpu.paths import SchrodingerBridgeConditionalFlowMatcher as JSB
+
+    n, sigma = 64, 0.8
+    x0, x1 = _plan_clouds(n, n, seed=26)
+    jm, tm = JSB(sigma, ot_method="sinkhorn"), tpa.SchrodingerBridgeConditionalFlowMatcher(
+        sigma, ot_method="sinkhorn")
+    jm.ot_sampler.flash = tm.ot_sampler.flash = True
+    key = jax.random.PRNGKey(27)
+    ref = jm.sample_location_and_conditional_flow(key, jnp.asarray(x0), jnp.asarray(x1),
+                                                  return_noise=True, return_coupling_status=True)
+    plan_key, path_key = jax.random.split(key)
+    ks, ku = jax.random.split(plan_key)
+    t_key, eps_key = jax.random.split(path_key)
+    arr = lambda v: torch.from_numpy(np.array(v))  # noqa: E731
+    out = tm.sample_location_and_conditional_flow(
+        None, torch.from_numpy(x0), torch.from_numpy(x1), return_noise=True,
+        return_coupling_status=True, t=arr(jax.random.uniform(t_key, (n,))),
+        eps=arr(jax.random.normal(eps_key, (n, 2))),
+        gumbel=arr(jax.random.gumbel(jax.random.split(ks, 1)[0], (n, n))),
+        uniform_j=arr(jax.random.randint(ku, (n,), 0, n)))
+    assert tm.ot_sampler._use_flash(torch.from_numpy(x0), torch.from_numpy(x1))
+    for got, want in zip(out[:4], ref[:4]):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+    assert bool(out[4]) == bool(ref[4]) is False
 
 
 def test_icfm_path_matches_jax_given_t_and_eps():

@@ -2,7 +2,7 @@
 train_mnist.py) on the CPU, at a tiny configuration: it trains with finite
 losses, unconditionally and class-conditionally, generates from the EMA
 parameters, refuses what is not ported yet (the mesh, checkpoints,
-the image branch's evaluation, the score head, unknown presets and sets),
+the image branch's evaluation, SDE evaluation, unknown presets and sets),
 and nothing runs on the CPU unless asked for.
 """
 
@@ -27,7 +27,7 @@ def test_config_presets_and_overrides_match_jax():
     from cfm_tpu.config import available_presets
     from cfm_tpu.config import load_config as jload
 
-    assert tcfg.available_presets() == [p for p in available_presets() if p != "2d_sf2m"]
+    assert tcfg.available_presets() == available_presets()
     for name in tcfg.available_presets():
         cfg, ref = tcfg.load_config(name), jload(name)
         assert cfg.name == ref.name
@@ -45,8 +45,12 @@ def test_config_presets_and_overrides_match_jax():
         tcfg.load_config("cifar10_otcfm", ["optim.lr"])
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         tcfg.load_config("configs/2d_otcfm.yaml")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tcfg.load_config("2d_sf2m")
+    # 2d_sf2m, refused before the score head was ported, loads as JAX's does,
+    # and takes the entropic coupling at batch 2048 by override.
+    cfg = tcfg.load_config("2d_sf2m", ["matcher.ot_method=sinkhorn", "data.batch_size=2048"])
+    ref = jload("2d_sf2m", ["matcher.ot_method=sinkhorn", "data.batch_size=2048"])
+    assert cfg.matcher.__dict__ == ref.matcher.__dict__ and cfg.data.__dict__ == ref.data.__dict__
+    assert cfg.eval.sde is ref.eval.sde is False
 
 
 @pytest.mark.parametrize("matcher", ["otcfm", "icfm"])
@@ -85,13 +89,33 @@ def test_trainer_refuses_what_is_not_ported(monkeypatch):
     with pytest.raises(NotImplementedError, match="data-parallel mesh"):
         ttrn.Trainer(tcfg.load_config("cifar10_otcfm", TINY), device="cpu")
     for override, error, match in (
-            (["matcher.score_head=True"], NotImplementedError, "queue 1 item 6"),
+            (["matcher.score_head=True", "eval.sde=True"], NotImplementedError,
+             "queue 1 item 2"),
             (["model.class_cond=True", "matcher.kind='icfm'"], ValueError,
              "class-conditional training needs a coupled matcher"),
             (["data.dataset='nope'"], ValueError, "Unknown 2D dataset")):
         cfg = tcfg.load_config("cifar10_otcfm", TINY + ["trainer.data_parallel=False"] + override)
         with pytest.raises(error, match=match):
             ttrn.Trainer(cfg, device="cpu")
+
+
+def test_trainer_trains_a_unet_score_head():
+    """With ``matcher.score_head`` on the image branch the score model is a
+    second UNet of the same configuration with weights of its own; one step
+    reports the score loss and moves both heads."""
+    cfg = tcfg.load_config("cifar10_sbcfm", TINY + ["matcher.score_head=True", "model.bf16=False",
+                                                    "model.dropout=0.0", "matcher.sigma=0.5"])
+    trainer = ttrn.Trainer(cfg, device="cpu")
+    n_flow = len(list(trainer.model.parameters()))
+    assert len(trainer.state.params) == 2 * n_flow
+    before = [p.detach().clone() for p in trainer.state.params]
+    assert not all(torch.equal(a, b) for a, b in zip(before[:n_flow], before[n_flow:]))
+    x0, x1 = trainer._prep(trainer._batch()[0])
+    metrics = trainer.step_fn(trainer.state, x0, x1, generator=trainer.generator)
+    assert {"loss", "flow_loss", "score_loss", "grad_norm"} <= set(metrics)
+    assert torch.isclose(metrics["loss"], metrics["flow_loss"] + metrics["score_loss"])
+    moved = [not torch.equal(a, b) for a, b in zip(before, trainer.state.params)]
+    assert any(moved[:n_flow]) and any(moved[n_flow:])
 
 
 def test_resolve_device_without_a_card_raises(monkeypatch):

@@ -142,8 +142,20 @@ def test_sbcfm_refusals_match_jax():
             tpa.SchrodingerBridgeConditionalFlowMatcher(sigma)
     with pytest.warns(UserWarning, match="Small sigma"):
         tpa.SchrodingerBridgeConditionalFlowMatcher(1e-4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tpa.SchrodingerBridgeConditionalFlowMatcher(1.0, ot_method="sinkhorn")
+    # The entropic coupling, refused before the entropic branch was ported,
+    # builds as in JAX: reg = 2 sigma^2.
+    sb = tpa.SchrodingerBridgeConditionalFlowMatcher(1.0, ot_method="sinkhorn")
+    assert sb.ot_sampler.method == JSB(1.0, ot_method="sinkhorn").ot_sampler.method == "sinkhorn"
+
+
+@pytest.mark.parametrize("sigma", [0.1, 0.5, 1.0, 2.0])
+def test_sbcfm_entropic_reg_is_two_sigma_squared_as_in_jax(sigma):
+    from cfm_tpu.paths import SchrodingerBridgeConditionalFlowMatcher as JSB
+
+    for method in ("sinkhorn", "exact"):
+        port = tpa.SchrodingerBridgeConditionalFlowMatcher(sigma=sigma, ot_method=method)
+        assert port.ot_sampler.reg == 2 * sigma ** 2
+        assert port.ot_sampler.reg == JSB(sigma=sigma, ot_method=method).ot_sampler.reg
 
 
 @pytest.mark.parametrize("power", [1, 2])
@@ -162,10 +174,15 @@ def test_wasserstein_matches_jax(power):
     tiled = tcp.wasserstein(torch.from_numpy(a), torch.from_numpy(b), power=power,
                             solver="pallas_tiled")  # the plain version of the card's kernel
     np.testing.assert_allclose(float(tiled), ref, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tcp.wasserstein(torch.from_numpy(a), torch.from_numpy(b[:100]), power=power)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tcp.wasserstein(torch.from_numpy(a), torch.from_numpy(b), method="sinkhorn")
+    # Unequal sizes (the exact general-marginal plan) and the entropic cost,
+    # refused before the entropic branch was ported, match JAX.
+    ref = float(jw(jnp.asarray(a), jnp.asarray(b[:100]), power=power))
+    out = tcp.wasserstein(torch.from_numpy(a), torch.from_numpy(b[:100]), power=power)
+    np.testing.assert_allclose(float(out), ref, rtol=1e-5)
+    ref = float(jw(jnp.asarray(a), jnp.asarray(b), method="sinkhorn", reg=0.5, power=power))
+    out = tcp.wasserstein(torch.from_numpy(a), torch.from_numpy(b), method="sinkhorn", reg=0.5,
+                          power=power)
+    np.testing.assert_allclose(float(out), ref, rtol=1e-5)
     with pytest.raises(ValueError):
         tcp.wasserstein(torch.from_numpy(a), torch.from_numpy(b), power=3)
 
@@ -261,6 +278,99 @@ def test_2d_otcfm_step_matches_jax_make_train_step():
         np.testing.assert_allclose(e.numpy(), ema[name].numpy(), atol=1e-6, err_msg=name)
 
 
+def test_2d_sf2m_step_matches_jax_make_train_step():
+    """One ``2d_sf2m`` step with the entropic coupling at batch 128 (the dense
+    Sinkhorn route in both packages on the CPU) and a score head, against
+    JAX's ``make_train_step(score_apply_fn=...)`` on the converted
+    ``{"flow", "score"}`` pair: the plan uniforms, t and eps are JAX's
+    draws; loss, flow and score loss within 1e-5 relative, both heads'
+    updated parameters and the EMA within 1e-6. The clip, Adam and EMA span
+    both heads."""
+    import jax
+    import jax.numpy as jnp
+
+    from cfm_tpu import paths as jpa
+    from cfm_tpu import train as jtr
+    from cfm_tpu_torch import train as ttr
+    from cfm_tpu_torch.models.convert import mlp_pair_params_from_flax
+
+    B, lr, decay, sigma = 128, 2e-3, 0.99, 1.0
+    rng = np.random.default_rng(16)
+    x0 = rng.standard_normal((B, 2)).astype(np.float32) * 2
+    x1 = (rng.standard_normal((B, 2)) * 0.5 + 1).astype(np.float32)
+    m, flow = _flax_mlp(2, seed=17)
+    _, score = _flax_mlp(2, seed=18)
+    params = {"flow": flow, "score": score}
+    jopt = jtr.make_optimizer(lr=lr, warmup_steps=0, grad_clip=1.0)
+    jstep = jtr.make_train_step(jpa.SchrodingerBridgeConditionalFlowMatcher(
+        sigma, ot_method="sinkhorn"), m.apply, jopt, ema_decay=decay, score_apply_fn=m.apply)
+    key = jax.random.PRNGKey(19)
+    jstate, jmetrics = jstep(jtr.init_train_state(params, jopt), key, jnp.asarray(x0),
+                             jnp.asarray(x1))
+    mkey = jax.random.split(key, 3)[0]
+    plan_key, path_key = jax.random.split(mkey)
+    t_key, eps_key = jax.random.split(path_key)
+    draws = ttr.StepDraws(*(torch.tensor(np.asarray(a)) for a in (
+        jax.random.uniform(t_key, (B,)), jax.random.normal(eps_key, (B, 2)),
+        jax.random.uniform(plan_key, (B,)))))
+
+    flow_sd, score_sd = mlp_pair_params_from_flax(params)
+    model, score_model = MLP(2, device="cpu"), MLP(2, device="cpu")
+    model.load_state_dict(flow_sd)
+    score_model.load_state_dict(score_sd)
+    opt = ttr.make_optimizer(lr=lr, warmup_steps=0, grad_clip=1.0)
+    state = ttr.init_train_state(model, opt, score_model)
+    matcher = tpa.SchrodingerBridgeConditionalFlowMatcher(sigma, ot_method="sinkhorn")
+    assert not matcher.ot_sampler._use_flash(torch.from_numpy(x0), torch.from_numpy(x1))
+    step = ttr.make_train_step(matcher, model, opt, ema_decay=decay, score_model=score_model)
+    metrics = step(state, torch.from_numpy(x0), torch.from_numpy(x1), draws=draws)
+    assert set(metrics) == set(jmetrics)
+    for k in ("loss", "flow_loss", "score_loss", "grad_norm"):
+        np.testing.assert_allclose(float(metrics[k]), float(jmetrics[k]), rtol=1e-5, err_msg=k)
+    assert float(metrics["coupling_degenerate"]) == float(jmetrics["coupling_degenerate"]) == 0.0
+    new = mlp_pair_params_from_flax(jstate.params)
+    ema = mlp_pair_params_from_flax(jstate.ema_params)
+    names = [("flow", n) for n, _ in model.named_parameters()] + [
+        ("score", n) for n, _ in score_model.named_parameters()]
+    assert len(names) == len(state.params) == len(state.ema_params) == 16
+    for (head, name), p, e in zip(names, state.params, state.ema_params):
+        i = 0 if head == "flow" else 1
+        np.testing.assert_allclose(p.detach().numpy(), new[i][name].numpy(), atol=1e-6,
+                                   err_msg=f"{head} {name}")
+        np.testing.assert_allclose(e.numpy(), ema[i][name].numpy(), atol=1e-6,
+                                   err_msg=f"{head} {name}")
+
+
+def test_2d_sf2m_trainer_seeds_the_score_head_apart_and_generates_from_the_flow():
+    """The score MLP has flax's init statistics but not the flow MLP's
+    weights; the optimizer state spans both heads; ``generate`` integrates
+    the flow head's EMA parameters alone."""
+    trainer = ttrn.Trainer(tcfg.load_config("2d_sf2m", ["trainer.total_steps=2",
+                                                        "trainer.ckpt_interval=0",
+                                                        "data.batch_size=32"]), device="cpu")
+    flow, score = trainer.model, trainer.score_model
+    assert isinstance(score, MLP) and score.w == flow.w == 64
+    assert not torch.equal(flow.Dense_1.weight, score.Dense_1.weight)
+    std = score.Dense_1.weight.std().item() * 8  # fan_in 64: lecun std 1/8
+    assert abs(std - 1) < 0.05, std
+    assert len(trainer.state.params) == len(trainer.state.opt_state.mu) == 16
+    trainer.fit()
+    with torch.no_grad():
+        for p, e in zip(score.parameters(), trainer.state.ema_params[8:]):
+            p.copy_(e + 1e3)  # a score head that would wreck any sample it touched
+    g = torch.Generator().manual_seed(0)
+    a = trainer.generate(16, n_steps=2, generator=g).samples
+    ema_flow = MLP(2, device="cpu")
+    for p, e in zip(ema_flow.parameters(), trainer.state.ema_params[:8]):
+        p.data.copy_(e)
+    from cfm_tpu_torch.integrate import odeint, vector_field_from_model
+
+    x0 = trainer._source(torch.Generator().manual_seed(0), 16, "cpu")
+    ref = odeint(vector_field_from_model(ema_flow), x0, np.linspace(0, 1, 3, dtype=np.float32),
+                 method="euler", return_trajectory=False).final
+    assert torch.allclose(a, ref, atol=1e-6)
+
+
 # tests/test_quality_band.py's _run: lr 1e-3, EMA 0.999, sigma 0.1, euler-100,
 # W2 on 1024 points.
 BAND = ["optim.lr=1e-3", "optim.ema_decay=0.999", "matcher.sigma=0.1", "trainer.eval_interval=0",
@@ -313,7 +423,7 @@ def test_2d_trainer_evaluates_every_interval_and_stops_early(capsys):
         trainer.fit(8)
 
 
-@pytest.mark.parametrize("kind", ["icfm", "fm", "sbcfm", "vpcfm"])
+@pytest.mark.parametrize("kind", ["icfm", "fm", "sbcfm", "vpcfm", "sf2m"])
 def test_2d_presets_match_jax_and_train(kind):
     from cfm_tpu.config import load_config as jload
     from cfm_tpu.trainer import build_matcher as jbuild
@@ -330,12 +440,21 @@ def test_2d_presets_match_jax_and_train(kind):
 
 
 def test_2d_sf2m_and_unported_pieces_refuse():
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tcfg.load_config("2d_sf2m")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        ttrn.Trainer(tcfg.load_config("2d_sbcfm", ["matcher.score_head=True"]), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        ttrn.Trainer(tcfg.load_config("2d_sbcfm", ["matcher.ot_method='sinkhorn'"]), device="cpu")
+    """``2d_sf2m``, the score head and the entropic coupling, refused before
+    the entropic branch was ported, now load and train; ``eval.sde`` (SDE
+    generation, item 2) and the checkpoint still refuse."""
+    from cfm_tpu.config import load_config as jload
+
+    cfg = tcfg.load_config("2d_sf2m")
+    assert cfg.matcher == tcfg.MatcherConfig(**jload("2d_sf2m").matcher.__dict__)
+    for override in (["matcher.score_head=True"], ["matcher.ot_method='sinkhorn'"]):
+        trainer = ttrn.Trainer(tcfg.load_config("2d_sbcfm", override + [
+            "trainer.total_steps=2", "trainer.ckpt_interval=0", "data.batch_size=16"]),
+            device="cpu")
+        assert trainer.fit().step == 2
+    assert trainer.matcher.ot_sampler.method == "sinkhorn" and trainer.score_model is None
+    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+        ttrn.Trainer(tcfg.load_config("2d_sf2m", ["eval.sde=True"]), device="cpu")
     trainer = ttrn.Trainer(tcfg.load_config("2d_otcfm"), device="cpu")
     with pytest.raises(NotImplementedError, match="checkpoint falls due at step 5000"):
         trainer.fit()
@@ -355,7 +474,7 @@ def test_funnel_target_gets_a_gaussian_source_of_its_dimension():
 def test_cli_trains_evaluates_and_lists_presets(capsys):
     assert tcli.main(["presets"]) == 0
     listed = capsys.readouterr().out.split()
-    assert "2d_otcfm" in listed and "cifar10_fm" in listed and "2d_sf2m" not in listed
+    assert "2d_otcfm" in listed and "cifar10_fm" in listed and "2d_sf2m" in listed
     assert tcli.main(["train", "2d_vpcfm", "trainer.total_steps=4", "--device", "cpu",
                       "trainer.ckpt_interval=0", "eval.num_eval_samples=32",
                       "eval.ode_steps=2", "trainer.log_interval=2"]) == 0
@@ -364,6 +483,14 @@ def test_cli_trains_evaluates_and_lists_presets(capsys):
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         tcli.main(["eval", "2d_otcfm"])
     assert tcli.main(["bogus"]) == 2
+
+
+def test_cli_trains_2d_sf2m_with_the_entropic_coupling(capsys):
+    assert tcli.main(["train", "2d_sf2m", "matcher.ot_method=sinkhorn", "trainer.total_steps=4",
+                      "trainer.ckpt_interval=0", "data.batch_size=64", "eval.num_eval_samples=32",
+                      "eval.ode_steps=2", "trainer.log_interval=2", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "config: 2d_sbcfm" in out and "params: 17,412" in out and "final eval: {'w1'" in out
 
 
 def test_2d_trainer_without_a_card_raises(monkeypatch):
