@@ -18,6 +18,12 @@
   saves only ``qkv_t``, as the JAX ``custom_vjp`` does, and whose backward is
   :func:`attention_t_bwd` (``csrc/attention_bwd.cu`` on CUDA, counted in
   ``attention_t_bwd.launches``). Nothing falls back.
+- On CUDA, bf16 at head dims 64 and 128 takes the Hopper kernels (TMA and
+  ``wgmma``; they need ``scale > 0``). Their backward is two launches that
+  share a (3, N, H, S) float32 buffer of row statistics (max, sum, delta)
+  the wrapper allocates; no (S, S) scratch. float32 and other head dims take
+  the FMA forward and the staged backward, whose (S, S) scratch the wrapper
+  allocates.
 - :func:`attention` is the (N, S, 3, H, D) -> (N, S, H, D) entry,
   ``fused_attention``'s counterpart: the same kernels between two transposes.
 
@@ -31,6 +37,7 @@ at 4x4 (S = 16) take the plain composition, in both packages.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -46,7 +53,7 @@ def _vmem_bytes(H: int, S: int, D: int, itemsize: int) -> int:
 def gate(H: int, S: int, D: int, dtype: torch.dtype) -> bool:
     """The JAX ``_gate`` without its backend clause: shapes the Pallas
     attention kernel takes."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
+    itemsize = dtype.itemsize
     aligned = S % 128 == 0 and D % 64 == 0
     return aligned and _vmem_bytes(H, S, D, itemsize) <= _VMEM_BUDGET_BYTES
 
@@ -132,17 +139,38 @@ def _dtype_code(t: torch.Tensor) -> int:
     return 0 if t.dtype == torch.float32 else 1
 
 
+def _tensor_core_route(D: int, dtype: torch.dtype) -> bool:
+    """bf16 at head dims 64 and 128 takes the wgmma kernels; float32 and
+    other head dims the FMA forward and the staged backward."""
+    return dtype == torch.bfloat16 and D in (64, 128)
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_limit(index: int) -> int:
+    """Shared memory a block may opt in to on CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).shared_memory_per_block_optin
+
+
+def _check_launch(qkv_t: torch.Tensor, scale: float, smem: int, what: str) -> None:
+    """Raise for shapes outside the kernels' launch limits."""
+    N, _, H, S, D = qkv_t.shape
+    limit = _smem_limit(qkv_t.device.index)
+    tiled = _tensor_core_route(D, qkv_t.dtype)
+    if tiled and not scale > 0:
+        raise ValueError(f"the bf16 attention kernels take scale > 0, got {scale}")
+    if smem > limit or N > 65535 or H > 65535 or (tiled and (S % 64 or 3 * N * H * S >= 2**31)):
+        raise ValueError(f"shape N={N}, H={H}, S={S}, D={D} exceeds the {what} kernel's launch "
+                         f"limits ({smem} B of shared memory, limit {limit}; N, H <= 65535; "
+                         f"bf16 at D = 64, 128: S a multiple of 64, 3 N H S < 2^31)")
+
+
 def _forward(qkv_t: torch.Tensor, scale: float) -> torch.Tensor:
     if qkv_t.device.type == "cpu":
         return attn_reference_t(qkv_t, scale)
     dtype = _dtype_code(qkv_t)
     N, _, H, S, D = qkv_t.shape
     lib = _lib()
-    smem = lib.attention_fwd_smem(S, D, dtype)
-    limit = torch.cuda.get_device_properties(qkv_t.device).shared_memory_per_block_optin
-    if smem > limit or N > 65535 or H > 65535:
-        raise ValueError(f"shape N={N}, H={H}, S={S}, D={D} exceeds the forward kernel's launch "
-                         f"limits ({smem} B of shared memory, limit {limit}; N, H <= 65535)")
+    _check_launch(qkv_t, scale, lib.attention_fwd_smem(S, D, dtype), "forward")
     out = torch.empty((N, H, S, D), device=qkv_t.device, dtype=qkv_t.dtype)
     with torch.cuda.device(qkv_t.device):
         err = lib.attention_fwd(qkv_t.data_ptr(), out.data_ptr(), N, H, S, D, scale, dtype,
@@ -157,8 +185,8 @@ def attention_t_bwd(qkv_t: torch.Tensor, do: torch.Tensor, scale: float) -> torc
     """dqkv_t (N, 3, H, S, D) of :func:`attention_t` at ``qkv_t`` for the
     output gradient ``do`` (N, H, S, D), both contiguous.
 
-    On a CUDA tensor this launches the Hopper backward kernel (and adds one to
-    ``attention_t_bwd.launches``); on a CPU tensor it runs
+    On a CUDA tensor this launches the Hopper backward kernels (and adds one
+    to ``attention_t_bwd.launches``); on a CPU tensor it runs
     :func:`attention_t_bwd_reference`.
     """
     if qkv_t.dim() != 5 or qkv_t.shape[1] != 3 or not qkv_t.is_contiguous():
@@ -171,25 +199,43 @@ def attention_t_bwd(qkv_t: torch.Tensor, do: torch.Tensor, scale: float) -> torc
                          f"{qkv_t.device}, got {tuple(do.shape)} {do.dtype} on {do.device}")
     if qkv_t.device.type == "cpu":
         return attention_t_bwd_reference(qkv_t, do, scale)
-    dtype = _dtype_code(qkv_t)
-    _dtype_code(do)
-    if S % 8 or D % 64 or N * H > 65535:
-        raise ValueError(f"shape N={N}, H={H}, S={S}, D={D} is outside the backward kernel "
-                         f"(S a multiple of 8, D of 64, N * H <= 65535)")
-    lib = _lib_bwd()
-    ws = torch.empty(lib.attention_bwd_workspace(N, H, S), dtype=torch.uint8, device=qkv_t.device)
-    dqkv = torch.empty_like(qkv_t)
-    with torch.cuda.device(qkv_t.device):
-        err = lib.attention_bwd(qkv_t.data_ptr(), do.data_ptr(), dqkv.data_ptr(), ws.data_ptr(),
-                                N, H, S, D, scale, dtype,
-                                torch.cuda.current_stream(qkv_t.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"attention_bwd launch failed: CUDA error {err}")
+    dqkv = _backward(qkv_t, do, scale, split=True)
     attention_t_bwd.launches += 1
     return dqkv
 
 
 attention_t_bwd.launches = 0
+
+
+def _backward(qkv_t: torch.Tensor, do: torch.Tensor, scale: float, split: bool) -> torch.Tensor:
+    """Launch the backward on CUDA tensors :func:`attention_t_bwd` checked.
+    bf16 at D = 64, 128 takes the two fused kernels, with dq and dk as three
+    exact bf16 products (``split``, the wrapper's choice) or on f32 FMA
+    (``split=False``, kept for the A/B timing); otherwise the staged route."""
+    dtype = _dtype_code(qkv_t)
+    _dtype_code(do)
+    N, _, H, S, D = qkv_t.shape
+    lib = _lib_bwd()
+    dqkv = torch.empty_like(qkv_t)
+    stream = torch.cuda.current_stream(qkv_t.device).cuda_stream
+    if _tensor_core_route(D, qkv_t.dtype):
+        _check_launch(qkv_t, scale, lib.attention_bwd_fused_smem(S, D, int(split)), "backward")
+        stats = torch.empty((3, N, H, S), dtype=torch.float32, device=qkv_t.device)
+        with torch.cuda.device(qkv_t.device):
+            err = lib.attention_bwd_fused(qkv_t.data_ptr(), do.data_ptr(), dqkv.data_ptr(),
+                                          stats.data_ptr(), N, H, S, D, scale, int(split), stream)
+    else:
+        if S % 8 or D % 64 or N * H > 65535:
+            raise ValueError(f"shape N={N}, H={H}, S={S}, D={D} is outside the backward kernel "
+                             f"(S a multiple of 8, D of 64, N * H <= 65535)")
+        ws = torch.empty(lib.attention_bwd_workspace(N, H, S), dtype=torch.uint8,
+                         device=qkv_t.device)
+        with torch.cuda.device(qkv_t.device):
+            err = lib.attention_bwd(qkv_t.data_ptr(), do.data_ptr(), dqkv.data_ptr(),
+                                    ws.data_ptr(), N, H, S, D, scale, dtype, stream)
+    if err:
+        raise RuntimeError(f"attention_bwd launch failed: CUDA error {err}")
+    return dqkv
 
 
 def _lib() -> ctypes.CDLL:
@@ -212,5 +258,9 @@ def _lib_bwd() -> ctypes.CDLL:
         lib.attention_bwd_workspace.restype = ctypes.c_size_t
         lib.attention_bwd.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
         lib.attention_bwd.restype = i
+        lib.attention_bwd_fused_smem.argtypes = [i, i, i]
+        lib.attention_bwd_fused_smem.restype = ctypes.c_size_t
+        lib.attention_bwd_fused.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
+        lib.attention_bwd_fused.restype = i
         lib._typed = True
     return lib

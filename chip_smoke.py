@@ -20,7 +20,8 @@ a result:
    bf16), at the CIFAR-10 shapes and at the ImageNet-64 8x8 shape (C = 768,
    12 heads); the multi-head attention forward and backward (#3, #4) at the
    ImageNet-64 training and generation shapes and at others that take other
-   branches; the auction's permutation, which must be identical, on
+   branches, the gate's edges (S = 896 at D = 64, 768 at D = 128) among them,
+   with the bf16 backward's rerun giving the same bits; the auction's permutation, which must be identical, on
    Gaussian, tied, duplicated and rank-1 costs up to n = 512, with its
    assignment cost against scipy's; the tiled auction's (#6) permutation and
    round count, identical to its plain version's, on the four kinds at
@@ -38,7 +39,10 @@ a result:
    both implied plans within the tolerance.
 4. Times each kernel with CUDA events (the attention-block forward at the
    training and the generation batch; the multi-head attention forward and
-   backward at the ImageNet-64 training shape; the GroupNorm kernels at the
+   backward at the ImageNet-64 training shape, in turns with
+   ``F.scaled_dot_product_attention`` and its backward, by device time from
+   the profiler as well, with the backward's FMA variant of dq and dk; the
+   GroupNorm kernels at the
    largest training shape and summed over one training step's 46 calls; the
    tiled auction at n = 1024, 2048 and 4096 on the W1 evaluation cost, with
    its rounds and row scans; flash Sinkhorn at the 2d_sf2m path's shape,
@@ -91,7 +95,7 @@ a result:
     weights, 64 images of 64 labels drawn from the seed, euler at 100
     steps: 7 multi-head attention (#3), 8 attention-block and 87 GroupNorm
     launches per evaluation. Prints images per second, ms per evaluation
-    and the peak memory.
+    and the peak memory; then profiles one evaluation as in 7.
 12. ImageNet-64 training: ``make_train_step`` with exact OT-CFM and the
     labels, bf16, batch 32, dropout 0.1, Adam 1e-4 with the warmup
     schedule, clip 1.0, EMA 0.9999, on random uint8 images and labels put
@@ -163,9 +167,10 @@ IMAGENET_GEN, IMAGENET_BATCH, IMAGENET_STEPS = 64, 32, 20
 # #1, the 32x32 blocks the plain composition.
 IMAGENET_PER_EVAL = dict(attention_fwd=7, attn_block_fwd=8, gn_silu_fwd=87)
 # (N, H, S, D) of the multi-head attention checks: the ImageNet-64 training and
-# generation shapes, the gate's smallest S, a long S, and head dim 128.
+# generation shapes, the gate's smallest S, a long S, head dim 128, and the
+# gate's edges at D = 64 and 128, which take the two-pass routes.
 ATTN_SHAPES = ((IMAGENET_BATCH, 9, 256, 64), (IMAGENET_GEN, 9, 256, 64), (4, 1, 128, 64),
-               (2, 2, 512, 64), (4, 2, 256, 128))
+               (2, 2, 512, 64), (4, 2, 256, 128), (2, 2, 896, 64), (1, 1, 768, 128))
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # abs and rel, kernel vs plain version
 # The backward's weight gradients, relative to each one's max-abs. In bf16 the
 # kernel reads up to 5.8e-4 there and rounding do and ds to bf16 (what feeding
@@ -368,8 +373,10 @@ def attention_inputs(N, H, S, D, dtype, seed=0):
 def check_attention():
     """Phase 3: the multi-head attention forward (#3) and backward (#4, through
     the autograd Function) against their plain versions, element-wise within
-    TOL abs + rel, at ATTN_SHAPES in float32 (TF32 off) and bfloat16. Returns
-    the largest bf16 forward and backward errors at the ImageNet-64 shapes."""
+    TOL abs + rel, at ATTN_SHAPES in float32 (TF32 off) and bfloat16; the
+    bf16 backward called again on the same inputs must give the same bits.
+    Returns the largest bf16 forward and backward errors at the ImageNet-64
+    shapes."""
     import torch
     from cfm_tpu_torch.device import strict_f32
     from cfm_tpu_torch.ops import attention as att
@@ -388,10 +395,11 @@ def check_attention():
                     ref = att.attn_reference_t(qkv, scale)
                     ref_bwd = att.attention_t_bwd_reference(qkv, do, scale)
             torch.cuda.synchronize()
+            gated = att.gate(H, S, D, dtype)  # (2, 2, 896, 64) passes in bf16 only
             if (att.attention_t.launches - launched[0], att.attention_t_bwd.launches
-                    - launched[1]) != (1, 1):
-                raise AssertionError(f"attention at N={N} H={H} S={S} D={D} did not launch "
-                                     f"both kernels once")
+                    - launched[1]) != (int(gated), int(gated)):
+                raise AssertionError(f"attention at N={N} H={H} S={S} D={D} {dtype} launched "
+                                     f"the kernels otherwise than the gate says ({gated})")
             key = str(dtype).split(".")[1]
             tol, errs = TOL[key], {}
             for name, a, r in (("fwd", out, ref), ("bwd", leaf.grad, ref_bwd)):
@@ -403,33 +411,72 @@ def check_attention():
                                          f"{errs[name]:.3e}")
                 if dtype == torch.bfloat16 and (N, H, S, D) in ATTN_SHAPES[:2]:
                     worst[name] = max(worst[name], errs[name])
-            log(f"attention N={N} H={H} S={S} D={D} {dtype}: max abs err forward "
-                f"{errs['fwd']:.3e}, backward {errs['bwd']:.3e} (within {tol} abs+rel)")
+            rerun = ""
+            if dtype == torch.bfloat16:
+                again = att.attention_t_bwd(qkv, do.contiguous(), scale)
+                torch.cuda.synchronize()
+                if not torch.equal(again, leaf.grad):
+                    raise AssertionError(f"attention_bwd at N={N} H={H} S={S} D={D} gave other "
+                                         f"bits on a rerun")
+                rerun = "; the backward's rerun gives the same bits"
+            route = "" if gated else " (refused by the gate: the plain composition, as in JAX)"
+            log(f"attention N={N} H={H} S={S} D={D} {dtype}{route}: max abs err forward "
+                f"{errs['fwd']:.3e}, backward {errs['bwd']:.3e} (within {tol} abs+rel){rerun}")
     return worst
 
 
 def attention_bound(N, H, S, D, backward):
     """(bound ms, bound_by) of #3 or #4 in bf16 at (N, H, S, D). Bytes: qkv and
     the output (and do, dqkv) once. Operations: 2 Z S^2 D per product over
-    Z = N H pairs; the forward's two products take bf16 operands; the
-    backward's logits recompute, dp and dv take bf16 operands and dq, dk the
-    f32 ds, at the non-tensor f32 rate."""
+    Z = N H pairs, at the bf16 tensor-core rate: the forward's two products;
+    the backward's logits recompute, dp and dv, and dq and dk from the f32 ds
+    counted as three bf16 products each, the least the card needs to compute
+    them exactly (ds = hi + mid + lo in bf16, each product exact). Counting
+    dq and dk at the non-tensor f32 rate instead would let a kernel that
+    takes the split read above 100% of its bound."""
     prod = 2 * N * H * S * S * D
     elems = N * H * S * D
     if backward:
-        nbytes, ops_s = 2 * (3 * elems + elems + 3 * elems), (3 * prod / PEAK_BF16_FLOPS
-                                                               + 2 * prod / PEAK_F32_FLOPS)
+        nbytes, ops_s = 2 * (3 * elems + elems + 3 * elems), (3 + 2 * 3) * prod / PEAK_BF16_FLOPS
     else:
         nbytes, ops_s = 2 * (3 * elems + elems), 2 * prod / PEAK_BF16_FLOPS
     bytes_s = nbytes / PEAK_BYTES
     return max(bytes_s, ops_s) * 1e3, "bytes" if bytes_s >= ops_s else "operations"
 
 
+def device_ms(fn, calls=20):
+    """Device time per call of ``fn``: the self device time of every kernel
+    the profiler records over ``calls`` calls (after three warm-up calls),
+    divided by ``calls``. Unlike CUDA events around a run of eager calls, it
+    does not count the device idling while the host prepares the next call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return us / calls / 1e3
+
+
 def time_attention():
     """Phase 4: #3 and #4 at the ImageNet-64 training shape (N=32, 9 heads,
     S=256, D=64), bf16, beside their plain versions and the library
     yardsticks: ``F.scaled_dot_product_attention`` on the same q, k, v for #3
-    and the backward alone of autograd through it for #4."""
+    and the backward alone of autograd through it for #4. Kernel and library
+    are timed in turns (kernel, library, library, kernel), by device time
+    (``device_ms``: what the JSON record keeps) and by CUDA events around 20
+    eager calls (host time included where the host is slower than the card).
+    #4 takes dq and dk as three exact bf16 products; its f32 FMA variant is
+    timed in the same turns, the A/B behind that choice."""
     import torch
     import torch.nn.functional as F
     from cfm_tpu_torch.ops import attention as att
@@ -438,21 +485,46 @@ def time_attention():
     scale = 1.0 / math.sqrt(D)
     qkv, do = attention_inputs(N, H, S, D, torch.bfloat16)
     q, k, v = (t.detach().requires_grad_() for t in qkv.unbind(1))
-    with torch.no_grad():
-        fwd = dict(ms=cuda_ms(lambda: att.attention_t(qkv, scale)),
-                   plain_ms=cuda_ms(lambda: att.attn_reference_t(qkv, scale), iters=5),
-                   library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
     y = F.scaled_dot_product_attention(q, k, v)
-    bwd = dict(ms=cuda_ms(lambda: att.attention_t_bwd(qkv, do, scale)),
-               plain_ms=cuda_ms(lambda: att.attention_t_bwd_reference(qkv, do, scale), iters=5),
-               library_ms=cuda_ms(lambda: torch.autograd.grad(y, (q, k, v), do, retain_graph=True)))
+    fns = {"attention_fwd": (lambda: att.attention_t(qkv, scale),
+                             lambda: F.scaled_dot_product_attention(q.detach(), k.detach(),
+                                                                    v.detach())),
+           "attention_bwd": (lambda: att.attention_t_bwd(qkv, do, scale),
+                             lambda: torch.autograd.grad(y, (q, k, v), do, retain_graph=True))}
+    fma = lambda: att._backward(qkv, do, scale, split=False)
     out = {}
-    for name, t, backward in (("attention_fwd", fwd, False), ("attention_bwd", bwd, True)):
-        bound_ms, bound_by = attention_bound(N, H, S, D, backward)
-        out[name] = dict(t, bound_ms=bound_ms, bound_by=bound_by)
-        log(f"{name} timing N={N} H={H} S={S} D={D} bf16: kernel {t['ms']:.4f} ms "
-            f"({100 * bound_ms / t['ms']:.2f}% of the {bound_ms:.4f} ms bound by {bound_by}), "
-            f"plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms")
+    for name, (kernel, library) in fns.items():
+        turns = {"kernel": [], "library": [], "fma": []}
+        for who in ("kernel", "library", "library", "kernel"):
+            fn = kernel if who == "kernel" else library
+            turns[who].append((device_ms(fn), cuda_ms(fn)))
+            if name == "attention_bwd" and who == "kernel":
+                turns["fma"].append((device_ms(fma), cuda_ms(fma)))
+        mean = {who: [sum(t[i] for t in ts) / len(ts) for i in (0, 1)]
+                for who, ts in turns.items() if ts}
+        with torch.no_grad():
+            plain = (att.attn_reference_t if name == "attention_fwd"
+                     else att.attention_t_bwd_reference)
+            plain_ms = cuda_ms(lambda: plain(qkv, scale) if name == "attention_fwd"
+                               else plain(qkv, do, scale), iters=5)
+        bound_ms, bound_by = attention_bound(N, H, S, D, name == "attention_bwd")
+        ms, lib_ms = mean["kernel"][0], mean["library"][0]
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+        fmt = lambda ts: ", ".join(f"{a:.4f}" for a, _ in ts)
+        eager = lambda ts: ", ".join(f"{b:.4f}" for _, b in ts)
+        line = (f"{name} timing N={N} H={H} S={S} D={D} bf16, device time: kernel {ms:.4f} ms "
+                f"({fmt(turns['kernel'])}; {100 * bound_ms / ms:.1f}% of the {bound_ms:.4f} ms "
+                f"bound by {bound_by}), library {lib_ms:.4f} ms ({fmt(turns['library'])}), "
+                f"kernel / library {ms / lib_ms:.3f}")
+        if turns["fma"]:
+            line += (f"; the FMA variant of dq and dk {mean['fma'][0]:.4f} ms "
+                     f"({fmt(turns['fma'])}), split / FMA {ms / mean['fma'][0]:.3f}")
+        line += (f"; eager, 20 calls between CUDA events: kernel {eager(turns['kernel'])}, "
+                 f"library {eager(turns['library'])}")
+        if turns["fma"]:
+            line += f", FMA {eager(turns['fma'])}"
+        log(line + f" ms; plain {plain_ms:.4f} ms")
     return out
 
 
@@ -1287,7 +1359,9 @@ KERNEL_GROUPS = (
      ("gn_silu_fwd_kernel", "gn_silu_bwd_kernel", "gn_silu_wgrad_kernel")),
     ("auction kernels (#5, #6)", ("auction_kernel", "auction_tiled_kernel")),
     ("flash Sinkhorn (#7)", ("flash_sinkhorn_kernel",)),
-    ("attention kernels (#1, #2, #3, #4: their stages share code)",
+    ("multi-head attention kernels (#3, #4)",
+     ("attention_resident", "attention_streamed", "attention_bwd_rows", "attention_bwd_cols")),
+    ("attention-block kernels (#1, #2; their stages share code)",
      ("mma_gemm_kernel", "attention_mma_kernel", "gn_stats_kernel", "round_transpose_kernel",
       "attention_kernel", "gemm_kernel", "bmma_kernel", "fgemm_kernel", "softmax_rows_kernel",
       "softmax_bwd_rows_kernel", "colsum_partial_kernel", "sum_parts_kernel", "gn_bwd_kernel")),
@@ -1483,6 +1557,12 @@ def imagenet_generation(model):
     if launched != want or out.nfe != 100:
         raise AssertionError(f"imagenet64 generation: launches {launched} for NFE {out.nfe}, "
                              f"expected {want}")
+    x = torch.randn((IMAGENET_GEN,) + IMAGENET64["dim"], generator=gen, device="cuda")
+    t = torch.full((IMAGENET_GEN,), 0.5, device="cuda")
+    with torch.inference_mode():
+        model(t, x, y)
+        device_profile(lambda: model(t, x, y),
+                       f"one imagenet64 evaluation (batch {IMAGENET_GEN}, bf16)")
     return launched
 
 

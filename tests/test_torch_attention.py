@@ -155,7 +155,9 @@ def _card_inputs(N, H, S, D, dtype, seed=0):
     return qkv_t, do
 
 
-_CARD_SHAPES = [(4, 1, 128, 64), (2, 2, 512, 64), (8, 9, 256, 64), (2, 2, 256, 128)]
+# The last two are the gate's edges, which take the two-pass routes.
+_CARD_SHAPES = [(4, 1, 128, 64), (2, 2, 512, 64), (8, 9, 256, 64), (2, 2, 256, 128),
+                (2, 2, 896, 64), (1, 1, 768, 128)]
 
 
 @pytest.mark.cuda
@@ -167,12 +169,13 @@ def test_forward_kernel_matches_plain_on_cuda(N, H, S, D, dtype, tol):
     from cfm_tpu_torch.device import strict_f32
 
     qkv_t, _ = _card_inputs(N, H, S, D, _DTYPES[dtype][1])
+    gated = tatt.gate(H, S, D, qkv_t.dtype)  # (2, 2, 896, 64) passes in bf16 only
     before = tatt.attention_t.launches
     with torch.no_grad(), strict_f32():
         out = tatt.attention_t(qkv_t, 1.0 / math.sqrt(D))
         ref = tatt.attn_reference_t(qkv_t, 1.0 / math.sqrt(D))
     torch.cuda.synchronize()
-    assert tatt.attention_t.launches == before + 1
+    assert tatt.attention_t.launches == before + int(gated)
     np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
                                atol=tol, rtol=tol)
 
@@ -188,12 +191,212 @@ def test_backward_kernel_matches_plain_on_cuda(N, H, S, D, dtype, tol):
     from cfm_tpu_torch.device import strict_f32
 
     qkv_t, do = _card_inputs(N, H, S, D, _DTYPES[dtype][1], seed=1)
+    gated = tatt.gate(H, S, D, qkv_t.dtype)
     leaf = qkv_t.clone().requires_grad_()
     before = tatt.attention_t_bwd.launches
     with strict_f32():
         tatt.attention_t(leaf, 1.0 / math.sqrt(D)).backward(do)
-        ref = tatt.attention_t_bwd_reference(qkv_t, do, 1.0 / math.sqrt(D))
+        if gated:
+            ref = tatt.attention_t_bwd_reference(qkv_t, do, 1.0 / math.sqrt(D))
+        else:  # the plain composition with autograd, as in the JAX package
+            plain = qkv_t.clone().requires_grad_()
+            tatt.attn_reference_t(plain, 1.0 / math.sqrt(D)).backward(do)
+            ref = plain.grad
     torch.cuda.synchronize()
-    assert tatt.attention_t_bwd.launches == before + 1
+    assert tatt.attention_t_bwd.launches == before + int(gated)
     np.testing.assert_allclose(leaf.grad.float().cpu().numpy(), ref.float().cpu().numpy(),
                                atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,S,D", _CARD_SHAPES)
+def test_backward_kernel_rerun_gives_the_same_bits_on_cuda(N, H, S, D):
+    """The bf16 backward has no atomics and no order that changes between
+    runs: a second call on the same inputs gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("the attention backward kernel runs only on a CUDA device")
+    qkv_t, do = _card_inputs(N, H, S, D, torch.bfloat16, seed=2)
+    first = tatt.attention_t_bwd(qkv_t, do, 1.0 / math.sqrt(D))
+    second = tatt.attention_t_bwd(qkv_t, do, 1.0 / math.sqrt(D))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+# ---------------------------------------------------------------------------
+# A torch model of the Hopper kernels' tiling (csrc/attention_fwd.cu,
+# csrc/attention_bwd.cu), run on the CPU: 64-key and 64-query tiles, the
+# one-pass exact softmax at S <= 256 and the rescaled running sum above, the
+# exponentials 2^(acc * scale log2 e - max) with the row max taken on
+# acc = q . k and scaled once, the weights as those times the reciprocal of
+# the sum, delta taken directly, the (A)/(B) split of the backward with its
+# row statistics, and dq and dk as three bf16 products of the split ds.
+# ---------------------------------------------------------------------------
+
+_TILE = 64
+
+
+def _tiles(x, dim=-2):
+    return x.split(_TILE, dim=dim)
+
+
+def _log2_scale(scale):
+    return torch.tensor(scale, dtype=torch.float32) * torch.tensor(math.log2(math.e),
+                                                                     dtype=torch.float32)
+
+
+def _exp(acc, ls, m):
+    """2^(acc * ls - m) with the multiply-add rounded once, as fmaf does."""
+    return torch.exp2((acc.double() * ls.double() - m.double()).float())
+
+
+def _row_max(acc, ls):
+    return acc.amax(-1, keepdim=True) * ls
+
+
+def _running_stats(acc_tiles, ls):
+    """Row max and rescaled running sum over key tiles (the two-pass route)."""
+    m = torch.full(acc_tiles[0].shape[:-1] + (1,), -math.inf)
+    s = torch.zeros_like(m)
+    for a in acc_tiles:
+        new = torch.maximum(m, _row_max(a, ls))
+        s = s * torch.exp2(m - new) + _exp(a, ls, new).sum(-1, keepdim=True)
+        m = new
+    return m, s
+
+
+def _stats(acc_tiles, ls):
+    """The row statistics: exact in one pass at S <= 256, else running."""
+    if len(acc_tiles) <= 4:
+        m = _row_max(torch.cat(acc_tiles, -1), ls)
+        return m, sum(_exp(a, ls, m).sum(-1, keepdim=True) for a in acc_tiles)
+    return _running_stats(acc_tiles, ls)
+
+
+def _model_forward(qkv_t, scale):
+    lp, ls = qkv_t.dtype, _log2_scale(scale)
+    q, k, v = qkv_t.float().unbind(1)
+    acc = [q @ kj.transpose(-1, -2) for kj in _tiles(k)]
+    m, s = _stats(acc, ls)
+    inv = 1.0 / s
+    o = torch.zeros_like(q)
+    for a, vj in zip(acc, _tiles(v)):
+        o = o + (_exp(a, ls, m) * inv).to(lp).float() @ vj
+    return o.to(lp)
+
+
+def _split(x):
+    """f32 x as bf16-valued hi + mid + lo (exact)."""
+    hi = x.to(torch.bfloat16).float()
+    mid = (x - hi).to(torch.bfloat16).float()
+    return hi, mid, x - hi - mid
+
+
+def _split_product(x, b):
+    hi, mid, lo = _split(x)
+    return hi @ b + mid @ b + lo @ b
+
+
+def _model_backward(qkv_t, do, scale):
+    lp, ls = qkv_t.dtype, _log2_scale(scale)
+    q, k, v = qkv_t.float().unbind(1)
+    dof = do.float()
+    qt, kt, vt, dot = _tiles(q), _tiles(k), _tiles(v), _tiles(dof)
+    # (B) per query row: statistics over the key tiles, then delta, then dq.
+    acc = [q @ kj.transpose(-1, -2) for kj in kt]
+    m, s = _stats(acc, ls)
+    inv = 1.0 / s
+    wf = [_exp(a, ls, m) * inv for a in acc]
+    dp = [dof @ vj.transpose(-1, -2) for vj in vt]
+    delta = sum((dpj * wfj.to(lp).float()).sum(-1, keepdim=True) for dpj, wfj in zip(dp, wf))
+    dq = sum(_split_product((wfj * (dpj - delta)) * scale, kj) for wfj, dpj, kj in zip(wf, dp, kt))
+    # (A) per key tile, over the query tiles, from the statistics.
+    stats = [[x[..., i * _TILE:(i + 1) * _TILE, :].transpose(-1, -2) for x in (m, inv, delta)]
+             for i in range(len(qt))]
+    dk, dv = [], []
+    for kj, vj in zip(kt, vt):
+        dkj, dvj = torch.zeros_like(kj), torch.zeros_like(vj)
+        for qi, doi, (mi, invi, di) in zip(qt, dot, stats):
+            wft = _exp(kj @ qi.transpose(-1, -2), ls, mi) * invi
+            dvj = dvj + wft.to(lp).float() @ doi
+            dst = (wft * (vj @ doi.transpose(-1, -2) - di)) * scale
+            dkj = dkj + _split_product(dst, qi)
+        dk.append(dkj)
+        dv.append(dvj)
+    return torch.stack([dq, torch.cat(dk, -2), torch.cat(dv, -2)], dim=1).to(lp)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("S", [128, 512, 896])
+def test_kernel_tiling_model_matches_plain_and_jax(monkeypatch, S, dtype):
+    """The model of the kernels' tiling agrees with the plain forward and
+    backward and with the JAX kernels in interpret mode at the tolerances of
+    the tests above: S = 128 takes the one-pass forward, 512 and 896 (the
+    gate's largest S at D = 64) the two-pass route."""
+    j = _jax(dtype)
+    monkeypatch.setattr(j.pa, "INTERPRET", True)
+    tdtype = _DTYPES[dtype][1]
+    N, H, D = 1, 2, 64
+    qkv_t = _qkv_t(N, H, S, D, seed=5)
+    do = np.random.default_rng(6).standard_normal((N, H, S, D)).astype(np.float32)
+    scale = 1.0 / math.sqrt(D)
+    t_qkv, t_do = torch.from_numpy(qkv_t).to(tdtype), torch.from_numpy(do).to(tdtype)
+    out, grad = _model_forward(t_qkv, scale), _model_backward(t_qkv, t_do, scale)
+    assert out.dtype == grad.dtype == tdtype
+    _assert_close(out, tatt.attn_reference_t(t_qkv, scale).float().numpy(), dtype)
+    _assert_close(grad, tatt.attention_t_bwd_reference(t_qkv, t_do, scale).float().numpy(), dtype)
+    ref, vjp = j.jax.vjp(lambda a: j.pa.fused_attention_t(a, scale),
+                         j.jnp.asarray(qkv_t, j.dtype))
+    _assert_close(out, ref, dtype)
+    _assert_close(grad, vjp(j.jnp.asarray(do, j.dtype))[0], dtype)
+
+
+def test_two_pass_bf16_weights_equal_direct_softmax_but_at_ties():
+    """The kernels' bf16 weights on the two-pass route (2^(acc * scale log2 e
+    - max), a rescaled running sum over 64-key tiles, times 1 / sum) equal
+    those of the direct exp(l - max) / sum(e) except where the two f32
+    values straddle a bf16 rounding boundary; then they are one bf16 step
+    apart. At this seed 40 of 1,605,632 weights differ (S = 896, 2 heads)."""
+    H, S, D = 2, 896, 64
+    qkv = torch.from_numpy(_qkv_t(1, H, S, D, seed=7)).to(torch.bfloat16).float()
+    acc = qkv[:, 0] @ qkv[:, 1].transpose(-1, -2)
+    l = acc * 0.125
+    e = torch.exp(l - l.amax(-1, keepdim=True))
+    direct = e / e.sum(-1, keepdim=True)
+    ls = _log2_scale(0.125)
+    m, s = _running_stats(_tiles(acc, -1), ls)
+    tiled = _exp(acc, ls, m) * (1.0 / s)
+    wd, wt = direct.to(torch.bfloat16), tiled.to(torch.bfloat16)
+    differ = wd != wt
+    assert differ.sum().item() == 40
+    # Each differing pair is one bf16 step apart (neighbouring bit patterns of
+    # positive numbers), and the f32 weights lie within a few f32 ulps of the
+    # bf16 midpoint between them.
+    bits = (wd[differ].view(torch.int16).int() - wt[differ].view(torch.int16).int()).abs()
+    assert (bits == 1).all()
+    a, b = wd[differ].float(), wt[differ].float()
+    mid = (a + b) / 2
+    ulp = torch.finfo(torch.float32).eps * mid
+    assert ((direct[differ] - mid).abs() <= 4 * ulp).all()
+    assert ((tiled[differ] - mid).abs() <= 4 * ulp).all()
+
+
+def test_split_of_ds_is_exact_and_its_products_match_f32():
+    """ds = hi + mid + lo bit for bit, each part a bf16 value, on f32 values
+    over a wide exponent range; and ds @ k from the three bf16 products
+    equals the f32 product to f32 accumulation rounding (the float64 product
+    of the same operands is the judge)."""
+    rng = np.random.default_rng(8)
+    x = (rng.standard_normal(1 << 16) * np.exp2(rng.integers(-60, 60, 1 << 16))).astype(np.float32)
+    ds = torch.from_numpy(x)
+    hi, mid, lo = _split(ds)
+    for part in (hi, mid, lo):
+        assert torch.equal(part.to(torch.bfloat16).float(), part)
+    assert torch.equal(hi + mid + lo, ds)
+    assert torch.equal((hi + mid) + lo, ds)
+    dsm = torch.from_numpy(rng.standard_normal((256, 256)).astype(np.float32) * 1e-2)
+    k = torch.from_numpy(rng.standard_normal((256, 64)).astype(np.float32)).to(torch.bfloat16).float()
+    exact = dsm.double() @ k.double()
+    bound = 256 * torch.finfo(torch.float32).eps * (dsm.abs().double() @ k.abs().double())
+    assert ((_split_product(dsm, k).double() - exact).abs() <= bound).all()
+    assert ((dsm @ k).double() - exact).abs().max() <= bound.max()
+    one_round = dsm.to(torch.bfloat16).float() @ k
+    assert ((one_round.double() - exact).abs() > bound).any()
