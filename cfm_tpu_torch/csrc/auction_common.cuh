@@ -1,7 +1,7 @@
 // Pieces shared by the two auction kernels (auction.cu, auction_tiled.cu):
-// the TPU kernels' "no bid" value, the bid arithmetic in the TPU's order of
-// rounding, and the packed 64-bit bid word whose atomicMax picks each
-// column's winner.
+// the TPU kernels' "no bid" value, the one-pass (best, first column, second)
+// scan of a bidding row, the bid arithmetic in the TPU's order of rounding,
+// and the packed 64-bit bid word whose atomicMax picks each column's winner.
 //
 // A bidding row packs (order-preserving bits of its bid) << 32 | ~row and
 // applies atomicMax on its column's word. The maximum is the highest bid
@@ -18,6 +18,37 @@
 namespace auction {
 
 constexpr float kNeg = -3.0e38f;  // the TPU kernels' "no bid" value
+
+// Fold value v of column j into a lane's (best, first column, second).
+// Columns arrive in increasing order, so a later equal value is not first
+// and becomes the second (second == best on a tie).
+__device__ __forceinline__ void fold(float v, int j, float& v1, int& j1, float& v2) {
+  if (v > v1) {
+    v2 = fmaxf(v2, v1);
+    v1 = v;
+    j1 = j;
+  } else {
+    v2 = fmaxf(v2, v);
+  }
+}
+
+// Merge the lanes' (best, first column, second) across the warp: the larger
+// best wins, the smaller column on a tie, and the loser's best joins the
+// second. The same in every lane on return.
+__device__ __forceinline__ void warp_merge(float& v1, int& j1, float& v2) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov1 = __shfl_xor_sync(0xffffffffu, v1, o);
+    const int oj1 = __shfl_xor_sync(0xffffffffu, j1, o);
+    const float ov2 = __shfl_xor_sync(0xffffffffu, v2, o);
+    if (ov1 > v1 || (ov1 == v1 && oj1 < j1)) {
+      v2 = fmaxf(ov2, v1);
+      v1 = ov1;
+      j1 = oj1;
+    } else {
+      v2 = fmaxf(v2, ov1);
+    }
+  }
+}
 
 __device__ __forceinline__ uint32_t order_bits(float f) {
   const uint32_t u = __float_as_uint(f);

@@ -59,19 +59,6 @@ using namespace auction;
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 
-// Fold value v of column j into a lane's (best, first column, second).
-// Columns arrive in increasing order, so a later equal value is not first
-// and becomes the second (second == best on a tie).
-__device__ __forceinline__ void fold(float v, int j, float& v1, int& j1, float& v2) {
-  if (v > v1) {
-    v2 = fmaxf(v2, v1);
-    v1 = v;
-    j1 = j;
-  } else {
-    v2 = fmaxf(v2, v);
-  }
-}
-
 // One pass over row r: the warp's best value, its first column and the
 // second value, the same in every lane on return.
 __device__ __forceinline__ void scan_row(const float* __restrict__ benefit, const float* price,
@@ -91,18 +78,7 @@ __device__ __forceinline__ void scan_row(const float* __restrict__ benefit, cons
     fold(__fsub_rn(b.z, p.z), j + 2, v1, j1, v2);
     fold(__fsub_rn(b.w, p.w), j + 3, v1, j1, v2);
   }
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov1 = __shfl_xor_sync(0xffffffffu, v1, o);
-    const int oj1 = __shfl_xor_sync(0xffffffffu, j1, o);
-    const float ov2 = __shfl_xor_sync(0xffffffffu, v2, o);
-    if (ov1 > v1 || (ov1 == v1 && oj1 < j1)) {
-      v2 = fmaxf(ov2, v1);
-      v1 = ov1;
-      j1 = oj1;
-    } else {
-      v2 = fmaxf(v2, ov1);
-    }
-  }
+  warp_merge(v1, j1, v2);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)

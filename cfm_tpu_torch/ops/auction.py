@@ -10,7 +10,10 @@ The dense auction (TPU kernel #5, n <= 512):
   flag back to the host every round, so it is slow on the card.
 - :func:`pallas_auction_assignment` is the wrapper. A CPU tensor goes to the
   plain version; a CUDA tensor launches the hand-written Hopper kernel
-  (``csrc/auction.cu``) or raises. It never falls back.
+  (``csrc/auction.cu``) or raises. It never falls back. The kernel does the
+  whole call in one launch: the negation, the epsilon schedule (the bits of
+  :func:`_eps_schedule`) and the completion of a partial matching (that of
+  :func:`_sanitize_perm`).
 
 The row-tiled auction (TPU kernel #6, n = 1024..4096, the 2-D evaluation's
 exact W1/W2 at n = 2048):
@@ -22,8 +25,9 @@ exact W1/W2 at n = 2048):
 - :func:`pallas_auction_assignment_tiled` is the wrapper, with the Hopper
   kernel ``csrc/auction_tiled.cu`` on CUDA tensors.
 
-:func:`_sanitize_perm` completes a partial matching into a permutation,
-outside the kernels as in the JAX package.
+:func:`_sanitize_perm` completes a partial matching into a permutation, as
+the JAX package does outside its kernels (the tiled kernel's wrapper calls
+it; the dense kernel does the same inside its launch).
 """
 
 from __future__ import annotations
@@ -127,10 +131,13 @@ def _sanitize_perm(perm: torch.Tensor, n: int) -> torch.Tensor:
 def pallas_auction_assignment(cost: torch.Tensor, num_phases: int = 12) -> torch.Tensor:
     """Exact assignment of the square cost (n, n), n <= 512: perm (n,) int64.
 
-    On a CUDA tensor this launches the Hopper kernel (and adds one to
-    ``pallas_auction_assignment.launches``; the kernel's round count is left
-    on the device in ``pallas_auction_assignment.last_rounds``); on a CPU
-    tensor it runs :func:`auction_assignment_onehot`.
+    On a CUDA tensor this is one launch of the Hopper kernel, which negates
+    the cost on load, computes the epsilon schedule, solves and completes a
+    partial matching as :func:`_sanitize_perm` does; it adds one to
+    ``pallas_auction_assignment.launches`` and leaves the round count and
+    the row scans (bids) on the device in ``.last_rounds`` and
+    ``.last_row_scans``. On a CPU tensor it runs
+    :func:`auction_assignment_onehot`.
     """
     if cost.dim() != 2 or cost.shape[0] != cost.shape[1]:
         raise ValueError(f"cost must be square (n, n), got {tuple(cost.shape)}")
@@ -141,24 +148,24 @@ def pallas_auction_assignment(cost: torch.Tensor, num_phases: int = 12) -> torch
         raise ValueError(f"unsupported device {cost.device}")
     if not 0 < n <= 512:
         raise ValueError(f"the dense auction kernel takes 0 < n <= 512, got n={n}")
-    benefit = (-cost.float()).contiguous()
-    eps0, eps_final = _eps_schedule(benefit, num_phases)
-    perm = torch.empty(n, dtype=torch.int32, device=cost.device)
-    rounds = torch.empty(1, dtype=torch.int32, device=cost.device)
+    if cost.dtype != torch.float32 or not cost.is_contiguous():
+        cost = cost.float().contiguous()
+    out = torch.empty(n + 2, dtype=torch.int64, device=cost.device)  # perm, rounds, row scans
     lib = _lib()
     with torch.cuda.device(cost.device):
-        err = lib.auction_solve(benefit.data_ptr(), eps0.data_ptr(), eps_final.data_ptr(),
-                                perm.data_ptr(), rounds.data_ptr(), n,
+        err = lib.auction_solve(cost.data_ptr(), out.data_ptr(), n, num_phases,
                                 torch.cuda.current_stream(cost.device).cuda_stream)
     if err:
         raise RuntimeError(f"auction launch failed: CUDA error {err}")
     pallas_auction_assignment.launches += 1
-    pallas_auction_assignment.last_rounds = rounds
-    return _sanitize_perm(perm, n)
+    pallas_auction_assignment.last_rounds = out[n:n + 1]
+    pallas_auction_assignment.last_row_scans = out[n + 1:]
+    return out[:n]
 
 
 pallas_auction_assignment.launches = 0
 pallas_auction_assignment.last_rounds = None
+pallas_auction_assignment.last_row_scans = None
 
 
 def _tile(n: int) -> int:
@@ -265,16 +272,16 @@ pallas_auction_assignment_tiled.launches = 0
 pallas_auction_assignment_tiled.last_rounds = None
 pallas_auction_assignment_tiled.last_row_scans = None
 
-_ARGTYPES = {"auction": ("auction_solve", 5),            # pointers before n
-             "auction_tiled": ("auction_tiled_solve", 6)}
+_ARGTYPES = {"auction": ("auction_solve", 2, 2),        # pointers, then ints, then the stream
+             "auction_tiled": ("auction_tiled_solve", 6, 1)}
 
 
 def _lib(name: str = "auction") -> ctypes.CDLL:
     lib = _build.load(name)
     if not getattr(lib, "_typed", False):
-        fn, n_ptrs = _ARGTYPES[name]
+        fn, n_ptrs, n_ints = _ARGTYPES[name]
         p, i = ctypes.c_void_p, ctypes.c_int
-        getattr(lib, fn).argtypes = [p] * n_ptrs + [i, p]
+        getattr(lib, fn).argtypes = [p] * n_ptrs + [i] * n_ints + [p]
         getattr(lib, fn).restype = i
         lib._typed = True
     return lib

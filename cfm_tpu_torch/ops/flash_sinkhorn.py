@@ -16,7 +16,8 @@ err <= tol or after ``num_iters``.
 - :func:`flash_sinkhorn` is the wrapper. A CPU tensor runs the plain
   version; a CUDA tensor launches the Hopper kernel ``csrc/flash_sinkhorn.cu``
   (one persistent cooperative launch whose iteration loop never leaves the
-  card) or raises. It never falls back.
+  card; two passes an iteration, the error fused into the next f pass) or
+  raises. It never falls back.
 - :func:`sinkhorn_from_points` centres the clouds and routes: a CUDA tensor
   that passes :func:`flash_kernel_supported` goes to the kernel; anything
   else to :func:`_flash_sinkhorn_dense`, the dense cost plus
@@ -28,10 +29,10 @@ err <= tol or after ``num_iters``.
   :func:`transport_cost_from_potentials`.
 
 The kernel itself takes any n, m >= 1 and d >= 1 with n*d and m*d below
-2^31 (it keeps no cloud in shared memory). Routing keeps the TPU kernel's
-conditions, so a given (n, m, d) takes the same route on the card as on the
-TPU: tile-aligned sizes (:func:`_pallas_tiles`) and a point budget of
-4*d*(n+m) <= 8 MiB.
+2^31 (it tiles the other cloud through shared memory where it does not
+fit). Routing keeps the TPU kernel's conditions, so a given (n, m, d) takes
+the same route on the card as on the TPU: tile-aligned sizes
+(:func:`_pallas_tiles`) and a point budget of 4*d*(n+m) <= 8 MiB.
 """
 
 from __future__ import annotations
@@ -220,19 +221,21 @@ def flash_sinkhorn(x: torch.Tensor, y: torch.Tensor, loga: torch.Tensor, logb: t
         raise ValueError("the kernel indexes with int32: n*d and m*d must be < 2^31")
     dev = x.device
     x, y = x.float().contiguous(), y.float().contiguous()
-    xT, yT = x.T.contiguous(), y.T.contiguous()
-    sqx, sqy = x.square().sum(dim=1), y.square().sum(dim=1)
     loga, logb = loga.float().contiguous(), logb.float().contiguous()
+    # The squared norms at d != 2, rounded as the plain version rounds them;
+    # at d = 2 the kernel computes the same bits itself.
+    sqx, sqy = (None, None) if d == 2 else (x.square().sum(dim=1), y.square().sum(dim=1))
     scal = torch.stack([_f32(reg, dev), _f32(tol, dev)])
     f, g = torch.empty(n, device=dev), torch.empty(m, device=dev)
-    rowerr = torch.empty(n, device=dev)
+    scratch = torch.empty(-(-n // 4) * 4 + 2048, device=dev)  # the second f, the error partials
     iters = torch.empty(1, dtype=torch.int32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.flash_sinkhorn_solve(
-            x.data_ptr(), y.data_ptr(), xT.data_ptr(), yT.data_ptr(), sqx.data_ptr(),
-            sqy.data_ptr(), loga.data_ptr(), logb.data_ptr(), scal.data_ptr(), f.data_ptr(),
-            g.data_ptr(), rowerr.data_ptr(), iters.data_ptr(), n, m, d, num_iters,
+            x.data_ptr(), y.data_ptr(), loga.data_ptr(), logb.data_ptr(),
+            None if sqx is None else sqx.data_ptr(), None if sqy is None else sqy.data_ptr(),
+            scal.data_ptr(),
+            f.data_ptr(), g.data_ptr(), scratch.data_ptr(), iters.data_ptr(), n, m, d, num_iters,
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"flash sinkhorn launch failed: CUDA error {err}")
@@ -249,7 +252,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_sinkhorn")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_sinkhorn_solve.argtypes = [p] * 13 + [i] * 4 + [p]
+        lib.flash_sinkhorn_solve.argtypes = [p] * 11 + [i] * 4 + [p]
         lib.flash_sinkhorn_solve.restype = i
         lib._typed = True
     return lib

@@ -11,6 +11,13 @@ are held against JAX too, and every permutation's cost against the JV
 optimum of ``lap_solve`` to 1e-5 relative. The CUDA kernels are checked
 against their plain versions by the ``cuda``-marked tests, which skip
 without a card. The JAX package is imported inside the tests that use it.
+
+``_kernel_model`` is the dense kernel (``csrc/auction.cu``) in numpy: its
+in-launch epsilon schedule, its one-pass (best, first column, second) scan
+in the warp's reduction order (lane l folds columns l, l + 32, ..., then a
+butterfly merges the lanes), its bids and per-column winners, and its
+completion of a partial matching. It must give the plain version's and
+JAX's permutation and round count.
 """
 
 import numpy as np
@@ -62,6 +69,176 @@ def test_plain_auction_equals_jax_on_degenerate_costs(kind):
     perm, _ = tau.auction_assignment_onehot(torch.from_numpy(c))
     np.testing.assert_array_equal(perm.numpy(), _jax_onehot(c))
     assert sorted(perm.tolist()) == list(range(32))
+
+
+_F32 = np.float32
+_NEG32 = _F32(-3.0e38)
+
+
+def _kernel_eps(benefit, num_phases):
+    """The kernel's schedule: max and min over every entry, then
+    max(max - min, 1e-12) * 0.5, divided by 4^(phases - 1) built by f32
+    multiplications."""
+    eps0 = _F32(np.maximum(_F32(benefit.max() - benefit.min()), _F32(1e-12)) * _F32(0.5))
+    div = _F32(1.0)
+    for _ in range(num_phases - 1):
+        div = _F32(div * _F32(4.0))
+    return eps0, _F32(eps0 / div)
+
+
+def _one_pass_scan(values):
+    """(best, first column, second) of each row of ``values`` (B, n) in the
+    kernel's order: lane l folds columns l, l + 32, ... (a larger value
+    moves the best to the second, an equal or smaller one joins the second),
+    then a butterfly over lane distances 16 .. 1 keeps the larger best, the
+    smaller column on a tie, and the loser's best joins the second."""
+    B, n = values.shape
+    T = -(-n // 32)
+    pad = np.full((B, 32 * T), -np.inf, np.float32)
+    pad[:, :n] = values
+    lanes = pad.reshape(B, T, 32)
+    v1 = np.full((B, 32), -np.inf, np.float32)
+    j1 = np.full((B, 32), n)
+    v2 = np.full((B, 32), _NEG32)
+    for t in range(T):
+        v, j = lanes[:, t, :], 32 * t + np.arange(32)[None, :]
+        valid = j < n
+        better = valid & (v > v1)
+        v2 = np.where(better, np.maximum(v2, v1), np.where(valid, np.maximum(v2, v), v2))
+        v1, j1 = np.where(better, v, v1), np.where(better, j, j1)
+    for o in (16, 8, 4, 2, 1):
+        p = np.arange(32) ^ o
+        ov1, oj1, ov2 = v1[:, p], j1[:, p], v2[:, p]
+        take = (ov1 > v1) | ((ov1 == v1) & (oj1 < j1))
+        v2 = np.where(take, np.maximum(ov2, v1), np.maximum(v2, ov1))
+        v1, j1 = np.where(take, ov1, v1), np.where(take, oj1, j1)
+    return v1[:, 0], j1[:, 0], v2[:, 0]
+
+
+def _complete(assign, owner):
+    """The kernel's completion at the round cap: the k-th unassigned row
+    takes the k-th unowned column."""
+    assign, owner = assign.copy(), owner.copy()
+    j = 0
+    for i in range(len(assign)):
+        if assign[i] >= 0:
+            continue
+        while owner[j] >= 0:
+            j += 1
+        assign[i], owner[j] = j, i
+    return assign
+
+
+def _kernel_model(cost, num_phases=12):
+    """The dense kernel in numpy: (perm, rounds, row scans)."""
+    n = cost.shape[0]
+    benefit = -cost.astype(np.float32)
+    eps, eps_final = _kernel_eps(benefit, num_phases)
+    price = np.zeros(n, np.float32)
+    owner, assign = np.full(n, -1), np.full(n, -1)
+    rounds, scans, cap = 0, 0, 200 * n + 20000
+    while (assign < 0).any() and rounds < cap:
+        rows = np.nonzero(assign < 0)[0]
+        v1, j1, v2 = _one_pass_scan(benefit[rows] - price[None, :])
+        bid = (price[j1] + (v1 - v2)) + eps          # f32, rounded at each step
+        scans += len(rows)
+        best = {}
+        for r, j, b in zip(rows, j1, bid):           # ascending rows: the first wins ties
+            if b > _NEG32 and (j not in best or b > best[j][0]):
+                best[j] = (b, r)
+        for j, (b, r) in best.items():
+            if owner[j] >= 0:
+                assign[owner[j]] = -1
+            owner[j], assign[r], price[j] = r, j, b
+        rounds += 1
+        if (assign >= 0).all() and eps > eps_final:
+            eps = _F32(eps / _F32(4.0))
+            owner[:], assign[:] = -1, -1
+    return _complete(assign, owner), rounds, scans
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the plain versions' thousands of small ops:
+    under the suite's parallel workers, OpenMP's fork-join barriers
+    otherwise stall each op (an n = 256 solve ran minutes, not seconds)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("n", [1, 7, 32, 100, 256])
+def test_one_pass_scan_matches_the_two_pass_definition(n):
+    """The first column among the maxima, and the max over every other
+    column (the best itself on a tie, -3e38 for a single column)."""
+    rng = np.random.default_rng(n)
+    for values in (rng.standard_normal((9, n)).astype(np.float32),
+                   rng.integers(0, 3, (9, n)).astype(np.float32)):
+        v1, j1, v2 = _one_pass_scan(values)
+        best = values.max(axis=1)
+        first = np.argmax(values == best[:, None], axis=1)
+        masked = values.copy()
+        masked[np.arange(9), first] = _NEG32
+        np.testing.assert_array_equal(v1, best)
+        np.testing.assert_array_equal(j1, first)
+        np.testing.assert_array_equal(v2, masked.max(axis=1) if n > 1 else np.full(9, _NEG32))
+
+
+@pytest.mark.parametrize("phases", [1, 12, 20])
+@pytest.mark.parametrize("kind", ["gauss", "ties", "const"])
+def test_kernel_eps_schedule_has_the_bits_of_eps_schedule(kind, phases):
+    import jax.numpy as jnp
+
+    c = np.full((8, 8), 3.25, np.float32) if kind == "const" else _cost(40, kind, seed=11)
+    eps0, eps_final = _kernel_eps(-c, phases)
+    ref0, ref_final = tau._eps_schedule(-torch.from_numpy(c), phases)
+    assert eps0.view(np.int32) == ref0.numpy().view(np.int32)
+    assert eps_final.view(np.int32) == ref_final.numpy().view(np.int32)
+    b = -jnp.asarray(c)  # auction_assignment_onehot_xla's steps
+    j0 = jnp.maximum(jnp.max(b) - jnp.min(b), 1e-12) / 2.0
+    assert eps0.view(np.int32) == np.asarray(j0).view(np.int32)
+    assert eps_final.view(np.int32) == np.asarray(j0 / (4.0 ** (phases - 1))).view(np.int32)
+
+
+@pytest.mark.parametrize("n,unassigned", [(1, 1), (6, 2), (17, 5), (64, 64), (64, 1)])
+def test_kernel_completion_matches_sanitize_perm(n, unassigned):
+    """A consistent partial matching (what the kernel holds at the round
+    cap), completed in the kernel's serial order, against ``_sanitize_perm``
+    of the sentinel perm in the port and in JAX."""
+    import jax.numpy as jnp
+
+    from cfm_tpu.ops.pallas_auction import _sanitize_perm
+
+    rng = np.random.default_rng(n + unassigned)
+    assign = rng.permutation(n)
+    assign[rng.choice(n, unassigned, replace=False)] = -1
+    owner = np.full(n, -1)
+    owner[assign[assign >= 0]] = np.nonzero(assign >= 0)[0]
+    got = _complete(assign, owner)
+    sentinel = np.where(assign >= 0, assign, n).astype(np.int32)
+    np.testing.assert_array_equal(got, tau._sanitize_perm(torch.from_numpy(sentinel), n).numpy())
+    np.testing.assert_array_equal(got, np.asarray(_sanitize_perm(jnp.asarray(sentinel), n)))
+    assert sorted(got.tolist()) == list(range(n))
+
+
+@pytest.mark.parametrize("kind", ["gauss", "ties", "dups", "rank1"])
+@pytest.mark.parametrize("n", [2, 33, 64, 128])
+def test_kernel_model_equals_plain_and_jax(n, kind, one_thread):
+    c = _cost(n, kind, seed=12)
+    perm, rounds, scans = _kernel_model(c)
+    ref, ref_rounds = tau.auction_assignment_onehot(torch.from_numpy(c))
+    np.testing.assert_array_equal(perm, ref.numpy())
+    assert rounds == ref_rounds and scans >= n
+    np.testing.assert_array_equal(perm, _jax_onehot(c))
+
+
+def test_kernel_model_equals_plain_at_256(one_thread):
+    c = _cost(256, "gauss", seed=13)
+    perm, rounds, _ = _kernel_model(c)
+    ref, ref_rounds = tau.auction_assignment_onehot(torch.from_numpy(c))
+    np.testing.assert_array_equal(perm, ref.numpy())
+    assert rounds == ref_rounds
 
 
 @pytest.mark.parametrize("perm", [
@@ -214,8 +391,11 @@ def test_kernel_matches_plain_on_cuda(n, kind):
     c = torch.from_numpy(_cost(n, kind, seed=5)).cuda()
     before = tau.pallas_auction_assignment.launches
     perm = tau.pallas_auction_assignment(c)
+    k_rounds = int(tau.pallas_auction_assignment.last_rounds)
     ref, rounds = tau.auction_assignment_onehot(c)
     torch.cuda.synchronize()
     assert tau.pallas_auction_assignment.launches == before + 1
-    assert int(tau.pallas_auction_assignment.last_rounds) == rounds
-    assert torch.equal(perm, ref)
+    assert k_rounds == rounds and int(tau.pallas_auction_assignment.last_row_scans) >= n
+    assert torch.equal(perm, ref) and perm.dtype == torch.int64
+    again = tau.pallas_auction_assignment(c)  # a rerun: the same perm and rounds
+    assert torch.equal(again, perm) and int(tau.pallas_auction_assignment.last_rounds) == rounds

@@ -17,9 +17,18 @@ inputs.
   indices, the cost within 1e-5 and the row error within 1e-4 relative
   (2e-6 absolute for a converged solve, whose error is f32 noise).
 
+- ``_fused_model``, the Hopper kernel's iteration in plain torch (an f
+  pass, then a g pass and one row LSE that gives both the row error and the
+  next f; no error pass at the cap; the last f kept on a stop), against
+  ``flash_sinkhorn_reference`` (the same iteration count, potentials within
+  1e-5 relative) and against ``_flash_kernel`` in interpret mode.
+
 The ``cuda``-marked tests hold the kernel against its plain version on the
 card (f and g within 1e-4 relative + 1e-5 reg absolute at a fixed count;
-the stopping iteration within 1) and skip without one; the chip machine has
+the stopping iteration within 1; a rerun bit for bit), at the path's shape
+and at shapes that take the kernel's other branches (2-D clouds tiled
+through shared memory, d = 32, coordinates read from global memory), and
+skip without one; the chip machine has
 no flax, so this file imports the JAX package only inside the CPU tests.
 """
 
@@ -151,6 +160,100 @@ def test_plain_flash_matches_the_tpu_kernel_in_interpret_mode(n, m, d, reg, iter
     assert torch.equal(fw, f) and torch.equal(gw, g) and int(tfs.flash_sinkhorn.last_iters) == it
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the plain versions' many small ops: under the
+    suite's parallel workers, OpenMP's fork-join barriers otherwise stall
+    each op."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _fused_model(x, y, loga, logb, reg, num_iters, tol):
+    """The kernel's iteration on the plain version's tiles: (f, g,
+    iterations, passes). One f pass from g = 0; then per iteration a g pass
+    and, but at the cap, one row LSE that gives both the row error against f
+    and the next f; on a stop f stays the last f pass's."""
+    t = tfs._Tiled(x, y, reg)
+    loga, logb = loga.float(), logb.float()
+    rows = lambda g: torch.cat([t.row_lse(g, i0) for i0 in range(0, t.n, t.ti)])
+    cols = lambda f: torch.cat([t.col_lse(f, j0) for j0 in range(0, t.m, t.tj)])
+    f, g = torch.zeros(t.n), torch.zeros(t.m)
+    if num_iters <= 0:
+        return f, g, 0, 0
+    f, passes, it = t.reg * (loga - rows(g)), 1, 0
+    while True:
+        g, passes, it = t.reg * (logb - cols(f)), passes + 1, it + 1
+        if it >= num_iters:
+            break
+        lse, passes = rows(g), passes + 1
+        err = torch.sum(torch.abs(torch.exp(lse + f / t.reg) - torch.exp(loga)))
+        if not float(err) > tol:
+            break
+        f = t.reg * (loga - lse)
+    return f, g, it, passes
+
+
+_FUSED_CASES = {
+    "2d_sf2m-like": (256, 256, 2, 2.0, 1000, 1e-6),
+    "n != m, d = 3": (96, 160, 3, 0.5, 1000, 1e-6),
+    "the cap": (256, 256, 2, 2.0, 5, 0.0),
+    "one iteration": (96, 160, 3, 0.5, 1000, 10.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_FUSED_CASES))
+def test_fused_iteration_matches_plain_and_the_tpu_kernel(case, one_thread):
+    n, m, d, reg, iters, tol = _FUSED_CASES[case]
+    x, y = _clouds(n, m, d, seed=n + m)
+    xc, yc = tfs._center(_t(x), _t(y))
+    la = torch.from_numpy(np.log(_weights(n, 17)))
+    lb = torch.full((m,), 1.0 / m).log()
+    f, g, it, passes = _fused_model(xc, yc, la, lb, reg, iters, tol)
+    fr, gr, it_ref = tfs.flash_sinkhorn_reference(xc, yc, la, lb, reg, iters, tol)
+    assert it == it_ref
+    # Two passes an iteration: no error pass at the cap, one more on a stop.
+    assert passes == 2 * it + (0 if it == iters else 1)
+    if case == "the cap":
+        assert it == 5
+    if case == "one iteration":
+        assert it == 1
+    for out, ref in ((f, fr), (g, gr)):
+        np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(ref.abs().max()))
+    fj, gj = _flash_jax(xc.numpy(), yc.numpy(), la.numpy(), lb.numpy(), reg, iters, tol)
+    for out, ref in ((f, fj), (g, gj)):
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("tol", [1e-2, 1e-4, 1e-6])
+def test_fused_model_stops_where_the_plain_error_first_meets_tol(tol, one_thread):
+    """The row error the fused pass measures is the plain version's
+    statistic for the same (f, g): the model stops at the first iteration
+    whose potentials meet tol."""
+    n, m = 64, 80
+    x, y = _clouds(n, m, 2, seed=18)
+    xc, yc = tfs._center(_t(x), _t(y))
+    la, lb = torch.full((n,), 1.0 / n).log(), torch.full((m,), 1.0 / m).log()
+    f, g, it, _ = _fused_model(xc, yc, la, lb, 0.3, 1000, tol)
+    assert 1 < it < 1000
+    assert float(tfs.flash_row_error(xc, yc, f, g, la, 0.3)) <= tol
+    fp, gp, _, _ = _fused_model(xc, yc, la, lb, 0.3, it - 1, 0.0)
+    assert float(tfs.flash_row_error(xc, yc, fp, gp, la, 0.3)) > tol
+
+
+def test_fused_model_with_no_iterations_returns_zeros():
+    x, y = _clouds(8, 8, 2, seed=19)
+    la = torch.full((8,), 1.0 / 8).log()
+    f, g, it, passes = _fused_model(_t(x), _t(y), la, la, 1.0, 0, 1e-6)
+    fr, gr, it_ref = tfs.flash_sinkhorn_reference(_t(x), _t(y), la, la, 1.0, 0, 1e-6)
+    assert it == it_ref == 0 and passes == 0
+    assert torch.equal(f, fr) and torch.equal(g, gr) and not f.any() and not g.any()
+
+
 def test_sinkhorn_from_points_on_the_cpu_is_the_dense_twin():
     import jax.numpy as jnp
 
@@ -241,9 +344,13 @@ def test_wrapper_refuses_bad_inputs():
 
 
 def _card_clouds(n, m, d, seed):
+    """Gaussian clouds, scaled by sqrt(32 / d) beyond d = 32 so that the
+    costs keep the d = 32 clouds' range, where f32 resolves the absolute
+    1e-5 reg of the tolerance (at costs near 9,000 an ulp is 1e-3)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn(n, d, device="cuda", generator=g)
-    y = torch.randn(m, d, device="cuda", generator=g) * 1.3 + 0.5
+    s = min(1.0, (32 / d) ** 0.5)
+    x = torch.randn(n, d, device="cuda", generator=g) * s
+    y = (torch.randn(m, d, device="cuda", generator=g) * 1.3 + 0.5) * s
     return tfs._center(x, y)
 
 
@@ -254,6 +361,8 @@ def _card_clouds(n, m, d, seed):
     (512, 512, 32, 4.0, False),    # d = 32: the generic dimension loop
     (640, 384, 2, 1.0, True),      # a non-uniform loga
     (512, 512, 2, 0.05, False),    # a small reg
+    (4096, 4096, 2, 2.0, False),   # d = 2 beyond the clouds' room in shared memory: tiled
+    (128, 128, 3072, 4.0, False),  # CIFAR-10's width, scaled: coordinates in global memory
 ])
 def test_kernel_matches_plain_on_cuda(n, m, d, reg, weighted):
     if not torch.cuda.is_available():
@@ -276,4 +385,5 @@ def test_kernel_matches_plain_on_cuda(n, m, d, reg, weighted):
     _, _, p_it = tfs.flash_sinkhorn_reference(x, y, la, lb, reg, 2000, 1e-6)
     assert abs(k_it - p_it) <= 1, (k_it, p_it)
     f2, g2 = tfs.flash_sinkhorn(x, y, la, lb, reg, 2000, 1e-6)
-    assert torch.equal(f, f2) and torch.equal(g, g2)  # a fixed-order error sum
+    assert int(tfs.flash_sinkhorn.last_iters.item()) == k_it
+    assert torch.equal(f, f2) and torch.equal(g, g2)  # a fixed-order error sum, bit for bit
