@@ -53,235 +53,23 @@
 // - float32, and other head dims, run on the FMA kernel of the attention
 //   block's stage (c) (attn_block_common.cuh, attention_kernel): a tensor
 //   core would make f32 products TF32. No path runs them.
+// - The kernels live in sm90_attention_fwd.cuh, with the tiles' places in
+//   device memory as a layout policy (HeadsLayout here), so the
+//   attention-block forward #1 runs the same kernels on its qkv buffer.
 
 #include "attn_block_common.cuh"
-#include "sm90_attention.cuh"
+#include "sm90_attention_fwd.cuh"
 
 namespace {
 
 using namespace sm90;
 
-constexpr int kWarpgroup = 128;
-
-// Blocks an SM holds of the resident kernel (its registers are held to
-// 65536 / (128 x blocks)).
-__host__ __device__ constexpr int resident_blocks(int D, int T) { return D == 64 && T == 4 ? 3 : 1; }
-
-constexpr size_t resident_smem(int D, int T) {
-  return 1024 + (size_t)(1 + 2 * T) * 2 * kRows * D + 2 * sizeof(uint64_t);
-}
-
-// S = 64 T <= 256: one block per 64-query tile of one (item, head). Q and K
-// arrive on one barrier, V on another, so V streams in while the logits and
-// the softmax are computed.
-template <int D, int T>
-__global__ void __launch_bounds__(kWarpgroup, resident_blocks(D, T))
-attention_resident(const __grid_constant__ CUtensorMap qkv_map,
-                   const __grid_constant__ CUtensorMap out_map, int H, float scale) {
-  constexpr int S = 64 * T;
-  extern __shared__ uint8_t smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(align_1024(smem_raw));
-  bf16* Ks = Qs + tile_elems<D>();
-  bf16* Vs = Ks + T * tile_elems<D>();
-  uint64_t* bar = reinterpret_cast<uint64_t*>(Vs + T * tile_elems<D>());
-  const int tid = threadIdx.x, h = blockIdx.y, n = blockIdx.z;
-  const int row_q = ((n * 3) * H + h) * S, row_k = row_q + H * S, row_v = row_k + H * S;
-  if (tid == 0) {
-    mbar_init(&bar[0], 1);
-    mbar_init(&bar[1], 1);
-    mbar_fence_init();
-  }
-  __syncthreads();
-  if (tid == 0) {
-    mbar_expect_tx(&bar[0], (1 + T) * tile_bytes<D>());
-    load_tile<D>(Qs, &qkv_map, &bar[0], row_q + 64 * blockIdx.x);
-    for (int j = 0; j < T; ++j) load_tile<D>(Ks + j * tile_elems<D>(), &qkv_map, &bar[0], row_k + 64 * j);
-    mbar_expect_tx(&bar[1], T * tile_bytes<D>());
-    for (int j = 0; j < T; ++j) load_tile<D>(Vs + j * tile_elems<D>(), &qkv_map, &bar[1], row_v + 64 * j);
-  }
-  const float ls = logit_scale(scale);
-  mbar_wait(&bar[0], 0);
-  float l[T][32];
-  wgmma_fence();
-#pragma unroll
-  for (int j = 0; j < T; ++j) issue_nt<D>(l[j], Qs, Ks + j * tile_elems<D>());
-  wgmma_commit();
-  wgmma_wait_all();
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int j = 0; j < T; ++j) {
-    fence_regs(l[j]);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) mx[half_of(i)] = fmaxf(mx[half_of(i)], l[j][i]);
-  }
-  const float m[2] = {__fmul_rn(quad_max(mx[0]), ls), __fmul_rn(quad_max(mx[1]), ls)};
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < T; ++j)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      l[j][i] = softmax_exp(l[j][i], ls, m[half_of(i)]);
-      sum[half_of(i)] += l[j][i];
-    }
-  const float inv[2] = {__frcp_rn(quad_sum(sum[0])), __frcp_rn(quad_sum(sum[1]))};
-  uint32_t frag[T][16];
-#pragma unroll
-  for (int j = 0; j < T; ++j) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i) l[j][i] *= inv[half_of(i)];
-    to_frags(l[j], frag[j]);  // the f32 tile dies here
-  }
-  mbar_wait(&bar[1], 0);
-  float o[D / 64][32];
-  wgmma_fence();
-#pragma unroll
-  for (int j = 0; j < T; ++j) issue_nn<D>(o, frag[j], Vs + j * tile_elems<D>(), j);
-  wgmma_commit();
-  wgmma_wait_all();
-#pragma unroll
-  for (int p = 0; p < D / 64; ++p) fence_regs(o[p]);
-  stage_acc<D>(Qs, o);  // Q's tile is free once the logits are in
-  store_tile<D>(Qs, &out_map, (n * H + h) * S + 64 * blockIdx.x);
-}
-
-template <int D, int R>
-constexpr size_t streamed_smem() {
-  return 1024 + (size_t)(1 + R) * tile_bytes<D>() + (1 + R) * sizeof(uint64_t);
-}
-
-// Any S (a multiple of 64): one block per 64-query tile, two passes over the
-// key tiles through a ring of R slots. Load i of the 3 S / 64 is K tile i in
-// the first pass, then K and V of tile (i - T) / 2 in turn.
-template <int D, int R>
-__global__ void __launch_bounds__(kWarpgroup, 1)
-attention_streamed(const __grid_constant__ CUtensorMap qkv_map,
-                   const __grid_constant__ CUtensorMap out_map, int H, int S, float scale) {
-  extern __shared__ uint8_t smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(align_1024(smem_raw));
-  bf16* ring = Qs + tile_elems<D>();
-  uint64_t* bar_q = reinterpret_cast<uint64_t*>(ring + R * tile_elems<D>());
-  uint64_t* full = bar_q + 1;
-  const int tid = threadIdx.x, h = blockIdx.y, n = blockIdx.z;
-  const int T = S / 64, loads = 3 * T;
-  const int row_q = ((n * 3) * H + h) * S, row_k = row_q + H * S;
-  auto issue = [&](int i) {  // thread 0 only
-    const int which = i < T ? 0 : (i - T) & 1, j = i < T ? i : (i - T) >> 1;
-    mbar_expect_tx(&full[i % R], tile_bytes<D>());
-    load_tile<D>(ring + (i % R) * tile_elems<D>(), &qkv_map, &full[i % R],
-                 row_k + which * H * S + 64 * j);
-  };
-  auto acquire = [&](int i) {
-    mbar_wait(&full[i % R], (i / R) & 1);
-    return ring + (i % R) * tile_elems<D>();
-  };
-  auto release = [&](int i) {  // every thread is done with load i's slot
-    __syncthreads();
-    if (tid == 0 && i + R < loads) issue(i + R);
-  };
-  if (tid == 0) {
-    mbar_init(bar_q, 1);
-    for (int s = 0; s < R; ++s) mbar_init(&full[s], 1);
-    mbar_fence_init();
-  }
-  __syncthreads();
-  if (tid == 0) {
-    mbar_expect_tx(bar_q, tile_bytes<D>());
-    load_tile<D>(Qs, &qkv_map, bar_q, row_q + 64 * blockIdx.x);
-    for (int i = 0; i < R && i < loads; ++i) issue(i);
-  }
-  const float ls = logit_scale(scale);
-  mbar_wait(bar_q, 0);
-
-  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
-  for (int j = 0; j < T; ++j) {
-    float l[32];
-    const bf16* K = acquire(j);
-    wgmma_fence();
-    issue_nt<D>(l, Qs, K);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(l);
-    release(j);
-    float tm[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) tm[half_of(i)] = fmaxf(tm[half_of(i)], l[i]);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m = fmaxf(mx[r], __fmul_rn(quad_max(tm[r]), ls));
-      sum[r] *= exp2_approx(mx[r] - m);
-      mx[r] = m;
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) sum[half_of(i)] += softmax_exp(l[i], ls, mx[half_of(i)]);
-  }
-  const float inv[2] = {__frcp_rn(quad_sum(sum[0])), __frcp_rn(quad_sum(sum[1]))};
-
-  float o[D / 64][32];
-  for (int j = 0; j < T; ++j) {
-    const int i = T + 2 * j;
-    float l[32];
-    const bf16* K = acquire(i);
-    wgmma_fence();
-    issue_nt<D>(l, Qs, K);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(l);
-    release(i);
-#pragma unroll
-    for (int e = 0; e < 32; ++e) l[e] = softmax_exp(l[e], ls, mx[half_of(e)]) * inv[half_of(e)];
-    uint32_t frag[16];
-    to_frags(l, frag);
-    const bf16* V = acquire(i + 1);
-    wgmma_fence();
-    issue_nn<D>(o, frag, V, j);
-    wgmma_commit();
-    wgmma_wait_all();
-#pragma unroll
-    for (int p = 0; p < D / 64; ++p) fence_regs(o[p]);
-    release(i + 1);
-  }
-  stage_acc<D>(Qs, o);
-  store_tile<D>(Qs, &out_map, (n * H + h) * S + 64 * blockIdx.x);
-}
-
-// The ring's depth: 64 KB of K and V tiles in flight.
-template <int D> constexpr int ring_slots() { return D == 64 ? 8 : 4; }
-
-template <typename Kernel>
-int set_smem(Kernel kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
-}
-
-template <int D, int T>
-int launch_resident(const CUtensorMap& qkv_map, const CUtensorMap& out_map, int N, int H,
-                    float scale, cudaStream_t st) {
-  constexpr size_t smem = resident_smem(D, T);
-  if (int err = set_smem(attention_resident<D, T>, smem)) return err;
-  attention_resident<D, T><<<dim3(T, H, N), kWarpgroup, smem, st>>>(qkv_map, out_map, H, scale);
-  return (int)cudaGetLastError();
-}
-
 template <int D>
-int launch_tensor_core(const bf16* qkv, bf16* out, int N, int H, int S, float scale,
-                       cudaStream_t st) {
+int launch_heads(const bf16* qkv, bf16* out, int N, int H, int S, float scale, cudaStream_t st) {
   CUtensorMap qkv_map, out_map;
   if (int err = make_tile_map(&qkv_map, qkv, D, 3LL * N * H * S)) return err;
   if (int err = make_tile_map(&out_map, out, D, (long long)N * H * S)) return err;
-  switch (S / 64) {
-    case 1: return launch_resident<D, 1>(qkv_map, out_map, N, H, scale, st);
-    case 2: return launch_resident<D, 2>(qkv_map, out_map, N, H, scale, st);
-    case 3: return launch_resident<D, 3>(qkv_map, out_map, N, H, scale, st);
-    case 4: return launch_resident<D, 4>(qkv_map, out_map, N, H, scale, st);
-    default: {
-      constexpr int R = ring_slots<D>();
-      constexpr size_t smem = streamed_smem<D, R>();
-      if (int err = set_smem(attention_streamed<D, R>, smem)) return err;
-      attention_streamed<D, R><<<dim3(S / 64, H, N), kWarpgroup, smem, st>>>(qkv_map, out_map, H,
-                                                                            S, scale);
-      return (int)cudaGetLastError();
-    }
-  }
+  return launch_tensor_core<D>(qkv_map, out_map, HeadsLayout{H, S}, N, scale, st);
 }
 
 bool tensor_core_route(int D, int dtype) { return dtype == 1 && (D == 64 || D == 128); }
@@ -295,8 +83,7 @@ extern "C" {
 // per-block limit.
 size_t attention_fwd_smem(int S, int D, int dtype) {
   if (!tensor_core_route(D, dtype)) return attention_smem(S, D);
-  if (S <= 256) return resident_smem(D, S / 64);
-  return D == 64 ? streamed_smem<64, ring_slots<64>()>() : streamed_smem<128, ring_slots<128>()>();
+  return D == 64 ? tensor_core_smem<64>(S) : tensor_core_smem<128>(S);
 }
 
 // qkv: (N, 3, H, S, D), out: (N, H, S, D), both contiguous in the model
@@ -310,8 +97,8 @@ int attention_fwd(const void* qkv, void* out, int N, int H, int S, int D, float 
     if (S % 64) return (int)cudaErrorInvalidValue;
     const bf16* q = static_cast<const bf16*>(qkv);
     bf16* o = static_cast<bf16*>(out);
-    return D == 64 ? launch_tensor_core<64>(q, o, N, H, S, scale, st)
-                   : launch_tensor_core<128>(q, o, N, H, S, scale, st);
+    return D == 64 ? launch_heads<64>(q, o, N, H, S, scale, st)
+                   : launch_heads<128>(q, o, N, H, S, scale, st);
   }
   const int SD = S * D;
   const AttnLayout L{3 * H * SD, SD, H * SD, D, H * SD, SD, D};

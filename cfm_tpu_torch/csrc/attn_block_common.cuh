@@ -1,11 +1,11 @@
 // Stage kernels shared by the attention-block forward (attn_block_fwd.cu)
 // and backward (attn_block_bwd.cu) and by the multi-head attention forward
 // (attention_fwd.cu) and backward (attention_bwd.cu): GroupNorm statistics,
-// the f32 FMA GEMM and the bf16 mma.sync GEMM with their operand loaders and
-// epilogues, the attention stage (softmax(q k^T) v per item and head, on any
-// row layout), and the batched GEMMs and softmax row passes of the
-// recomputing attention backward. See attn_block_fwd.cu for the rounding
-// points they keep.
+// the f32 FMA GEMM and the bf16 mma.sync GEMM (the backward's) with their
+// operand loaders and epilogues, the FMA attention stage (softmax(q k^T) v
+// per item and head, on any row layout), and the batched GEMMs and softmax
+// row passes of the recomputing attention backward. See attn_block_fwd.cu
+// for the rounding points they keep.
 
 #pragma once
 
@@ -47,7 +47,8 @@ __device__ float block_sum(float v, float* red) {
   return v;
 }
 
-// (a) GroupNorm statistics: one block per (item, group).
+// (a) GroupNorm statistics: one block per (item, group) (the float32
+// forward and the backward; the bf16 forward's GroupNorm is gn_strip.cuh).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 gn_stats_kernel(const T* __restrict__ x, float* __restrict__ mean,
@@ -218,7 +219,8 @@ __global__ void round_transpose_kernel(const float* __restrict__ w, bf16* __rest
   }
 }
 
-// (b)/(d) GEMM out[m, n] = sum_k A(m, k) * Bt[n, k] over 128x128 block tiles,
+// The backward's recomputed qkv GEMM (the bf16 forward's GEMMs are TMA +
+// wgmma, attn_block_fwd.cu): out[m, n] = sum_k A(m, k) * Bt[n, k] over 128x128 block tiles,
 // K in steps of 32; 8 warps in a 2x4 grid, each a 64x32 warp tile of 4x4
 // mma tiles. ``aload(m, k)`` returns A(m, k..k+7) as 8 bf16 (16 bytes).
 // Shared-memory rows are padded to 40 bf16 so the fragment loads of a warp
@@ -310,14 +312,6 @@ struct GnTokens8 {
       o[j / 2] = pack_bf16(v[0], v[1]);
     }
     return out;
-  }
-};
-
-// (d) A operand: the context rows, already bf16.
-struct Rows8 {
-  const bf16* a; int ld;
-  __device__ uint4 operator()(int m, int k) const {
-    return *reinterpret_cast<const uint4*>(a + (size_t)m * ld + k);
   }
 };
 
@@ -429,170 +423,12 @@ size_t attention_smem(int S, int D) {
   return sizeof(float) * ((size_t)QT * D + (size_t)QT * S + (size_t)KT * (D + 1));
 }
 
-// The tensor-core kernel, for one (64-query tile, head, item): 4 warps of 16
-// query rows each, keys in tiles of 64 staged in shared memory (K as is, V
-// transposed so both are B operands with contiguous k). Three passes over the
-// key tiles recompute the same logits bit for bit: the row max, the row sum
-// of exp(l - max), then the rounded weights times V. This keeps the exact
-// e / sum(e) of the TPU kernel, which an online (flash) softmax would not.
-// At D = 64 the launch bound holds the kernel to 128 registers, four blocks
-// per SM (left free it takes 134 and three, 4-6% slower on an H100).
-constexpr int AQ = 64, AK = 64;
-
-template <int D>
-__global__ void __launch_bounds__(128, D == 64 ? 4 : 1)
-attention_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, AttnLayout L, int S,
-                     float scale) {
-  __shared__ __align__(16) bf16 Ks[AK][D + 8];
-  __shared__ __align__(16) bf16 Vt[D][AK + 8];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * AQ + warp * 16, h = blockIdx.y, n = blockIdx.z;
-  const int ld = L.in_row;
-  const bf16* qb = qkv + (size_t)n * L.in_item + (size_t)h * L.in_head;
-  const bf16* kbase = qb + L.in_comp;
-  const bf16* vbase = kbase + L.in_comp;
-
-  // This warp's 16 query rows as A fragments, kept in registers.
-  uint32_t qa[D / 16][4];
-  {
-    const int r0 = q0 + g, r1 = q0 + g + 8;
-    const bf16* p0 = qb + (size_t)r0 * ld;
-    const bf16* p1 = qb + (size_t)r1 * ld;
-#pragma unroll
-    for (int kt = 0; kt < D / 16; ++kt) {
-      const int c = kt * 16 + 2 * t;
-      qa[kt][0] = r0 < S ? ld32(p0 + c) : 0u;
-      qa[kt][1] = r1 < S ? ld32(p1 + c) : 0u;
-      qa[kt][2] = r0 < S ? ld32(p0 + c + 8) : 0u;
-      qa[kt][3] = r1 < S ? ld32(p1 + c + 8) : 0u;
-    }
-  }
-
-  auto load_k = [&](int k0) {
-    for (int c = tid; c < AK * D / 8; c += 128) {
-      const int kj = c / (D / 8), d = (c % (D / 8)) * 8;
-      *reinterpret_cast<uint4*>(&Ks[kj][d]) =
-          k0 + kj < S ? *reinterpret_cast<const uint4*>(kbase + (size_t)(k0 + kj) * ld + d)
-                      : make_uint4(0, 0, 0, 0);
-    }
-  };
-  auto load_v = [&](int k0) {
-    for (int c = tid; c < AK * D / 8; c += 128) {
-      const int kj = c % AK, d = (c / AK) * 8;
-      uint4 raw = k0 + kj < S ? *reinterpret_cast<const uint4*>(vbase + (size_t)(k0 + kj) * ld + d)
-                              : make_uint4(0, 0, 0, 0);
-      const bf16* v = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-      for (int u = 0; u < 8; ++u) Vt[d + u][kj] = v[u];
-    }
-  };
-  // Logits of this warp's rows against the staged key tile, scaled, with
-  // keys past S at -inf. l[j][0..1]: row g, keys 8j+2t..; l[j][2..3]: row g+8.
-  auto logits = [&](int k0, float (&l)[AK / 8][4]) {
-#pragma unroll
-    for (int j = 0; j < AK / 8; ++j) {
-      l[j][0] = l[j][1] = l[j][2] = l[j][3] = 0.f;
-#pragma unroll
-      for (int kt = 0; kt < D / 16; ++kt)
-        mma_bf16(l[j], qa[kt], ld32(&Ks[j * 8 + g][kt * 16 + 2 * t]),
-                 ld32(&Ks[j * 8 + g][kt * 16 + 2 * t + 8]));
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        l[j][r] = k0 + j * 8 + 2 * t + (r & 1) < S ? l[j][r] * scale : -INFINITY;
-    }
-  };
-  auto quad_max = [](float v) {
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-    return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-  };
-  auto quad_sum = [](float v) {
-    v += __shfl_xor_sync(0xffffffffu, v, 1);
-    return v + __shfl_xor_sync(0xffffffffu, v, 2);
-  };
-
-  float l[AK / 8][4];
-  float mx[2] = {-INFINITY, -INFINITY};
-  for (int k0 = 0; k0 < S; k0 += AK) {
-    __syncthreads();
-    load_k(k0);
-    __syncthreads();
-    logits(k0, l);
-#pragma unroll
-    for (int j = 0; j < AK / 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) mx[r >> 1] = fmaxf(mx[r >> 1], l[j][r]);
-  }
-  mx[0] = quad_max(mx[0]);
-  mx[1] = quad_max(mx[1]);
-
-  float sum[2] = {0.f, 0.f};
-  for (int k0 = 0; k0 < S; k0 += AK) {
-    __syncthreads();
-    load_k(k0);
-    __syncthreads();
-    logits(k0, l);
-#pragma unroll
-    for (int j = 0; j < AK / 8; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) sum[r >> 1] += expf(l[j][r] - mx[r >> 1]);
-  }
-  sum[0] = quad_sum(sum[0]);
-  sum[1] = quad_sum(sum[1]);
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  for (int k0 = 0; k0 < S; k0 += AK) {
-    __syncthreads();
-    load_k(k0);
-    load_v(k0);
-    __syncthreads();
-    logits(k0, l);
-#pragma unroll
-    for (int kt = 0; kt < AK / 16; ++kt) {
-      float w[2][4];
-#pragma unroll
-      for (int u = 0; u < 2; ++u)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          w[u][r] = expf(l[2 * kt + u][r] - mx[r >> 1]) / sum[r >> 1];
-      const uint32_t a[4] = {pack_bf16(w[0][0], w[0][1]), pack_bf16(w[0][2], w[0][3]),
-                             pack_bf16(w[1][0], w[1][1]), pack_bf16(w[1][2], w[1][3])};
-#pragma unroll
-      for (int dj = 0; dj < D / 8; ++dj)
-        mma_bf16(o[dj], a, ld32(&Vt[dj * 8 + g][kt * 16 + 2 * t]),
-                 ld32(&Vt[dj * 8 + g][kt * 16 + 2 * t + 8]));
-    }
-  }
-  bf16* ob = out + (size_t)n * L.out_item + (size_t)h * L.out_head;
-#pragma unroll
-  for (int dj = 0; dj < D / 8; ++dj)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int s = q0 + g + 8 * half;
-      if (s < S)
-        *reinterpret_cast<uint32_t*>(ob + (size_t)s * L.out_row + dj * 8 + 2 * t) =
-            pack_bf16(o[dj][2 * half], o[dj][2 * half + 1]);
-    }
-}
-
-// The attention stage for T: bf16 on tensor cores at head dims 64 and 128,
-// other head dims and float on the FMA kernel. Returns 0 or a CUDA error.
+// The FMA attention stage for T (float32, and bf16 at head dims other than
+// 64 and 128; bf16 at 64 and 128 runs the TMA + wgmma kernels of
+// sm90_attention_fwd.cuh). Returns 0 or a CUDA error.
 template <typename T>
 int launch_attention(const T* qkv, T* out, AttnLayout L, int N, int S, int H, int D, float scale,
                      cudaStream_t stream) {
-  if constexpr (sizeof(T) == 2) {
-    const dim3 grid((S + AQ - 1) / AQ, H, N);
-    if (D == 64) {
-      attention_mma_kernel<64><<<grid, 128, 0, stream>>>(qkv, out, L, S, scale);
-      return (int)cudaGetLastError();
-    }
-    if (D == 128) {
-      attention_mma_kernel<128><<<grid, 128, 0, stream>>>(qkv, out, L, S, scale);
-      return (int)cudaGetLastError();
-    }
-  }
   const size_t smem = attention_smem(S, D);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -752,7 +588,7 @@ fgemm_kernel(int M, int Ncols, int K, int kchunk, ALoad aload, BLoad bload, Epi 
 // values: the loaders return floats that bf16 represents exactly, so the
 // products are exact and only the f32 accumulation order differs from the
 // FMA kernel. 128x128 block tiles, K in steps of 32, 8 warps of 64x32 (the
-// forward's mma_gemm_kernel layout). The tile load maps threads along each
+// mma_gemm_kernel layout). The tile load maps threads along each
 // operand's contiguous index and stores bf16 into (row, k) shared tiles.
 template <typename ALoad, typename BLoad, typename Epi>
 __global__ void __launch_bounds__(kThreads)

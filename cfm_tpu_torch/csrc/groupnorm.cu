@@ -18,15 +18,26 @@
 //             rounded to x's dtype; dscale = sum of dy * norm and dbias = sum
 //             of dy over items and pixels, in f32.
 //
-// Layout. x is (N, HW, C) with groups of cg = C / G contiguous channels. One
-// block per (item, group) would read cg = 1-4 channels (every MNIST shape) at
-// a stride of C: 2 to 16 bytes of each 32-byte sector. Instead a block takes
-// one item and a strip of whole groups about 32 channels wide, and its
-// threads read the strip row by row, neighbouring threads on neighbouring
-// channels: each warp's load is one contiguous run of a row (64 bytes in
-// bf16, 128 in f32). Each thread keeps one column, sums it over its rows,
-// and the block folds the column sums into group sums in shared memory, as
-// the TPU kernel folds its (1, C) column sums with one-hot matmuls.
+// Forward (#8, redesigned): gn_strip.cuh. A block holds a strip of whole
+// groups, a multiple of 16 bytes wide, on chip: its rows arrive once by TMA,
+// both statistics passes and the output pass read shared memory, and a
+// thread-block cluster splits the rows of a strip too large for one block,
+// combining per-channel sums through distributed shared memory in a fixed
+// order. The plan comes from ops/groupnorm.py:strip_plan. Only the
+// statistics' summation order changed from the first design (strips about
+// 32 channels wide read three times from device memory, one element a
+// thread); the affine, the SiLU and the rounding are as they were.
+//
+// Backward (#9), layout. x is (N, HW, C) with groups of cg = C / G
+// contiguous channels. One block per (item, group) would read cg = 1-4
+// channels (every MNIST shape) at a stride of C: 2 to 16 bytes of each
+// 32-byte sector. Instead a block takes one item and a strip of whole groups
+// about 32 channels wide, and its threads read the strip row by row,
+// neighbouring threads on neighbouring channels: each warp's load is one
+// contiguous run of a row (64 bytes in bf16, 128 in f32). Each thread keeps
+// one column, sums it over its rows, and the block folds the column sums
+// into group sums in shared memory, as the TPU kernel folds its (1, C)
+// column sums with one-hot matmuls.
 //
 // Cross-item sums. dscale and dbias sum over all items. The TPU kernel
 // carries them across its sequential grid; blocks here run in no order, so
@@ -34,16 +45,17 @@
 // adds the items in a fixed order: the result does not change from run to
 // run (no atomics).
 //
-// What bounds it: bytes. A few dozen flops per element against reading x
-// (and g) and writing the output. The forward reads a block's strip three
-// times and the backward twice; the repeat reads (a strip is at most 64 KB in
-// bf16 at 32x32 and 32 channels) mostly hit the 50 MB L2. Keeping the strip
-// on chip and 16-byte loads are later work; chip_smoke.py reports the bound
-// (bytes at 3.35 TB/s) beside the kernels' times.
+// What bounds them: bytes. A few dozen flops per element against reading x
+// (and g) and writing the output. The forward reads x from device memory
+// once; the backward reads its strip twice, the repeat mostly from the 50 MB
+// L2. chip_smoke.py reports the bound (bytes at 3.35 TB/s) beside the
+// kernels' times.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+
+#include "gn_strip.cuh"
 
 namespace {
 
@@ -80,14 +92,6 @@ struct Strip {
   }
 };
 
-// Sum of part[rr * W + j] over the R row slots and the cg columns j of group k.
-__device__ float fold_group(const float* part, int k, int cg, int W, int R) {
-  float s = 0.f;
-  for (int j = k * cg; j < (k + 1) * cg; ++j)
-    for (int rr = 0; rr < R; ++rr) s += part[rr * W + j];
-  return s;
-}
-
 template <bool kSilu>
 __device__ __forceinline__ float dy_of(float g, float norm, float sc, float bi) {
   if (!kSilu) return g;
@@ -95,53 +99,26 @@ __device__ __forceinline__ float dy_of(float g, float norm, float sc, float bi) 
   return g * s * (1.f + y * (1.f - s));
 }
 
+// #8's epilogue: y = (x - mean) * inv * scale + bias, then y * sigmoid(y)
+// with SiLU, rounded once to T; the per-channel mean and inv are kept for
+// the backward.
 template <typename T, bool kSilu>
-__global__ void __launch_bounds__(kThreads)
-gn_silu_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                   const float* __restrict__ bias, T* __restrict__ out,
-                   float* __restrict__ mean_c, float* __restrict__ inv_c,
-                   int HW, int C, int G, int cg, int gpb, float eps) {
-  __shared__ float part[kThreads];
-  __shared__ float gmean[kStrip], ginv[kStrip];
-  const Strip s(G, cg, gpb);
-  const int n = blockIdx.y, c = s.c0 + s.col, k = s.col / cg;
-  const size_t base = (size_t)n * HW * C + c;
-  const float cnt = (float)HW * (float)cg;
-
-  float acc = 0.f;
-  if (s.active)
-    for (int r = s.r0; r < HW; r += s.R) acc += to_f<T>(x[base + (size_t)r * C]);
-  part[threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.x < s.ng) gmean[threadIdx.x] = fold_group(part, threadIdx.x, cg, s.W, s.R) / cnt;
-  __syncthreads();
-  const float mu = gmean[k];
-
-  acc = 0.f;
-  if (s.active)
-    for (int r = s.r0; r < HW; r += s.R) {
-      const float d = to_f<T>(x[base + (size_t)r * C]) - mu;
-      acc = fmaf(d, d, acc);
-    }
-  part[threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.x < s.ng)
-    ginv[threadIdx.x] = 1.f / sqrtf(fold_group(part, threadIdx.x, cg, s.W, s.R) / cnt + eps);
-  __syncthreads();
-  if (!s.active) return;
-  const float inv = ginv[k];
-  if (s.r0 == 0) {
-    mean_c[(size_t)n * C + c] = mu;
-    inv_c[(size_t)n * C + c] = inv;
+struct SiluOut {
+  T* out;
+  const float* scale;
+  const float* bias;
+  float* mean_c;
+  float* inv_c;
+  __device__ void stats(size_t i, float mu, float inv) const {
+    mean_c[i] = mu;
+    inv_c[i] = inv;
   }
-  const float sc = scale[c], bi = bias[c];
-  for (int r = s.r0; r < HW; r += s.R) {
-    const size_t i = base + (size_t)r * C;
-    float y = (to_f<T>(x[i]) - mu) * inv * sc + bi;
+  __device__ static float apply(float x, float mu, float inv, float sc, float bi) {
+    float y = (x - mu) * inv * sc + bi;
     if (kSilu) y = y * sigmoid(y);
-    out[i] = from_f<T>(y);
+    return y;
   }
-}
+};
 
 // dx for one item's strip; the item's column sums of dy and dy * norm go to
 // ws_db and ws_ds (N, C) for gn_silu_wgrad_kernel.
@@ -231,26 +208,27 @@ bool bad_shape(int N, int HW, int C, int G) {
 
 extern "C" {
 
-// x, out: (N, HW, C) float32 (dtype 0) or bfloat16 (dtype 1); scale, bias:
-// (C,) f32; mean, inv: (N, C) f32 out. Returns 0 or the CUDA error code.
+// x, out: (N, HW, C) float32 (dtype 0) or bfloat16 (dtype 1), x 16-byte
+// aligned; scale, bias: (C,) f32; mean, inv: (N, C) f32 out. (width,
+// cluster, items, rows, box_rows, boxes): the plan of strip_plan. Returns 0
+// or the CUDA error code.
 int gn_silu_fwd(const void* x, const float* scale, const float* bias, void* out, float* mean,
-                float* inv, int N, int HW, int C, int G, float eps, int silu, int dtype,
-                void* stream) {
-  if (bad_shape(N, HW, C, G)) return (int)cudaErrorInvalidValue;
-  const int cg = C / G, gpb = groups_per_block(cg);
-  const dim3 grid((G + gpb - 1) / gpb, N);
+                float* inv, int N, int HW, int C, int G, float eps, int silu, int dtype, int width,
+                int cluster, int items, int rows, int box_rows, int boxes, void* stream) {
+  const gnstrip::Plan plan{width, cluster, items, rows, box_rows, boxes};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GN_FWD(T, S)                                                                      \
-  gn_silu_fwd_kernel<T, S><<<grid, kThreads, 0, st>>>(static_cast<const T*>(x), scale, bias, \
-                                                      static_cast<T*>(out), mean, inv, HW, C, \
-                                                      G, cg, gpb, eps)
+#define GN_FWD(T, S)                                                                        \
+  return gnstrip::launch<T>(static_cast<const T*>(x),                                       \
+                            SiluOut<T, S>{static_cast<T*>(out), scale, bias, mean, inv}, N, \
+                            HW, C, G, plan, eps, st)
   if (dtype == 0) {
     if (silu) GN_FWD(float, true); else GN_FWD(float, false);
-  } else {
+  }
+  if (dtype == 1) {
     if (silu) GN_FWD(bf16, true); else GN_FWD(bf16, false);
   }
 #undef GN_FWD
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 // x, g, dx: (N, HW, C) of dtype; scale, bias: (C,) f32; mean, inv: (N, C) f32

@@ -1,8 +1,12 @@
 // Hopper (sm_90a) building blocks of the multi-head attention kernels #3
-// (attention_fwd.cu) and #4 (attention_bwd.cu): 64-row bf16 tiles loaded by
-// TMA into 128-byte-swizzled shared memory and signalled on mbarriers, and
-// the warpgroup product wgmma m64n64k16 (bf16 operands, f32 accumulators) on
-// those tiles, with A read from shared memory or from registers.
+// (attention_fwd.cu) and #4 (attention_bwd.cu), also used by the
+// attention-block forward #1 (attn_block_fwd.cu) and the GroupNorm forward
+// #8 (gn_strip.cuh): 64-row bf16 tiles loaded by TMA into 128-byte-swizzled
+// shared memory and signalled on mbarriers, and the warpgroup products wgmma
+// m64n64k16 and m64n128k16 (bf16 operands, f32 accumulators) on those
+// tiles, with A read from shared memory or from registers; tensor maps of
+// rank 2 and 3, and the thread-block-cluster barrier and distributed
+// shared-memory reads.
 //
 // A tile holds 64 rows (queries or keys) of one (item, head) and all D
 // columns, as D / 64 panels of 64 rows x 128 bytes, each the box of one TMA
@@ -98,6 +102,21 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
+// A box of a rank-3 tensor map at (c0, c1, c2), innermost first. Elements
+// out of the tensor's bounds arrive as zeros and count toward the bytes.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
 // ``bytes`` (a multiple of 16) of contiguous global memory into shared memory.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
                                           uint64_t* bar) {
@@ -117,10 +136,13 @@ __device__ __forceinline__ void load_tile(bf16* dst, const CUtensorMap* map, uin
   for (int p = 0; p < D / kPanel; ++p) tma_load(dst + p * kPanelElems, map, bar, p * kPanel, row);
 }
 
-// The tensor map of a contiguous bf16 (rows, D) tensor in 64 x 64 boxes with
-// the 128-byte swizzle. cuTensorMapEncodeTiled is a driver function; it is
-// looked up through the runtime, so the library needs no link to libcuda.
-inline int make_tile_map(CUtensorMap* map, const void* base, int D, long long rows) {
+// A tiled tensor map of rank 2 or 3: ``dims`` elements innermost first,
+// ``strides`` the bytes between steps of dims 1 and 2, ``box`` the elements
+// of one TMA box. cuTensorMapEncodeTiled is a driver function; it is looked
+// up through the runtime, so the library needs no link to libcuda.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+                      const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                      CUtensorMapSwizzle swizzle) {
   using Encode = decltype(&cuTensorMapEncodeTiled);
   static Encode encode = nullptr;
   if (encode == nullptr) {
@@ -137,15 +159,33 @@ inline int make_tile_map(CUtensorMap* map, const void* base, int D, long long ro
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorSymbolNotFound;
     encode = reinterpret_cast<Encode>(fn);
   }
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The tensor map of a contiguous bf16 (rows, D) matrix in 64 x 64 boxes with
+// the 128-byte swizzle.
+inline int make_tile_map(CUtensorMap* map, const void* base, int D, long long rows) {
   const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)D * sizeof(bf16)};
   const cuuint32_t box[2] = {kPanel, kRows};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// 64 x 64 swizzled boxes over the rank-3 bf16 tensor (items, rows, cols),
+// contiguous: a box never crosses from one item's rows into the next's, so
+// rows past ``rows`` load as zeros and are not stored.
+inline int make_item_map(CUtensorMap* map, const void* base, int cols, int rows, int items) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)items};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * sizeof(bf16),
+                                 (cuuint64_t)cols * rows * sizeof(bf16)};
+  const cuuint32_t box[3] = {kPanel, kRows, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // The epilogue: a 64-row output tile is rounded to bf16 into a free tile of
@@ -157,6 +197,14 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* sr
   asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];"
                ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(col), "r"(row)
                : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
 }
 
 // Make every thread's staged tile visible to TMA and store it; the block
@@ -248,6 +296,36 @@ __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b, i
       : SM90_OUT32(d)
       : "l"(a), "l"(b), "r"(accumulate));
 }
+
+#define SM90_D64                                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "  \
+  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "  \
+  "%56, %57, %58, %59, %60, %61, %62, %63}"
+#define SM90_OUT64(d)                                                                       \
+  SM90_OUT32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),          \
+      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),          \
+      "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),          \
+      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),          \
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),          \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d (+)= A B over 128 columns (m64n128k16): A in shared memory K-major, B
+// two MN-major panels kPanelBytes apart (the descriptor's leading offset).
+// Element i of the thread is column 8 (i >> 2) + 2 t + (i & 1): the first
+// 32 are panel 0's m64n64 layout, the next 32 panel 1's.
+__device__ __forceinline__ void mma_ss_mn128(float (&d)[64], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_D64
+      ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : SM90_OUT64(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+#undef SM90_D64
+#undef SM90_OUT64
 
 // d (+)= A B, A from registers (four bf16 pairs a thread, the layout above),
 // B in shared memory, MN-major.
@@ -373,6 +451,38 @@ __device__ __forceinline__ void to_split_frags(const float (&v)[32], uint32_t (&
     unpack2(mid[i], b0, b1);
     lo[i] = pack2(r0 - b0, r1 - b1);
   }
+}
+
+// ---------------------------------------------------------------------------
+// Thread-block clusters
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster; orders shared-memory writes
+// before it against reads of any block's shared memory after it.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// ``*p`` in the shared memory of the cluster's block ``rank``.
+__device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(remote) : "memory");
+  return v;
 }
 
 }  // namespace sm90

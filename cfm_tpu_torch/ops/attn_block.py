@@ -11,10 +11,12 @@ its recomputing backward.
   They are the CPU path and the oracles the CUDA kernels are held against.
 - :func:`fused_attention_block` is the wrapper. A CPU tensor goes to the plain
   version; a CUDA tensor launches the hand-written Hopper kernel
-  (``csrc/attn_block_fwd.cu``) or raises. Under autograd it is a
-  ``torch.autograd.Function`` that saves only the primal inputs and whose
-  backward is :func:`fused_attention_block_bwd` (``csrc/attn_block_bwd.cu``
-  on CUDA). It never falls back.
+  (``csrc/attn_block_fwd.cu``: in bf16 its GroupNorm stage is the strip
+  kernel of ``fused_group_norm_silu``, planned by ``strip_plan``, its
+  products TMA + wgmma GEMMs, its attention kernel #3's) or raises. Under
+  autograd it is a ``torch.autograd.Function`` that saves only the primal
+  inputs and whose backward is :func:`fused_attention_block_bwd`
+  (``csrc/attn_block_bwd.cu`` on CUDA). It never falls back.
 - :func:`use_fused_block` is the JAX gate's shape and budget test, so both
   packages route the same blocks here.
 """
@@ -27,6 +29,7 @@ import math
 import torch
 
 from cfm_tpu_torch.ops import _build
+from cfm_tpu_torch.ops.groupnorm import strip_plan
 
 _EPS = 1e-5
 
@@ -212,47 +215,51 @@ class _FusedAttentionBlock(torch.autograd.Function):
         return grads + (None, None)
 
 
-def _device_checks(x, n_heads):
+def _device_checks(x, n_heads, *weights):
     """The kernels' limits on a CUDA tensor; raises for anything else."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     D = x.shape[2] // n_heads
     if D % 64:
         raise ValueError(f"the kernel takes head_dim a multiple of 64, got {D}")
-    if x.data_ptr() % 16:
-        raise ValueError("x must be 16-byte aligned (the kernel loads 16-byte vectors)")
+    if any(t.data_ptr() % 16 for t in (x,) + weights):
+        raise ValueError("x and the weights must be 16-byte aligned (the kernels move 16-byte "
+                         "vectors)")
     return D
 
 
 def _forward(x, gscale, gbias, wq, bq, wo, bo, n_heads, groups):
     if x.device.type == "cpu":
         return attention_block_reference(x, gscale, gbias, wq, bq, wo, bo, n_heads, groups)
-    D = _device_checks(x, n_heads)
+    D = _device_checks(x, n_heads, wq, wo)
     N, S, C = x.shape
     lib = _lib()
-    smem = lib.attn_block_fwd_smem(S, D)
+    bf16 = x.dtype == torch.bfloat16
+    smem = lib.attn_block_fwd_smem(S, D, int(bf16))
     limit = torch.cuda.get_device_properties(x.device).shared_memory_per_block_optin
     if smem > limit or N > 65535 or S * 3 * C >= 2**31:
         raise ValueError(f"shape N={N}, S={S}, C={C} exceeds the kernel's launch limits "
                          f"({smem} B of shared memory, limit {limit}; N <= 65535; an item's "
                          f"qkv under 2^31 elements)")
     y = torch.empty_like(x)
-    stats = torch.empty(2 * N * groups, device=x.device, dtype=torch.float32)
     qkv = torch.empty((N, S, 3 * C), device=x.device, dtype=x.dtype)
     ctx = torch.empty((N, S, C), device=x.device, dtype=x.dtype)
-    # bf16 only: the weights rounded and transposed for the tensor-core GEMMs
-    wt = (torch.empty(4 * C * C, device=x.device, dtype=x.dtype)
-          if x.dtype == torch.bfloat16 else None)
+    # float32: the GroupNorm statistics; bf16: the weights rounded for the
+    # tensor-core GEMMs, and the GroupNorm stage's plan (its tokens go to ctx)
+    if bf16:
+        scratch = torch.empty(4 * C * C, device=x.device, dtype=x.dtype)
+        plan = strip_plan(N, S, C, groups, x.element_size())
+    else:
+        scratch = torch.empty(2 * N * groups, device=x.device, dtype=torch.float32)
+        plan = (0,) * 6
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.attn_block_fwd(
             x.data_ptr(), gscale.data_ptr(), gbias.data_ptr(), wq.data_ptr(),
             bq.data_ptr(), wo.data_ptr(), bo.data_ptr(), y.data_ptr(),
-            stats.data_ptr(), qkv.data_ptr(), ctx.data_ptr(),
-            None if wt is None else wt.data_ptr(),
-            None if wt is None else wt[3 * C * C:].data_ptr(),
-            N, S, C, n_heads, groups, 1.0 / math.sqrt(D),
-            0 if x.dtype == torch.float32 else 1, stream)
+            None if bf16 else scratch.data_ptr(), qkv.data_ptr(), ctx.data_ptr(),
+            scratch.data_ptr() if bf16 else None,
+            N, S, C, n_heads, groups, 1.0 / math.sqrt(D), int(bf16), *plan, stream)
     if err:
         raise RuntimeError(f"attn_block_fwd launch failed: CUDA error {err}")
     fused_attention_block.launches += 1
@@ -309,9 +316,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("attn_block_fwd")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.attn_block_fwd_smem.argtypes = [i, i]
+        lib.attn_block_fwd_smem.argtypes = [i, i, i]
         lib.attn_block_fwd_smem.restype = ctypes.c_size_t
-        lib.attn_block_fwd.argtypes = [p] * 13 + [i] * 5 + [ctypes.c_float, i, p]
+        lib.attn_block_fwd.argtypes = [p] * 12 + [i] * 5 + [ctypes.c_float] + [i] * 7 + [p]
         lib.attn_block_fwd.restype = i
         lib._typed = True
     return lib

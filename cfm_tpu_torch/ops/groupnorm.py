@@ -15,6 +15,9 @@ backward (counterpart of ``cfm_tpu/ops/pallas_groupnorm.py``).
   hand-written Hopper kernels (``csrc/groupnorm.cu``) or raises. When a
   gradient is wanted it is a ``torch.autograd.Function`` that saves x and the
   statistics and whose backward is :func:`fused_group_norm_silu_bwd`.
+- :func:`strip_plan` plans the forward kernel's blocks (``csrc/gn_strip.cuh``,
+  shared with the attention block's GroupNorm stage): the strip width, the
+  cluster that splits a strip's rows and the items a block takes.
 
 The JAX UNet calls the plain reference (on the TPU, XLA fuses the GroupNorm
 chain into its neighbours); the port's ``GroupNorm32`` routes every call
@@ -24,13 +27,82 @@ here, since eager PyTorch fuses nothing.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import math
+from typing import NamedTuple, Tuple
 
 import torch
 
 from cfm_tpu_torch.ops import _build
 
 _MAX_GROUP_CHANNELS = 256  # the kernels' limit on C / num_groups (one block's threads)
+
+# The forward kernel's plan (csrc/gn_strip.cuh). A strip is whole groups, a
+# multiple of 16 bytes wide, rows of about STRIP_BYTES; a cluster of up to
+# MAX_CLUSTER blocks splits a strip whose rows exceed SHARE_BYTES; at small
+# HW a block takes up to MAX_ITEMS items while the grid keeps MIN_BLOCKS
+# blocks (two an SM of an H100's 132).
+STRIP_BYTES = 128
+SHARE_BYTES = 64 * 1024
+SMEM_BYTES = 227 * 1024  # a block's shared memory on the card
+MAX_CLUSTER, MAX_ITEMS, MAX_BOX_ROWS, MIN_BLOCKS = 8, 8, 256, 264
+_THREADS, _MAX_BOXES = 256, 32
+
+
+class StripPlan(NamedTuple):
+    width: int     # channels of a strip
+    cluster: int   # blocks of a cluster, splitting one strip's rows
+    items: int     # items of a block (1 where cluster > 1)
+    rows: int      # rows of a block's share
+    box_rows: int  # rows of one TMA box
+    boxes: int     # boxes of a share
+
+
+def strip_smem_bytes(plan: StripPlan, itemsize: int) -> int:
+    """A block's dynamic shared memory under ``plan``, as
+    ``gnstrip::smem_bytes`` computes it."""
+    tile = -(-plan.items * plan.boxes * plan.box_rows * plan.width * itemsize // 16) * 16
+    return (128 + tile + _THREADS * (16 // itemsize) * 4 + 5 * plan.items * plan.width * 4
+            + _MAX_BOXES * 8)
+
+
+def strip_plan(n: int, hw: int, c: int, num_groups: int, itemsize: int) -> StripPlan:
+    """The forward kernel's blocks for x of (n, hw, c) in a dtype of
+    ``itemsize`` bytes. Raises ValueError for a shape the kernel cannot
+    hold on chip (a strip of the narrowest width over more rows than eight
+    blocks' shared memory) or whose channels are not a multiple of 16
+    bytes."""
+    vec = 16 // itemsize
+    cg = c // num_groups
+    if c % vec:
+        raise ValueError(f"C={c} must be a multiple of {vec} (16-byte rows) for the kernel")
+    unit = cg * vec // math.gcd(cg, vec)  # whole groups, whole 16-byte vectors
+    if unit > 256:
+        raise ValueError(f"a strip of whole groups of {cg} channels is {unit} wide, above 256")
+    width = min(c, unit * max(1, STRIP_BYTES // itemsize // unit))
+    while True:
+        row = width * itemsize
+        cluster = 1
+        while cluster < MAX_CLUSTER and -(-hw // cluster) * row > SHARE_BYTES:
+            cluster *= 2
+        rows = -(-hw // cluster)
+        boxes = -(-rows // MAX_BOX_ROWS)
+        # several boxes start on 128-byte boundaries: rows a multiple of 8
+        box_rows = rows if boxes == 1 else -(-rows // (8 * boxes)) * 8
+        plan = StripPlan(width, cluster, 1, rows, box_rows, boxes)
+        if strip_smem_bytes(plan, itemsize) <= SMEM_BYTES and boxes <= _MAX_BOXES:
+            break
+        if width == unit:
+            raise ValueError(f"a strip of {hw} rows x {width} channels does not fit "
+                             f"{MAX_CLUSTER} blocks' shared memory")
+        width = unit
+    if cluster == 1 and hw <= MAX_BOX_ROWS:
+        strips, items = -(-c // width), 1
+        while (items < MAX_ITEMS and 2 * items * hw * row <= SHARE_BYTES
+               and 2 * items * width <= _THREADS
+               and strips * -(-n // (2 * items)) >= MIN_BLOCKS):
+            items *= 2
+        plan = plan._replace(items=items)
+    return plan
 
 
 def gn_silu_fwd_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -128,6 +200,8 @@ def _device_checks(x):
         raise ValueError(f"unsupported device {x.device}")
     if x.shape[0] > 65535:
         raise ValueError(f"N={x.shape[0]} exceeds the kernels' grid limit of 65535 items")
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned (the kernels move 16-byte vectors)")
 
 
 def fused_group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -185,6 +259,7 @@ def _forward(x, scale, bias, num_groups, eps, apply_silu):
         return gn_silu_fwd_reference(x, scale, bias, num_groups, eps, apply_silu)
     _device_checks(x)
     n, h, w, c = x.shape
+    plan = strip_plan(n, h * w, c, num_groups, x.element_size())
     out = torch.empty_like(x)
     mean = torch.empty((n, c), device=x.device, dtype=torch.float32)
     inv = torch.empty_like(mean)
@@ -192,7 +267,7 @@ def _forward(x, scale, bias, num_groups, eps, apply_silu):
         err = _lib().gn_silu_fwd(
             x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), mean.data_ptr(),
             inv.data_ptr(), n, h * w, c, num_groups, eps, int(apply_silu),
-            0 if x.dtype == torch.float32 else 1,
+            0 if x.dtype == torch.float32 else 1, *plan,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"gn_silu_fwd launch failed: CUDA error {err}")
@@ -245,7 +320,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("groupnorm")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gn_silu_fwd.argtypes = [p] * 6 + [i] * 4 + [ctypes.c_float, i, i, p]
+        lib.gn_silu_fwd.argtypes = [p] * 6 + [i] * 4 + [ctypes.c_float] + [i] * 8 + [p]
         lib.gn_silu_fwd.restype = i
         lib.gn_silu_bwd.argtypes = [p] * 10 + [i] * 6 + [p]
         lib.gn_silu_bwd.restype = i

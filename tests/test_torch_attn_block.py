@@ -6,7 +6,10 @@ kernel to against its composition (f32 2e-4, bf16 3e-2), and against the
 JAX composition in f32. The gradients through the port's autograd Function
 (the plain backward on CPU tensors) are held against ``jax.vjp`` of the JAX
 block, whose backward is the TPU kernel ``_bwd_kernel`` in interpret mode.
-The routing gates must agree with JAX's shape and budget conditions. The
+The routing gates must agree with JAX's shape and budget conditions. A
+torch model of the Hopper forward's attention arithmetic on the block layout
+(exp2 logits, the reciprocal of the sum, keys past a ragged S masked, rows
+past S dropped) is held against the plain version and the JAX kernel. The
 CUDA kernels themselves are checked against the plain versions by the
 ``cuda``-marked tests, which skip without a card. The JAX package is
 imported inside the tests that use it, so that the card-only tests also run
@@ -20,6 +23,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from cfm_tpu_torch.models.unet import gn_groups
 from cfm_tpu_torch.ops import attention as tatt
@@ -206,8 +210,11 @@ def test_build_is_keyed_by_source_hash(monkeypatch, tmp_path):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [("f32", 1e-4), ("bf16", 2e-2)])
-@pytest.mark.parametrize("N,S,C,H", [(4, 64, 256, 4), (8, 256, 256, 4)])
+@pytest.mark.parametrize("N,S,C,H", [(4, 64, 256, 4), (8, 256, 256, 4), (4, 72, 128, 2),
+                                     (2, 136, 256, 2), (2, 328, 256, 4)])
 def test_kernel_matches_plain_on_cuda(N, S, C, H, dtype, tol):
+    """Also at ragged S (72 and 136 on the resident attention kernel, 328 on
+    the streamed one); the rerun gives the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("the attention-block kernel runs only on a CUDA device")
     from cfm_tpu_torch.device import strict_f32
@@ -219,10 +226,99 @@ def test_kernel_matches_plain_on_cuda(N, S, C, H, dtype, tol):
     with torch.no_grad(), strict_f32():
         y = tab.fused_attention_block(x, *t.values(), H, 32)
         ref = tab.attention_block_reference(x, *t.values(), H, 32)
+        again = tab.fused_attention_block(x, *t.values(), H, 32)
     torch.cuda.synchronize()
-    assert tab.fused_attention_block.launches == before + 1
+    assert tab.fused_attention_block.launches == before + 2
     np.testing.assert_allclose(y.float().cpu().numpy(), ref.float().cpu().numpy(),
                                atol=tol, rtol=tol)
+    assert torch.equal(y, again)
+
+
+# ---------------------------------------------------------------------------
+# A model of the Hopper forward (csrc/attn_block_fwd.cu) on the block layout:
+# the qkv buffer's rows of an item padded with zeros to 64-row tiles (what
+# the rank-3 tensor maps load past S), keys past S masked to -inf, the
+# logits' exponentials 2^(acc * scale log2 e - max) with the statistics of
+# kernel #3 (one pass at S <= 256, running above), the weights times the
+# reciprocal of the sum, and the rows past S dropped (not stored).
+# ---------------------------------------------------------------------------
+
+
+def _model_forward(x, gscale, gbias, wq, bq, wo, bo, H, G):
+    from test_torch_attention import _exp, _log2_scale, _stats
+
+    N, S, C = x.shape
+    lp, D = x.dtype, C // H
+    xs = x.float()
+    xg = xs.reshape(N, S, G, C // G)
+    centered = xg - xg.mean(dim=(1, 3), keepdim=True)
+    rstd = torch.rsqrt(centered.square().mean(dim=(1, 3), keepdim=True) + 1e-5)
+    tokens = ((centered * rstd).reshape(N, S, C) * gscale + gbias).to(lp)
+    qkv = ((tokens.float() @ wq.to(lp).float()).to(lp) + bq.to(lp)).float()
+    Sp = 64 * -(-S // 64)
+    q, k, v = F.pad(qkv, (0, 0, 0, Sp - S)).reshape(N, Sp, 3, H, D).permute(2, 0, 3, 1, 4)
+    acc = q @ k.transpose(-1, -2)
+    acc[..., S:] = -math.inf
+    ls = _log2_scale(1.0 / math.sqrt(D))
+    tiles = acc.split(64, dim=-1)
+    m, s = _stats(list(tiles), ls)
+    inv = 1.0 / s
+    o = sum((_exp(a, ls, m) * inv).to(lp).float() @ vj for a, vj in zip(tiles, v.split(64, -2)))
+    ctx = o[:, :, :S].permute(0, 2, 1, 3).reshape(N, S, C).to(lp)
+    return (xs + (ctx.float() @ wo.to(lp).float() + bo)).to(lp)
+
+
+@pytest.mark.parametrize("dtype,tol", [("f32", 2e-4), ("bf16", 3e-2)])
+@pytest.mark.parametrize("S", [64, 72, 136, 256])
+def test_kernel_model_matches_plain_and_jax_kernel(monkeypatch, S, dtype, tol):
+    """The model against the plain version (f32 1e-4, bf16 2e-2 abs+rel: the
+    card's limits) and JAX's ``_fwd_kernel`` in interpret mode (the
+    tolerances of test_plain_matches_jax_kernel_interpret), at S = 64 and
+    256 (whole tiles) and 72 and 136 (ragged: keys past S masked)."""
+    j = _jax(dtype)
+    monkeypatch.setattr(j.pab, "INTERPRET", True)
+    tdtype = _DTYPES[dtype][1]
+    N, C, H = 2, 128, 2
+    inp = _inputs(N, S, C, H, seed=S)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    x = t.pop("x").to(tdtype)
+    got = _model_forward(x, *t.values(), H, 32).float()
+    ref = tab.attention_block_reference(x, *t.values(), H, 32).float()
+    card_tol = 1e-4 if dtype == "f32" else 2e-2
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=card_tol, rtol=card_tol)
+    y_jax = j.pab.fused_attention_block(
+        j.jnp.asarray(inp["x"], j.dtype), *(j.jnp.asarray(inp[k]) for k in
+                                            ("gscale", "gbias", "wq", "bq", "wo", "bo")), H, 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(y_jax, np.float32), atol=tol, rtol=tol)
+
+
+def test_block_exp2_weights_equal_direct_softmax_but_at_ties():
+    """On the block layout at ragged S = 136 (keys 136..191 of the third
+    tile masked), the bf16 weights of the Hopper kernel's arithmetic equal
+    those of the plain version's exp(l - max) / sum(e) except where the two
+    f32 values straddle a bf16 rounding boundary, one bf16 step apart: at
+    this seed 4 of 147,968 weights (N = 2, H = 4)."""
+    from test_torch_attention import _exp, _log2_scale, _stats
+
+    N, S, H, D = 2, 136, 4, 64
+    rng = np.random.default_rng(12)
+    qk = torch.from_numpy(rng.standard_normal((2, N, H, S, D)).astype(np.float32))
+    q, k = qk.to(torch.bfloat16).float()
+    scale = 1.0 / math.sqrt(D)
+    logits = (q @ k.transpose(-1, -2)) * scale
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    direct = (e / e.sum(-1, keepdim=True)).to(torch.bfloat16)
+    acc = F.pad(q @ k.transpose(-1, -2), (0, 192 - S), value=-math.inf)
+    ls = _log2_scale(scale)
+    tiles = acc.split(64, dim=-1)
+    m, s = _stats(list(tiles), ls)
+    kernel = torch.cat([_exp(a, ls, m) for a in tiles], -1) * (1.0 / s)
+    assert (kernel[..., S:] == 0).all()
+    kernel = kernel[..., :S].to(torch.bfloat16)
+    differ = direct != kernel
+    assert differ.sum().item() == 4
+    bits = (direct[differ].view(torch.int16).int() - kernel[differ].view(torch.int16).int()).abs()
+    assert (bits == 1).all()
 
 
 _GRADS = ("dx", "dgscale", "dgbias", "dwq", "dbq", "dwo", "dbo")

@@ -12,16 +12,22 @@
   E[x^2] - E[x]^2 variance is off by 9e-3 and fails the test's limit.
 - The autograd Function on CPU tensors is the plain forward and backward
   and counts no launches; the wrapper rejects what the kernels do not take.
+- The forward kernel's plan (``strip_plan``) at every shape the six paths
+  give ``GroupNorm32``, and a torch model of its summation order (strips of
+  whole groups, rows split over a cluster, fixed-order combines) against
+  the plain forward and the TPU kernel in interpret mode.
 - ``cuda``-marked tests hold kernels #8 and #9 against the plain versions on
   the card: ``python -m pytest tests/test_torch_groupnorm.py -m cuda -q``.
   They import no JAX, so they run where only PyTorch is installed.
 """
 
 import functools
+import math
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from cfm_tpu_torch.ops import groupnorm as tgn
 
@@ -221,6 +227,166 @@ def test_wrapper_rejects_other_devices_and_mismatched_gradients():
         tgn.fused_group_norm_silu_bwd(x, scale, bias, mean[:, :32], inv, g, 32)
 
 
+# ---------------------------------------------------------------------------
+# The forward kernel's plan and summation order (csrc/gn_strip.cuh)
+# ---------------------------------------------------------------------------
+
+# (H, W, C, dtype) of every GroupNorm32 call of one model evaluation (32
+# groups; chip_smoke.record_gn_shapes logs them on the card), with the
+# paths' batches.
+_CIFAR10 = [(32, 32, 128, "bf16"), (16, 16, 128, "bf16"), (16, 16, 256, "bf16"),
+            (8, 8, 256, "bf16"), (4, 4, 256, "bf16"), (4, 4, 512, "bf16"), (8, 8, 512, "bf16"),
+            (16, 16, 512, "bf16"), (16, 16, 384, "bf16"), (32, 32, 384, "bf16"),
+            (32, 32, 256, "bf16"), (32, 32, 128, "f32")]
+_MNIST = [(28, 28, 32, "bf16"), (14, 14, 32, "bf16"), (14, 14, 64, "bf16"), (7, 7, 64, "bf16"),
+          (7, 7, 128, "bf16"), (14, 14, 128, "bf16"), (14, 14, 96, "bf16"), (28, 28, 96, "bf16"),
+          (28, 28, 64, "bf16"), (28, 28, 32, "f32")]
+_IMAGENET64 = [(64, 64, 192, "bf16"), (32, 32, 192, "bf16"), (32, 32, 384, "bf16"),
+               (16, 16, 384, "bf16"), (16, 16, 576, "bf16"), (8, 8, 576, "bf16"),
+               (8, 8, 768, "bf16"), (8, 8, 1536, "bf16"), (8, 8, 1344, "bf16"),
+               (16, 16, 768, "bf16"), (16, 16, 1344, "bf16"), (16, 16, 1152, "bf16"),
+               (16, 16, 960, "bf16"), (32, 32, 576, "bf16"), (32, 32, 960, "bf16"),
+               (32, 32, 768, "bf16"), (64, 64, 384, "bf16"), (64, 64, 576, "bf16"),
+               (64, 64, 192, "f32")]
+GN_PATHS = {"cifar10 generation": (512, _CIFAR10), "cifar10 training": (128, _CIFAR10),
+            "mnist training": (128, _MNIST), "mnist generation": (80, _MNIST),
+            "imagenet64 generation": (64, _IMAGENET64), "imagenet64 training": (32, _IMAGENET64)}
+_ITEMSIZE = {"bf16": 2, "f32": 4}
+
+
+def _check_plan(plan, N, HW, C, G, itemsize):
+    """The invariants gnstrip::launch checks, and the shared-memory limit."""
+    vec, cg = 16 // itemsize, C // G
+    assert plan.width % cg == 0 and plan.width % vec == 0 and plan.width <= 256
+    assert plan.cluster in (1, 2, 4, 8) and plan.rows * plan.cluster >= HW
+    assert plan.rows * (plan.cluster - 1) < HW  # every block of a cluster has rows
+    assert 1 <= plan.box_rows <= 256 and plan.boxes * plan.box_rows >= plan.rows
+    assert plan.boxes == 1 or plan.box_rows % 8 == 0
+    assert plan.items * plan.width <= 256 and -(-N // plan.items) <= 65535
+    assert plan.items == 1 or (plan.cluster == 1 and plan.rows == HW == plan.box_rows)
+    assert tgn.strip_smem_bytes(plan, itemsize) <= 227 * 1024
+
+
+@pytest.mark.parametrize("path", list(GN_PATHS))
+def test_strip_plan_at_recorded_shapes(path):
+    """Whole groups, widths a multiple of 16 bytes, a block's share within
+    227 KB, a cluster of at most 8: at every recorded shape of the path."""
+    N, shapes = GN_PATHS[path]
+    for H, W, C, dt in shapes:
+        plan = tgn.strip_plan(N, H * W, C, 32, _ITEMSIZE[dt])
+        _check_plan(plan, N, H * W, C, 32, _ITEMSIZE[dt])
+        # the planner splits rows only where a whole strip exceeds the share
+        assert plan.cluster == 1 or H * W * plan.width * _ITEMSIZE[dt] > tgn.SHARE_BYTES
+
+
+def test_strip_plan_rejects_what_the_kernel_cannot_hold():
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tgn.strip_plan(2, 16, 36, 12, 2)
+    with pytest.raises(ValueError, match="does not fit"):
+        tgn.strip_plan(1, 512 * 512, 256, 32, 4)
+
+
+def _strip_model(x, scale, bias, G, eps, silu, plan):
+    """(out, mean, inv) as the strip kernel computes them: per 16-byte column
+    of a strip, each row slot r0 of R adds rows r0, r0 + R, ... of its
+    block's share in order; L lanes (the least power of two with 4 L >= R,
+    at most 32) take a channel: lane l adds slots l, l + L, ... in order,
+    then the L lanes pairwise (xor L / 2, ..., 1); then the cluster's blocks
+    are added in rank order, then a group's channels in order; the second
+    pass adds fmaf(d, d, s) (one rounding); inv = 1 / sqrtf(var + eps)."""
+    n, h, w, c = x.shape
+    hw, cg, vec = h * w, c // G, 16 // x.element_size()
+    width, cs, rows = plan.width, plan.cluster, plan.rows
+    nv = width // vec
+    slots = (256 // plan.items) // nv
+    strips = -(-c // width)
+    xf = F.pad(x.float().reshape(n, hw, c), (0, strips * width - c)).reshape(n, hw, strips, width)
+
+    def totals(vals, add):
+        tot = torch.zeros(n, strips, width)
+        for rank in range(cs):
+            share = vals[:, rank * rows:(rank + 1) * rows]
+            steps = -(-share.shape[1] // slots)
+            share = F.pad(share, (0, 0, 0, 0, 0, steps * slots - share.shape[1]))
+            share = share.reshape(n, steps, slots, strips, width)
+            acc = torch.zeros(n, slots, strips, width)
+            for i in range(steps):
+                acc = add(acc, share[:, i])
+            nl = 1
+            while nl < 32 and 4 * nl < slots:
+                nl *= 2
+            lanes = torch.zeros(n, nl, strips, width)
+            for r in range(0, slots, nl):
+                part = acc[:, r:r + nl]
+                lanes = lanes + F.pad(part, (0, 0, 0, 0, 0, nl - part.shape[1]))
+            o = nl // 2
+            while o:
+                lanes = lanes + lanes[:, torch.arange(nl) ^ o]
+                o //= 2
+            tot = tot + lanes[:, 0]
+        groups = tot.reshape(n, strips, width // cg, cg)
+        g = torch.zeros(n, strips, width // cg)
+        for j in range(cg):
+            g = g + groups[..., j]
+        return g.repeat_interleave(cg, dim=-1)
+
+    cnt = torch.tensor(float(hw * cg))
+    mean = totals(xf, lambda s, v: s + v) / cnt
+    d = xf - mean[:, None]
+    fma = lambda s, v: (s.double() + v.double() * v.double()).float()
+    inv = 1.0 / torch.sqrt(totals(d, fma) / cnt + eps)
+    mean_c, inv_c = (t.reshape(n, strips * width)[:, :c] for t in (mean, inv))
+    out = (d * inv[:, None]).reshape(n, hw, -1)[..., :c] * scale + bias
+    if silu:
+        out = out * torch.sigmoid(out)
+    return out.reshape(x.shape).to(x.dtype), mean_c, inv_c
+
+
+def _variant(plan, hw, variant):
+    """The planner's plan, or one that takes several items a block or splits
+    the rows over a cluster of 4, so the model covers every branch."""
+    if variant == "items" and hw <= 256 and 2 * plan.width <= 256:
+        return plan._replace(items=2, cluster=1, rows=hw, box_rows=hw, boxes=1)
+    if variant == "cluster" and hw >= 16:
+        rows = -(-hw // 4)
+        boxes = -(-rows // 256)
+        return plan._replace(items=1, cluster=4, rows=rows, boxes=boxes,
+                             box_rows=rows if boxes == 1 else -(-rows // (8 * boxes)) * 8)
+    return plan
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("cg,H", [(1, 4), (1, 28), (2, 7), (4, 32), (6, 64), (12, 8), (18, 16),
+                                  (24, 4), (24, 8)])
+def test_strip_model_matches_plain_and_tpu_kernel(cg, H, dtype):
+    """The model of #8's summation order, under the planner's plan and under
+    a plan with several items a block and one with a cluster of 4, against
+    the plain forward and the TPU kernel in interpret mode: every output
+    within 1e-5 of max(1, its max-abs) in f32; in bf16 out within the
+    existing 1e-2 (one bf16 rounding step of an output up to 2), the f32
+    statistics within 1e-5."""
+    import jax.numpy as jnp
+
+    C, G, N = 32 * cg, 32, 2
+    x, scale, bias, g = _inputs(N, H, C, seed=cg * 100 + H)
+    jd, td = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    xt = torch.from_numpy(x).to(td)
+    st, bt = torch.from_numpy(scale), torch.from_numpy(bias)
+    ref = tgn.gn_silu_fwd_reference(xt, st, bt, G, 1e-5, True)
+    tpu = _tpu_kernels(jnp.asarray(x, jd), jnp.asarray(scale), jnp.asarray(bias),
+                       jnp.asarray(g, jd), G, True)[:3]
+    planned = tgn.strip_plan(N, H * H, C, G, xt.element_size())
+    plans = {_variant(planned, H * H, v) for v in ("planned", "items", "cluster")}
+    for plan in plans:
+        _check_plan(plan, N, H * H, C, G, xt.element_size())
+        got = _strip_model(xt, st, bt, G, 1e-5, True, plan)
+        for other in (ref, tpu):
+            for name, a, r in zip(("out", "mean", "inv"), got, other):
+                tol = 1e-2 if dtype == "bf16" and name == "out" else 1e-5
+                r = r.float() if isinstance(r, torch.Tensor) else np.asarray(r, np.float32)
+                assert _rel_err(a.float().numpy(), r) <= tol, (plan, name)
+
+
 def _on_card(x, scale, bias, g, dtype):
     return [torch.from_numpy(a).cuda().to(dtype if i in (0, 3) else torch.float32)
             for i, a in enumerate((x, scale, bias, g))]
@@ -253,15 +419,22 @@ def _check_kernels_on_cuda(x, scale, bias, g, G, silu, dtype, tol, wtol):
 @pytest.mark.parametrize("dtype,tol,wtol", [("f32", 1e-4, 1e-4), ("bf16", 2e-2, 1e-3)])
 @pytest.mark.parametrize("silu", [False, True])
 @pytest.mark.parametrize("N,H,C", [(128, 32, 128), (8, 7, 96), (8, 28, 32), (16, 4, 512),
-                                   (4, 16, 384)])
+                                   (4, 16, 384), (2, 64, 192), (64, 8, 768)])
 def test_kernels_match_plain_on_cuda(N, H, C, silu, dtype, tol, wtol):
+    """Also at a cluster of 8 (64x64, 192 channels) and several items a
+    block (8x8 at N = 64); the forward's rerun gives the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("the GroupNorm kernels run only on a CUDA device")
     from cfm_tpu_torch.device import strict_f32
 
+    td = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    inputs = _inputs(N, H, C, seed=C)
     with strict_f32():
-        _check_kernels_on_cuda(*_inputs(N, H, C, seed=C), 32, silu,
-                               {"f32": torch.float32, "bf16": torch.bfloat16}[dtype], tol, wtol)
+        _check_kernels_on_cuda(*inputs, 32, silu, td, tol, wtol)
+    xt, st, bt, _ = _on_card(*inputs, td)
+    first = tgn.fused_group_norm_silu_fwd(xt, st, bt, 32, 1e-5, silu)
+    again = tgn.fused_group_norm_silu_fwd(xt, st, bt, 32, 1e-5, silu)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.cuda
