@@ -38,7 +38,7 @@
 //   (w) the weights rounded to bf16 as they lie, wq and wo in one launch:
 //       wgmma reads a (K, N) row-major weight tile MN-major, so nothing is
 //       transposed;
-//   (b) qkv GEMM: TMA + wgmma (tma_gemm_kernel below), the bias epilogue
+//   (b) qkv GEMM: TMA + wgmma (sm90_gemm.cuh), the bias epilogue
 //       qkv = T(round_T(acc) + round_T(bq)), written (N, S, 3HD);
 //   (c) attention: kernel #3's attention_resident (S <= 256) or
 //       attention_streamed (sm90_attention_fwd.cuh) through BlockLayout:
@@ -54,22 +54,14 @@
 // gn_stats, the tiled FMA GEMM with GroupNorm applied on load, the FMA
 // attention kernel, the FMA out GEMM (attn_block_common.cuh).
 //
-// The GEMM (M x Nc = A (M x K) B (K x Nc), bf16, f32 accumulate): a block
-// computes 128 x 128 with two consumer warpgroups (64 rows each, wgmma
-// m64n128k16 over B's two 64-column panels) and one producer warp that
-// keeps a ring of three 64-deep K stages full by TMA (128-byte swizzle; A
-// read K-major, B MN-major), full and empty mbarriers between them. Two
-// m64n64 products instead of one m64n128, or one group of products kept in
-// flight while the next stage is waited for, measured no faster on an H100
-// (PERF.md). The epilogue rounds into the warpgroup's own A panels of
-// stages 0 and 1, which no one reads any more, and stores them by TMA. Two
-// blocks an SM. The column tiles of a row tile are neighbours in the grid,
-// so they run together and A comes from device memory once (ordered the
-// other way, A was read again for each column tile).
+// The GEMM of (b) and (d) (M x Nc = A (M x K) B (K x Nc), bf16, f32
+// accumulate) is sm90_gemm.cuh's: TMA ring, one producer warp, two consumer
+// warpgroups on wgmma m64n128k16, shared with the backward #2.
 
 #include "attn_block_common.cuh"
 #include "gn_strip.cuh"
 #include "sm90_attention_fwd.cuh"
+#include "sm90_gemm.cuh"
 
 namespace {
 
@@ -91,29 +83,13 @@ struct TokensOut {
   }
 };
 
-// (w): wq (C x 3HD) then wo (HD x C), f32, rounded into wb as they lie.
-__global__ void round_weights_kernel(const float4* __restrict__ wq, const float4* __restrict__ wo,
-                                     uint2* __restrict__ wb, int nq, int n) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
-    const float4 v = i < nq ? wq[i] : wo[i - nq];
-    wb[i] = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
-  }
-}
-
-// (b) epilogue: qkv = T(round_T(acc) + round_T(bq)).
-struct QkvEpi {
-  const float* bq;
-  __device__ float2 operator()(float a0, float a1, int, int n) const {
-    return make_float2(sm90::round_bf16(a0) + sm90::round_bf16(bq[n]),
-                       sm90::round_bf16(a1) + sm90::round_bf16(bq[n + 1]));
-  }
-};
-
 // (d) epilogue: y = T(x + (acc + bo)).
 struct ResidualEpi {
+  static constexpr int kMode = 0, kParts = 1;
   const bf16* x;
   const float* bo;
   int ld, M;
+  __device__ int part_col(int) const { return 0; }
   __device__ float2 operator()(float a0, float a1, int m, int n) const {
     if (m >= M) return make_float2(0.f, 0.f);
     const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + (size_t)m * ld + n));
@@ -121,116 +97,20 @@ struct ResidualEpi {
   }
 };
 
-constexpr int kStages = 3;
-constexpr int kGemmThreads = 288;  // two consumer warpgroups, one producer warp
-constexpr int kStageElems = 4 * sm90::kPanelElems;  // A: 128 rows x 64; B: 64 x 128
-constexpr size_t kGemmSmem = 1024 + kStages * 4 * sm90::kPanelBytes + 2 * kStages * sizeof(uint64_t);
-
-template <class Epi>
-__global__ void __launch_bounds__(kGemmThreads, 2)
-tma_gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap b_map,
-            const __grid_constant__ CUtensorMap out_map, const Epi epi, int K) {
-  extern __shared__ uint8_t smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(sm90::align_1024(smem_raw));
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageElems);
-  uint64_t* empty = full + kStages;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int m0 = blockIdx.y * 128, n0 = blockIdx.x * 128, KT = K / 64;
-  if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      sm90::mbar_init(&full[s], 1);
-      sm90::mbar_init(&empty[s], 256);
-    }
-    sm90::mbar_fence_init();
-  }
-  __syncthreads();
-  if (warp == 8) {  // the producer
-    if ((tid & 31) == 0)
-      for (int kt = 0; kt < KT; ++kt) {
-        const int s = kt % kStages;
-        if (kt >= kStages) sm90::mbar_wait(&empty[s], (kt / kStages - 1) & 1);
-        bf16* st = ring + s * kStageElems;
-        sm90::mbar_expect_tx(&full[s], 4 * sm90::kPanelBytes);
-        sm90::tma_load(st, &a_map, &full[s], 64 * kt, m0);
-        sm90::tma_load(st + sm90::kPanelElems, &a_map, &full[s], 64 * kt, m0 + 64);
-        sm90::tma_load(st + 2 * sm90::kPanelElems, &b_map, &full[s], n0, 64 * kt);
-        sm90::tma_load(st + 3 * sm90::kPanelElems, &b_map, &full[s], n0 + 64, 64 * kt);
-      }
-    return;
-  }
-  const int wg = warp >> 2;  // rows m0 + 64 wg .. + 63
-  float acc[64];
-  for (int kt = 0; kt < KT; ++kt) {
-    const int s = kt % kStages;
-    sm90::mbar_wait(&full[s], (kt / kStages) & 1);
-    const bf16* A = ring + s * kStageElems + wg * sm90::kPanelElems;
-    const bf16* B = ring + s * kStageElems + 2 * sm90::kPanelElems;
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      sm90::mma_ss_mn128(acc, sm90::desc_k(A, kk), sm90::desc_mn(B, kk, 0), kt > 0 || kk > 0);
-    sm90::wgmma_commit();
-    sm90::wgmma_wait_all();
-    sm90::mbar_arrive(&empty[s]);
-  }
-  sm90::fence_regs(acc);
-  // Epilogue: panel p into this warpgroup's A panel of stage p.
-  const int lane = tid & 31, g = lane >> 2, t = lane & 3, wrow = 16 * (warp & 3) + g;
-#pragma unroll
-  for (int p = 0; p < 2; ++p) {
-    bf16* tile = ring + p * kStageElems + wg * sm90::kPanelElems;
-#pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int r = wrow + 8 * sm90::half_of(i), c = sm90::col_of(i, t);
-      const float2 v = epi(acc[32 * p + i], acc[32 * p + i + 1], m0 + 64 * wg + r, n0 + 64 * p + c);
-      *reinterpret_cast<uint32_t*>(tile + sm90::swizzled(r, c)) = sm90::pack2(v.x, v.y);
-    }
-  }
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
-  if ((tid & 127) == 0) {
-#pragma unroll
-    for (int p = 0; p < 2; ++p)
-      sm90::tma_store(&out_map, ring + p * kStageElems + wg * sm90::kPanelElems, n0 + 64 * p,
-                      m0 + 64 * wg);
-    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-  }
-}
-
-// out (M x Nc) = A (M x K) B (K x Nc), all bf16 row-major; Nc a multiple of
-// 128, K of 64.
-template <class Epi>
-int tma_gemm(const bf16* a, const bf16* b, bf16* out, int M, int Nc, int K, const Epi& epi,
-         cudaStream_t st) {
-  CUtensorMap a_map, b_map, out_map;
-  if (int err = sm90::make_tile_map(&a_map, a, K, M)) return err;
-  if (int err = sm90::make_tile_map(&b_map, b, Nc, K)) return err;
-  if (int err = sm90::make_tile_map(&out_map, out, Nc, M)) return err;
-  if (int err = sm90::set_smem(tma_gemm_kernel<Epi>, kGemmSmem)) return err;
-  tma_gemm_kernel<Epi><<<dim3(Nc / 128, (M + 127) / 128), kGemmThreads, kGemmSmem, st>>>(
-      a_map, b_map, out_map, epi, K);
-  return (int)cudaGetLastError();
-}
-
 int launch_bf16(const bf16* x, const float* gscale, const float* gbias, const float* wq,
                 const float* bq, const float* wo, const float* bo, bf16* y, bf16* qkv, bf16* ctx,
                 bf16* wb, int N, int S, int C, int H, int G, float scale,
                 const gnstrip::Plan& plan, cudaStream_t stream) {
   const int D = C / H, HD = H * D, M = N * S;
   if (C % 128 || D % 64) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
   if (int e = gnstrip::launch<bf16>(x, TokensOut{ctx, gscale, gbias}, N, S, C, G, plan, 1e-5f,
                                     stream))
     return e;
-  const int nq = C * 3 * HD / 4, n = nq + HD * C / 4;
-  round_weights_kernel<<<n < 262144 ? (n + 255) / 256 : 1024, 256, 0, stream>>>(
-      reinterpret_cast<const float4*>(wq), reinterpret_cast<const float4*>(wo),
-      reinterpret_cast<uint2*>(wb), nq, n);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (int e = sm90::round_weights(wq, wo, wb, C, HD, stream)) return e;
   bf16* wqb = wb;
   bf16* wob = wb + (size_t)C * 3 * HD;
-  if (int e = tma_gemm(ctx, wqb, qkv, M, 3 * HD, C, QkvEpi{bq}, stream)) return e;
+  if (int e = sm90::tma_gemm(ctx, wqb, 0, qkv, 3 * HD, M, 3 * HD, C, sm90::BiasEpi{bq}, stream))
+    return e;
   if (D == 64 || D == 128) {
     CUtensorMap qkv_map, ctx_map;
     if (int e = sm90::make_item_map(&qkv_map, qkv, 3 * HD, S, N)) return e;
@@ -243,7 +123,7 @@ int launch_bf16(const bf16* x, const float* gscale, const float* gbias, const fl
                                             stream)) {
     return e;
   }
-  return tma_gemm(ctx, wob, y, M, C, HD, ResidualEpi{x, bo, C, M}, stream);
+  return sm90::tma_gemm(ctx, wob, 0, y, C, M, C, HD, ResidualEpi{x, bo, C, M}, stream);
 }
 
 int launch_f32(const float* x, const float* gscale, const float* gbias, const float* wq,

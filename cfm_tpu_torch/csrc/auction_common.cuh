@@ -32,22 +32,27 @@ __device__ __forceinline__ void fold(float v, int j, float& v1, int& j1, float& 
   }
 }
 
-// Merge the lanes' (best, first column, second) across the warp: the larger
-// best wins, the smaller column on a tie, and the loser's best joins the
-// second. The same in every lane on return.
-__device__ __forceinline__ void warp_merge(float& v1, int& j1, float& v2) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov1 = __shfl_xor_sync(0xffffffffu, v1, o);
-    const int oj1 = __shfl_xor_sync(0xffffffffu, j1, o);
-    const float ov2 = __shfl_xor_sync(0xffffffffu, v2, o);
-    if (ov1 > v1 || (ov1 == v1 && oj1 < j1)) {
-      v2 = fmaxf(ov2, v1);
-      v1 = ov1;
-      j1 = oj1;
-    } else {
-      v2 = fmaxf(v2, ov1);
-    }
+// Merge the partial (best, first column, second) of another set of columns
+// into (v1, j1, v2): the larger best wins, the smaller column on a tie, and
+// the loser's best joins the second. The rule is commutative and
+// associative, so partials merged in any order give the same bits.
+__device__ __forceinline__ void merge(float& v1, int& j1, float& v2, float ov1, int oj1,
+                                      float ov2) {
+  if (ov1 > v1 || (ov1 == v1 && oj1 < j1)) {
+    v2 = fmaxf(ov2, v1);
+    v1 = ov1;
+    j1 = oj1;
+  } else {
+    v2 = fmaxf(v2, ov1);
   }
+}
+
+// Merge the lanes' (best, first column, second) across the warp by
+// ``merge``; the same in every lane on return.
+__device__ __forceinline__ void warp_merge(float& v1, int& j1, float& v2) {
+  for (int o = 16; o > 0; o >>= 1)
+    merge(v1, j1, v2, __shfl_xor_sync(0xffffffffu, v1, o), __shfl_xor_sync(0xffffffffu, j1, o),
+          __shfl_xor_sync(0xffffffffu, v2, o));
 }
 
 __device__ __forceinline__ uint32_t order_bits(float f) {

@@ -46,6 +46,14 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+constexpr int kWarpgroup = 128;  // threads of a warpgroup
+
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
+
 // Dynamic shared memory rounded up to 1024 bytes: the 128-byte swizzle's
 // pattern repeats every 8 rows of 128 bytes, and TMA and wgmma both take it
 // from the address bits, so every tile starts on a 1024-byte boundary (the
@@ -310,18 +318,22 @@ __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b, i
       "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),          \
       "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
 
-// d (+)= A B over 128 columns (m64n128k16): A in shared memory K-major, B
-// two MN-major panels kPanelBytes apart (the descriptor's leading offset).
-// Element i of the thread is column 8 (i >> 2) + 2 t + (i & 1): the first
-// 32 are panel 0's m64n64 layout, the next 32 panel 1's.
-__device__ __forceinline__ void mma_ss_mn128(float (&d)[64], uint64_t a, uint64_t b,
-                                             int accumulate) {
+// d (+)= A B over 128 columns (m64n128k16), A and B in shared memory: A read
+// K-major (TA = 0) or MN-major (TA = 1, the tile's rows are k and its 64
+// columns m), B MN-major (TB = 1, two 64-column panels kPanelBytes apart:
+// the descriptor's leading offset) or K-major (TB = 0, 128 rows of k
+// columns, 1024 bytes an 8-row group). Element i of the thread is column
+// 8 (i >> 2) + 2 t + (i & 1): the first 32 are panel 0's m64n64 layout, the
+// next 32 panel 1's.
+template <int TA, int TB>
+__device__ __forceinline__ void mma_m64n128(float (&d)[64], uint64_t a, uint64_t b,
+                                            int accumulate) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_D64
-      ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+      ", %64, %65, p, 1, 1, %67, %68;\n}\n"
       : SM90_OUT64(d)
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 #undef SM90_D64
@@ -345,9 +357,10 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t* a, uint64
 // acc = A B^T over D: A and B 64-row tiles read K-major (q k^T, do v^T,
 // k q^T, v do^T).
 template <int D>
-__device__ __forceinline__ void issue_nt(float (&acc)[32], const bf16* A, const bf16* B) {
+__device__ __forceinline__ void issue_nt(float (&acc)[32], const bf16* A, const bf16* B,
+                                         int accumulate = 0) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) mma_ss(acc, desc_k(A, kk), desc_k(B, kk), kk > 0);
+  for (int kk = 0; kk < D / 16; ++kk) mma_ss(acc, desc_k(A, kk), desc_k(B, kk), accumulate || kk > 0);
 }
 
 // acc[p] (+)= X B over 64 k: X as A fragments, B a tile read MN-major.

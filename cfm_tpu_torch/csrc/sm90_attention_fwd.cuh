@@ -59,8 +59,6 @@ struct BlockLayout {
   }
 };
 
-constexpr int kWarpgroup = 128;
-
 // Keys 64 j + col (the accumulator's columns) at or past S get logit -inf.
 template <class L>
 __device__ __forceinline__ void mask_keys(float (&l)[32], const L& lay, int j) {
@@ -260,12 +258,6 @@ template <int D> constexpr int ring_slots() { return D == 64 ? 8 : 4; }
 template <int D>
 constexpr size_t tensor_core_smem(int S) {
   return S <= 256 ? resident_smem(D, (S + 63) / 64) : streamed_smem<D, ring_slots<D>()>();
-}
-
-template <typename Kernel>
-int set_smem(Kernel kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
 }
 
 template <int D, int T, class L>

@@ -16,7 +16,10 @@ its recomputing backward.
   products TMA + wgmma GEMMs, its attention kernel #3's) or raises. Under
   autograd it is a ``torch.autograd.Function`` that saves only the primal
   inputs and whose backward is :func:`fused_attention_block_bwd`
-  (``csrc/attn_block_bwd.cu`` on CUDA). It never falls back.
+  (``csrc/attn_block_bwd.cu`` on CUDA: in bf16 at head dims 64 and 128 a
+  chain of ten launches reusing #1's GroupNorm strip and GEMM and #4's
+  attention kernels, with do split exactly into three bf16 parts). It never
+  falls back.
 - :func:`use_fused_block` is the JAX gate's shape and budget test, so both
   packages route the same blocks here.
 """
@@ -291,7 +294,11 @@ def fused_attention_block_bwd(x, gscale, gbias, wq, bq, wo, bo, dy, n_heads: int
         raise ValueError("dy must be 16-byte aligned")
     dtype = 0 if x.dtype == torch.float32 else 1
     lib = _lib_bwd()
-    ws = torch.empty(lib.attn_block_bwd_workspace(N, S, C, n_heads, dtype),
+    # bf16 at head dims 64 and 128 takes the fused route, whose GroupNorm
+    # stage is the strip kernel of the forward, planned by strip_plan
+    fused = lib.attn_block_bwd_fused(C, n_heads, groups, dtype)
+    plan = strip_plan(N, S, C, groups, x.element_size()) if fused else (0,) * 6
+    ws = torch.empty(lib.attn_block_bwd_workspace(N, S, C, n_heads, groups, dtype),
                      dtype=torch.uint8, device=x.device)
     f32 = dict(device=x.device, dtype=torch.float32)
     dx = torch.empty_like(x)
@@ -301,7 +308,7 @@ def fused_attention_block_bwd(x, gscale, gbias, wq, bq, wo, bo, dy, n_heads: int
         err = lib.attn_block_bwd(
             x.data_ptr(), dy.data_ptr(), gscale.data_ptr(), gbias.data_ptr(), wq.data_ptr(),
             bq.data_ptr(), wo.data_ptr(), dx.data_ptr(), *(g.data_ptr() for g in grads),
-            ws.data_ptr(), N, S, C, n_heads, groups, 1.0 / math.sqrt(D), dtype,
+            ws.data_ptr(), N, S, C, n_heads, groups, 1.0 / math.sqrt(D), dtype, *plan,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"attn_block_bwd launch failed: CUDA error {err}")
@@ -328,9 +335,11 @@ def _lib_bwd() -> ctypes.CDLL:
     lib = _build.load("attn_block_bwd")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.attn_block_bwd_workspace.argtypes = [i] * 5
+        lib.attn_block_bwd_workspace.argtypes = [i] * 6
         lib.attn_block_bwd_workspace.restype = ctypes.c_size_t
-        lib.attn_block_bwd.argtypes = [p] * 15 + [i] * 5 + [ctypes.c_float, i, p]
+        lib.attn_block_bwd_fused.argtypes = [i] * 4
+        lib.attn_block_bwd_fused.restype = i
+        lib.attn_block_bwd.argtypes = [p] * 15 + [i] * 5 + [ctypes.c_float] + [i] * 7 + [p]
         lib.attn_block_bwd.restype = i
         lib._typed = True
     return lib

@@ -18,8 +18,8 @@ a result:
    the attention-block forward and backward in float32 (TF32 off) and
    bfloat16 (the backward's bf16 limit shown to catch do and ds rounded to
    bf16), at the CIFAR-10 shapes, at the ImageNet-64 8x8 shape (C = 768,
-   12 heads) and at ragged S on both bf16 attention routes, the forward
-   rerun for the same bits; the multi-head attention forward and backward
+   12 heads) and at ragged S on both bf16 attention routes, the forward and
+   the bf16 backward rerun for the same bits; the multi-head attention forward and backward
    (#3, #4) at the ImageNet-64 training and generation shapes and at others
    that take other branches, the gate's edges (S = 896 at D = 64, 768 at
    D = 128) among them, with the bf16 backward's rerun giving the same
@@ -47,9 +47,10 @@ a result:
    both implied plans within the tolerance, a rerun repeating the bits and
    the iteration count.
 4. Times each kernel with CUDA events (the attention-block forward at the
-   training and the generation batch and at ImageNet-64's 8x8 shape, by
-   device time in turns with the library composition, with its device
-   operations a call; the multi-head attention forward and
+   training and the generation batch and at ImageNet-64's 8x8 shape, and
+   its backward at the CIFAR-10 and ImageNet-64 training shapes, by device
+   time in turns with the library composition, with their device
+   operations a call and their kernels' times; the multi-head attention forward and
    backward at the ImageNet-64 training shape, in turns with
    ``F.scaled_dot_product_attention`` and its backward, by device time from
    the profiler as well, with the backward's FMA variant of dq and dk; the
@@ -374,8 +375,9 @@ def check_attn_block_bwd(G=32):
     its own max-abs (they are sums over N*S rows, so their elements span a
     wide range). In bf16 the plain backward with do and ds rounded to bf16
     is read as well, and must fall outside WGRAD_TOL: the check would catch
-    a kernel that rounded them. Returns the largest bf16 dx error at the
-    training shape."""
+    a kernel that rounded them; and a rerun must give the same bits (every
+    sum over partials has a fixed order). Returns the largest bf16 dx error
+    at the training shape."""
     import torch
     from cfm_tpu_torch.device import strict_f32
     from cfm_tpu_torch.ops import attn_block as ab
@@ -388,8 +390,12 @@ def check_attn_block_bwd(G=32):
             args = list(t.values()) + [dy, H, G]
             with strict_f32():
                 out = ab.fused_attention_block_bwd(*args)
+                again = ab.fused_attention_block_bwd(*args) if dtype == torch.bfloat16 else out
                 ref = ab.attention_block_backward_reference(*args)
             torch.cuda.synchronize()
+            if not all(torch.equal(o, a) for o, a in zip(out, again)):
+                raise AssertionError(f"attn_block_bwd's rerun differs at N={N} S={S} C={C} "
+                                     f"H={H} {dtype}")
             key = str(dtype).split(".")[1]
             tol, wtol = TOL[key], WGRAD_TOL[key]
             bad_dx = ((out[0].float() - ref[0].float()).abs()
@@ -412,8 +418,9 @@ def check_attn_block_bwd(G=32):
                                          f"by {caught:.2e}, inside the {wtol} limit")
                 line += "; do and ds rounded to bf16 would read " + ", ".join(
                     f"{n} {e:.2e}" for n, e in rounded.items())
+            rerun = "; a rerun gives the same bits" if dtype == torch.bfloat16 else ""
             log(f"attn_block_bwd N={N} S={S} C={C} H={H} {dtype}: max error (dx abs, weights "
-                f"relative to max-abs) {line}")
+                f"relative to max-abs) {line}{rerun}")
     return worst
 
 
@@ -841,19 +848,27 @@ def time_auction_tiled():
 
 
 def bwd_flops(N, S, C, H):
-    """(bf16-operand FLOPs, f32-operand FLOPs) of the backward, recompute
-    included: qkv, logits, attn, dattn, dwo, dwq, dtokens take model-dtype
-    operands; dp, dq, dk, dv take f32 ones (do and ds are f32)."""
+    """FLOPs of the backward, recompute included, all at the bf16 tensor-core
+    rate: qkv, logits, attn, dattn, dwo, dwq, dtokens take model-dtype
+    operands; dp, dq, dk, dv take an f32 one (do or ds), which the card
+    computes exactly as three bf16 products each (the f32 value split into
+    bf16 hi + mid + lo), the least it needs, as ``attention_bound`` counts
+    #4's dq and dk. Counting them at the non-tensor f32 rate instead would
+    let a kernel that takes the split read above 100% of its bound."""
     D, M, Z = C // H, N * S, N * H
     att = 2 * Z * S * S * D
     lp = 2 * M * C * 3 * C + 2 * att + 2 * (2 * M * C * C) + 2 * (2 * M * C * 3 * C)
-    return lp, 4 * att
+    return lp + 3 * 4 * att
 
 
 def time_attn_block_bwd(N=TRAIN_BATCH, S=256, C=256, H=4, G=32):
     """Phase 4 at a training shape (by default CIFAR-10's, N=128, S=256,
-    C=256), bf16. The yardstick is the backward alone of F.group_norm +
-    F.linear + scaled_dot_product_attention + F.linear + residual in bf16."""
+    C=256), bf16, by device time in turns with the library composition (the
+    backward alone of F.group_norm + F.linear + scaled_dot_product_attention
+    + F.linear + residual in bf16; kernel, library, library, kernel), as
+    ``time_attn_block`` times #1; with its device operations a call and its
+    kernels' device times, and by CUDA events around 20 eager calls; beside
+    the plain version."""
     import torch
     import torch.nn.functional as F
     from cfm_tpu_torch.ops import attn_block as ab
@@ -869,21 +884,40 @@ def time_attn_block_bwd(N=TRAIN_BATCH, S=256, C=256, H=4, G=32):
     ctx = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(N, S, C)
     y = xl + F.linear(ctx, w["wo"].T, w["bo"][0])
     inputs = [xl] + list(w.values())
-    times = dict(ms=cuda_ms(lambda: ab.fused_attention_block_bwd(*args)),
-                 plain_ms=cuda_ms(lambda: ab.attention_block_backward_reference(*args), iters=3),
-                 library_ms=cuda_ms(lambda: torch.autograd.grad(y, inputs, dy, retain_graph=True)))
-    lp_flops, f32_flops = bwd_flops(N, S, C, H)
-    ops_s = lp_flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+    kernel = lambda: ab.fused_attention_block_bwd(*args)
+    library = lambda: torch.autograd.grad(y, inputs, dy, retain_graph=True)
+    turns = {"kernel": [], "library": []}
+    ops = []
+    for who in ("kernel", "library", "library", "kernel"):
+        fn = kernel if who == "kernel" else library
+        ms, n_ops = device_ms_and_launches(fn)
+        turns[who].append((ms, cuda_ms(fn)))
+        if who == "kernel":
+            ops.append(n_ops)
+    _, events = traced(lambda: (kernel(), torch.cuda.synchronize()), "one #2 call")
+    plain_ms = cuda_ms(lambda: ab.attention_block_backward_reference(*args), iters=3)
+    mean = {who: sum(a for a, _ in ts) / len(ts) for who, ts in turns.items()}
+    ms, lib_ms = mean["kernel"], mean["library"]
+    flops = bwd_flops(N, S, C, H)
+    ops_s = flops / PEAK_BF16_FLOPS
     nbytes = 3 * N * S * C * 2 + 2 * 4 * (C * 3 * C + 3 * C + C * C + 3 * C)
     bytes_s = nbytes / PEAK_BYTES
     bound_ms = max(ops_s, bytes_s) * 1e3
     bound_by = "operations" if ops_s >= bytes_s else "bytes"
-    log(f"attn_block_bwd timing N={N} S={S} C={C} bf16: kernel {times['ms']:.4f} ms "
-        f"({(lp_flops + f32_flops) / times['ms'] / 1e9:.2f} TFLOP/s; {lp_flops / 1e9:.2f} GFLOP "
-        f"bf16-operand + {f32_flops / 1e9:.2f} GFLOP f32-operand), {100 * bound_ms / times['ms']:.2f}% "
-        f"of the {bound_ms:.4f} ms bound by {bound_by}, plain {times['plain_ms']:.4f} ms, "
-        f"library backward {times['library_ms']:.4f} ms")
-    return dict(times, bound_ms=bound_ms, bound_by=bound_by)
+    fmt = lambda ts, i: ", ".join(f"{v[i]:.4f}" for v in ts)
+    name = lambda k: k.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+    stages = "; ".join(f"{name(e.key)} x{e.count} {e.self_device_time_total / 1e3:.4f}"
+                       for e in sorted(events, key=lambda e: -e.self_device_time_total))
+    log(f"attn_block_bwd timing N={N} S={S} C={C} H={H} bf16, device time: kernel {ms:.4f} ms "
+        f"({fmt(turns['kernel'], 0)}; {flops / ms / 1e9:.2f} TFLOP/s, {flops / 1e9:.2f} GFLOP "
+        f"counting dp, dq, dk, dv as three bf16 products each; {100 * bound_ms / ms:.2f}% of the "
+        f"{bound_ms:.4f} ms bound by {bound_by}), library backward {lib_ms:.4f} ms "
+        f"({fmt(turns['library'], 0)}), kernel / library {ms / lib_ms:.3f}; device operations a "
+        f"call {ops}; its kernels (launches, ms in one call): {stages}; eager, 20 calls between "
+        f"CUDA events: kernel {fmt(turns['kernel'], 1)}, library {fmt(turns['library'], 1)} ms; "
+        f"plain {plain_ms:.4f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def mnist_model(device="cuda"):

@@ -402,6 +402,171 @@ def test_backward_wrapper_rejects_a_mismatched_dy():
         tab.fused_attention_block_bwd(x, *t.values(), x.to(torch.bfloat16), 2, 32)
 
 
+# ---------------------------------------------------------------------------
+# A torch model of the fused bf16 backward (csrc/attn_block_bwd.cu): the
+# GroupNorm strip's statistics (mean, then the centred variance, 1 / sqrt),
+# #1's qkv and #3's exp2 weights on the block layout (keys past a ragged S
+# masked), dattn in f32 split exactly into three bf16 parts, dp and dv as
+# three products of those parts, dw = dp - rowsum(dp * w), ds split in three
+# for dq and dk, dbq from the f32 dqkv, the weight products from T(dqkv),
+# and the GroupNorm backward from per-channel sums and the strip's means.
+# ---------------------------------------------------------------------------
+
+
+def _split3(x):
+    """f32 x as bf16 hi + mid + lo, each step rounded to nearest, as
+    to_split_frags and the dattn epilogue split it."""
+    hi = x.to(torch.bfloat16).float()
+    mid = (x - hi).to(torch.bfloat16).float()
+    return hi, mid, (x - hi - mid).to(torch.bfloat16).float()
+
+
+def _model_backward(x, gscale, gbias, wq, bq, wo, bo, dy, H, G):
+    from test_torch_attention import _exp, _log2_scale, _stats
+
+    N, S, C = x.shape
+    lp, D, cg = x.dtype, C // H, C // G
+    scale = 1.0 / math.sqrt(D)
+    rows = lambda t: t.reshape(N * S, -1)
+    xs, dyf = x.float(), dy.float()
+    xg = xs.reshape(N, S, G, cg)
+    mean = xg.mean(dim=(1, 3), keepdim=True)
+    inv = 1.0 / torch.sqrt((xg - mean).square().mean(dim=(1, 3), keepdim=True) + 1e-5)
+    inv_c = inv.expand_as(xg).reshape(N, S, C)
+    xh = (xg - mean).reshape(N, S, C) * inv_c
+    tokens = (xh * gscale + gbias).to(lp).float()
+    wq_b, wo_b = wq.to(lp).float(), wo.to(lp).float()
+    qkv = ((tokens @ wq_b).to(lp) + bq.to(lp)).float()
+    Sp = 64 * -(-S // 64)
+    heads = lambda t, k: F.pad(t, (0, 0, 0, Sp - S)).reshape(N, Sp, k, H, D).permute(2, 0, 3, 1, 4)
+    q, k, v = heads(qkv, 3)
+    acc = q @ k.transpose(-1, -2)
+    acc[..., S:] = -math.inf                     # keys past S
+    ls = _log2_scale(scale)
+    tiles = acc.split(64, dim=-1)
+    m, s = _stats(list(tiles), ls)
+    wf = torch.cat([_exp(a, ls, m) for a in tiles], -1) * (1.0 / s)
+    w = wf.to(lp).float()
+    attn = (w @ v)[:, :, :S].permute(0, 2, 1, 3).reshape(N, S, C).to(lp).float()
+    do = [heads(p, 1)[0] for p in _split3(dyf @ wo_b.T)]   # dattn = hi + mid + lo
+    dp = sum(p @ v.transpose(-1, -2) for p in do)
+    ds = (wf * (dp - (dp * w).sum(-1, keepdim=True))) * scale
+    dq = sum(p @ k for p in _split3(ds))
+    queries = (torch.arange(Sp) < S)[:, None].float()   # the columns kernel masks queries past S
+    wq_t, ds_t = (w * queries).transpose(-1, -2), (ds * queries).transpose(-1, -2)
+    dk = sum(p @ q for p in _split3(ds_t))
+    dv = sum(wq_t @ p for p in do)
+    dqkv = torch.stack([dq, dk, dv])[:, :, :, :S].permute(1, 3, 0, 2, 4).reshape(N, S, 3 * C)
+    dbq = dqkv.sum(dim=(0, 1))
+    dqkv_b = dqkv.to(lp).float()
+    dwo = rows(attn).T @ rows(dyf)
+    dwq = rows(tokens).T @ rows(dqkv_b)
+    dt = dqkv_b @ wq_b.T
+    s1, s2 = dt.sum(1), (dt * xh).sum(1)           # (N, C): dgbias and dgscale per item
+    group = lambda t: (gscale[0] * t).reshape(N, 1, G, cg).sum(-1, keepdim=True).expand(
+        N, 1, G, cg).reshape(N, 1, C) / (S * cg)
+    dx = (dyf + inv_c * ((dt * gscale - group(s1)) - xh * group(s2))).to(lp)
+    return (dx, s2.sum(0)[None], s1.sum(0)[None], dwq, dbq[None], dwo, dyf.sum(dim=(0, 1))[None])
+
+
+def test_split_of_do_and_ds_is_exact():
+    """f32 do and ds split into bf16 hi + mid + lo bit for bit, each part a
+    bf16 value, for every magnitude from 2^-110 to 2^100 and zero; below
+    2^-110 the lowest part can fall under bf16's smallest subnormal (2^-133),
+    and what is lost is at most half of it. The three products of the parts
+    equal the f32 product to f32 accumulation rounding; rounding do once to
+    bf16 does not."""
+    rng = np.random.default_rng(13)
+    mag = lambda lo, hi, k: (rng.choice([-1.0, 1.0], k) * (1.0 + rng.random(k))
+                             * np.exp2(rng.integers(lo, hi, k))).astype(np.float32)
+    x = mag(-110, 100, 1 << 16)
+    x[:64] = 0.0
+    t = torch.from_numpy(x)
+    parts = _split3(t)
+    for part in parts:
+        assert torch.equal(part.to(torch.bfloat16).float(), part)
+    hi, mid, lo = parts
+    assert torch.equal((hi + mid) + lo, t) and torch.equal(hi + (mid + lo), t)
+    tiny = torch.from_numpy(mag(-126, -110, 4096))
+    hi, mid, lo = _split3(tiny)
+    assert ((hi + mid + lo - tiny).abs() <= 2.0 ** -134).all()
+    dom = torch.from_numpy(rng.standard_normal((256, 64)).astype(np.float32) * 1e-2)
+    v = torch.from_numpy(rng.standard_normal((256, 64)).astype(np.float32))
+    v = v.to(torch.bfloat16).float()
+    exact = dom.double() @ v.double().T
+    bound = 64 * torch.finfo(torch.float32).eps * (dom.abs().double() @ v.abs().double().T)
+    split = sum(p @ v.T for p in _split3(dom))
+    assert ((split.double() - exact).abs() <= bound).all()
+    assert ((dom.to(torch.bfloat16).float() @ v.T).double() - exact).abs().gt(bound).any()
+
+
+@pytest.mark.parametrize("dtype,tol", [("f32", 2e-4), ("bf16", 3e-2)])
+@pytest.mark.parametrize("S", [64, 72])
+def test_fused_backward_model_matches_plain_and_jax_kernel(monkeypatch, S, dtype, tol):
+    """The model against the plain backward at the card's limits (dx f32
+    1e-4, bf16 2e-2 abs+rel; the weight gradients 1e-4, 1e-3 of their
+    max-abs) and against jax.vjp of the JAX block, whose backward is
+    ``_bwd_kernel`` in interpret mode (dx at ``tol``; the weight gradients
+    at 1e-4 / 1e-3 of their max-abs in f32 / bf16), at a whole key tile and
+    a ragged one (S = 72: keys past S masked)."""
+    import jax
+
+    j = _jax(dtype)
+    monkeypatch.setattr(j.pab, "INTERPRET", True)
+    tdtype = _DTYPES[dtype][1]
+    N, C, H, G = 2, 128, 2, 32
+    inp = _inputs(N, S, C, H, seed=S + 1)
+    dy = np.random.default_rng(S).standard_normal((N, S, C)).astype(np.float32)
+    t = {k: torch.from_numpy(v) for k, v in inp.items()}
+    x = t.pop("x").to(tdtype)
+    tdy = torch.from_numpy(dy).to(tdtype)
+    got = _model_backward(x, *t.values(), tdy, H, G)
+    ref = tab.attention_block_backward_reference(x, *t.values(), tdy, H, G)
+    args = [j.jnp.asarray(inp["x"], j.dtype)] + [
+        j.jnp.asarray(inp[k]) for k in ("gscale", "gbias", "wq", "bq", "wo", "bo")]
+    _, vjp = jax.vjp(lambda *a: j.pab.fused_attention_block(*a, H, G), *args)
+    jref = vjp(j.jnp.asarray(dy, j.dtype))
+    card = 1e-4 if dtype == "f32" else 2e-2
+    wcard = 1e-4 if dtype == "f32" else 1e-3
+    for name, g, r, jr in zip(_GRADS, got, ref, jref):
+        g, r, jr = g.float().numpy(), r.float().numpy(), np.asarray(jr, np.float32)
+        assert g.shape == r.shape == jr.shape, name
+        if name == "dx":
+            np.testing.assert_allclose(g, r, atol=card, rtol=card, err_msg=name)
+            np.testing.assert_allclose(g, jr, atol=tol, rtol=tol, err_msg=name)
+        else:
+            assert np.abs(g - r).max() <= wcard * np.abs(r).max(), name
+            assert np.abs(g - jr).max() <= wcard * np.abs(jr).max(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,S,C,H", [(4, 72, 128, 2), (2, 136, 256, 4), (2, 72, 256, 2)])
+def test_fused_backward_kernel_at_ragged_s_on_cuda(N, S, C, H):
+    """The fused bf16 route at a ragged S (D = 64 and 128): one launch of
+    the wrapper, the plain version's gradients at the card's limits (dx 2e-2
+    abs+rel, weight gradients 1e-3 of their max-abs), and a rerun giving the
+    same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("the attention-block backward kernel runs only on a CUDA device")
+    t = {k: torch.from_numpy(v).cuda() for k, v in _inputs(N, S, C, H, seed=3).items()}
+    x = t.pop("x").to(torch.bfloat16)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(2)).cuda().to(torch.bfloat16)
+    assert tab._lib_bwd().attn_block_bwd_fused(C, H, 32, 1) == 1
+    before = tab.fused_attention_block_bwd.launches
+    out = tab.fused_attention_block_bwd(x, *t.values(), dy, H, 32)
+    again = tab.fused_attention_block_bwd(x, *t.values(), dy, H, 32)
+    ref = tab.attention_block_backward_reference(x, *t.values(), dy, H, 32)
+    torch.cuda.synchronize()
+    assert tab.fused_attention_block_bwd.launches == before + 2
+    for name, o, a, r in zip(_GRADS, out, again, ref):
+        assert torch.equal(o, a), name
+        o, r = o.float().cpu().numpy(), r.float().cpu().numpy()
+        if name == "dx":
+            np.testing.assert_allclose(o, r, atol=2e-2, rtol=2e-2, err_msg=name)
+        else:
+            assert np.abs(o - r).max() <= 1e-3 * np.abs(r).max(), name
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [("f32", 1e-4), ("bf16", 2e-2)])
 @pytest.mark.parametrize("N,S,C,H", [(4, 64, 256, 4), (8, 256, 256, 4), (4, 72, 128, 2)])

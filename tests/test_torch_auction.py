@@ -361,6 +361,170 @@ def test_tiled_wrapper_rejects_bad_inputs():
         tau.pallas_auction_assignment_tiled(torch.zeros(256, 256, device="meta"))
 
 
+def _merge(a, b):
+    """``merge`` of auction_common.cuh on arrays of partials (best, first
+    column, second): the larger best, the smaller column on a tie, the
+    loser's best joins the second."""
+    v1, j1, v2 = a
+    ov1, oj1, ov2 = b
+    take = (ov1 > v1) | ((ov1 == v1) & (oj1 < j1))
+    return (np.where(take, ov1, v1), np.where(take, oj1, j1),
+            np.where(take, np.maximum(ov2, v1), np.maximum(v2, ov1)))
+
+
+_NO_COL = np.iinfo(np.int32).max
+
+
+def _slice_partials(values, w, acc):
+    """The tiled kernel's partials of each row of ``values`` (B, n): w warps
+    each take a contiguous slice of n / w columns; in a slice, lane l's
+    accumulator a folds float4s l + 32 a, l + 32 (a + acc), ... (each float4's
+    four columns in order), as ``scan_slice`` does. Returns the (B, w * 32 *
+    acc) partials, an empty accumulator (-inf, no column, -3e38)."""
+    B, n = values.shape
+    L = n // w
+    K = -(-L // (4 * 32 * acc))
+    pad = np.full((B, w, K * acc * 32 * 4), -np.inf, np.float32)
+    pad[:, :, :L] = values.reshape(B, w, L)
+    cols = np.full((w, K * acc * 32 * 4), _NO_COL)
+    cols[:, :L] = np.arange(n).reshape(w, L)
+    # element ((k acc + a) 32 + lane) 4 + c -> chain position k 4 + c of (lane, a)
+    v = pad.reshape(B, w, K, acc, 32, 4).transpose(0, 1, 4, 3, 2, 5).reshape(B, w, 32, acc, 4 * K)
+    c = cols.reshape(w, K, acc, 32, 4).transpose(0, 3, 2, 1, 4).reshape(w, 32, acc, 4 * K)
+    v1 = np.full((B, w, 32, acc), -np.inf, np.float32)
+    j1 = np.full((B, w, 32, acc), _NO_COL)
+    v2 = np.full((B, w, 32, acc), _NEG32)
+    for t in range(4 * K):  # fold(): a larger value moves the best to the second
+        x, j = v[..., t], np.broadcast_to(c[..., t], v1.shape)
+        valid = j != _NO_COL
+        better = valid & (x > v1)
+        v2 = np.where(better, np.maximum(v2, v1), np.where(valid, np.maximum(v2, x), v2))
+        v1, j1 = np.where(better, x, v1), np.where(better, j, j1)
+    return v1.reshape(B, -1), j1.reshape(B, -1), v2.reshape(B, -1)
+
+
+def _merged(parts, order):
+    """Merge the partials (B, P) one after the other in ``order``."""
+    out = tuple(p[:, order[0]] for p in parts)
+    for k in order[1:]:
+        out = _merge(out, tuple(p[:, k] for p in parts))
+    return out
+
+
+def _tree_merged(parts):
+    """Merge the partials (B, P) pairwise, P / 2 merges at a time: another
+    order, and the fast one for the round model."""
+    while parts[0].shape[1] > 1:
+        P = parts[0].shape[1]
+        if P % 2:
+            empty = (np.full((len(parts[0]), 1), -np.inf, np.float32),
+                     np.full((len(parts[0]), 1), _NO_COL), np.full((len(parts[0]), 1), _NEG32))
+            parts = tuple(np.concatenate([p, e], axis=1) for p, e in zip(parts, empty))
+            P += 1
+        parts = _merge(tuple(p[:, :P // 2] for p in parts), tuple(p[:, P // 2:] for p in parts))
+    return tuple(p[:, 0] for p in parts)
+
+
+def _rows(kind, B, n, rng):
+    if kind == "gauss":
+        return rng.standard_normal((B, n)).astype(np.float32)
+    if kind == "tied":
+        return rng.integers(0, 3, (B, n)).astype(np.float32)
+    if kind == "dups":
+        v = rng.standard_normal((B, n // 2)).astype(np.float32)
+        return np.repeat(v, 2, axis=1)[:, rng.permutation(n)]
+    return np.broadcast_to(-np.arange(n, dtype=np.float32) * _F32(0.5), (B, n)).copy()  # rank 1
+
+
+@pytest.mark.parametrize("acc", [1, 2, 4])
+@pytest.mark.parametrize("kind", ["gauss", "tied", "dups", "rank1"])
+def test_split_row_scan_equals_the_one_pass_scan(kind, acc):
+    """The redesigned tiled kernel's scan: 1-32 column slices (w warps a
+    row), with 1, 2 or 4 accumulators a lane (the kernel keeps one; more
+    measured no faster, and the rule holds for any), merged in any order,
+    give ``_one_pass_scan``'s bits, whatever w and the order of the
+    merges."""
+    rng = np.random.default_rng(acc)
+    n = 256
+    values = _rows(kind, 6, n, rng)
+    ref = _one_pass_scan(values)
+    for w in (1, 2, 4, 8, 16, 32):
+        parts = _slice_partials(values, w, acc)
+        P = parts[0].shape[1]
+        for order in (np.arange(P), np.arange(P)[::-1], rng.permutation(P)):
+            for got in (_merged(parts, order), _tree_merged(tuple(p[:, order] for p in parts))):
+                for g, r in zip(got, ref):
+                    np.testing.assert_array_equal(g, r)
+        # the kernel's order: accumulators, then a butterfly over the lanes, then the warps
+        per = tuple(p.reshape(6, w, 32, acc) for p in parts)
+        lane = _merged(tuple(p.reshape(6 * w * 32, acc) for p in per), np.arange(acc))
+        lane = tuple(p.reshape(6, w, 32) for p in lane)
+        for o in (16, 8, 4, 2, 1):
+            lane = _merge(lane, tuple(p[:, :, np.arange(32) ^ o] for p in lane))
+        got = _merged(tuple(p[:, :, 0] for p in lane), np.arange(w))
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g, r)
+
+
+def _tiled_kernel_model(cost, num_phases=12, acc=1):
+    """The redesigned tiled kernel (``csrc/auction_tiled.cu``) in numpy, its
+    few-candidate round as it runs at n >= 2048: (perm, rounds, row scans).
+    Each round's b candidates (the last round's bidders and evicted owners,
+    or every row at a phase's start) set the warps a row, w = 32 / b
+    rounded down to a power of two at b <= 32, else 1 (at most n / 4 here,
+    where n < 128 would give a slice under one float4); the rows that own a
+    column are skipped; a row's scan is its slices' partials merged
+    (pairwise: any order gives the same bits, see
+    test_split_row_scan_equals_the_one_pass_scan); each column goes to the
+    highest bid, the smallest row on a tie (the packed atomicMax)."""
+    n = cost.shape[0]
+    benefit = -cost.astype(np.float32)
+    eps, eps_final = _kernel_eps(benefit, num_phases)
+    price = np.zeros(n, np.float32)
+    owner, assign = np.full(n, -1), np.full(n, -1)
+    cand = np.arange(n)
+    rounds, scans, cap = 0, 0, 200 * n + 20000
+    while (owner < 0).any() and rounds < cap:
+        b = len(cand)
+        w = 1 if b > 32 else min(1 << int(np.log2(32 // max(b, 1))), n // 4)
+        rows = cand[assign[cand] < 0]
+        parts = _slice_partials(benefit[rows] - price[None, :], w, acc)
+        v1, j1, v2 = _tree_merged(parts)
+        bid = (price[j1] + (v1 - v2)) + eps
+        scans += len(rows)
+        best = {}
+        for r, j, bb in zip(rows, j1, bid):
+            if bb > _NEG32 and (j not in best or (bb, -r) > (best[j][0], -best[j][1])):
+                best[j] = (bb, r)
+        evicted = []
+        for j, (bb, r) in best.items():
+            if owner[j] >= 0:
+                assign[owner[j]] = -1
+                evicted.append(owner[j])
+            owner[j], assign[r], price[j] = r, j, bb
+        cand = np.concatenate([rows, np.asarray(evicted, dtype=rows.dtype)])
+        rounds += 1
+        if (owner >= 0).all() and eps > eps_final:
+            eps = _F32(eps / _F32(4.0))
+            owner[:], assign[:] = -1, -1
+            cand = np.arange(n)
+    return np.where(assign >= 0, assign, n), rounds, scans
+
+
+@pytest.mark.parametrize("kind", ["gauss", "ties", "dups", "rank1"])
+@pytest.mark.parametrize("n", [64, 128, 256])
+def test_tiled_kernel_model_equals_plain(n, kind, one_thread):
+    """The redesigned round in numpy gives the plain tiled version's
+    permutation and round count, as ``test_kernel_model_equals_plain_and_jax``
+    does for the dense kernel."""
+    c = _cost(n, kind, seed=14)
+    perm, rounds, scans = _tiled_kernel_model(c)
+    ref, ref_rounds = tau.auction_assignment_tiled_reference(torch.from_numpy(c), tile=min(n, 256))
+    got = tau._sanitize_perm(torch.from_numpy(perm), n)
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+    assert rounds == ref_rounds and scans >= n
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["gauss", "ties", "dups"])
 @pytest.mark.parametrize("n", [1024, 2048])
