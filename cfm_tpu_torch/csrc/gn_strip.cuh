@@ -1,7 +1,11 @@
 // GroupNorm over strips of whole groups kept on chip (sm_90a), shared by the
-// GroupNorm + SiLU forward #8 (groupnorm.cu) and stage (a) of the
-// attention-block forward #1 (attn_block_fwd.cu), which differ only in the
-// per-element epilogue.
+// GroupNorm + SiLU forward #8 (groupnorm.cu) and the GroupNorm stages of the
+// attention-block forward #1 and backward #2 (attn_block_fwd.cu,
+// attn_block_bwd.cu), which differ only in the per-element epilogue. The
+// backward #9 (gn_strip_bwd.cuh) runs on the same pieces: the box loads
+// (load_share), the row-slot and lane sums (Lanes, lane_totals),
+// the rank-order cluster combine (rank_sum, strip_sync), the plan check and the
+// clustered launch (plan_ok, launch_clusters).
 //
 // x is (N, HW, C) with groups of cg = C / G contiguous channels. A block
 // takes ``items`` items and a strip of W channels: whole groups, W a
@@ -40,6 +44,8 @@
 // and a refined reciprocal to every element.
 
 #pragma once
+
+#include <utility>
 
 #include "sm90_attention.cuh"
 
@@ -97,13 +103,113 @@ inline size_t smem_bytes(const Plan& p, int itemsize) {
          kMaxBoxes * sizeof(uint64_t);
 }
 
+__device__ __forceinline__ uint8_t* align128(uint8_t* p) {
+  return p + ((128 - (sm90::smem_addr(p) & 127)) & 127);
+}
+
+// The share's boxes of K tensors (maps[k] into tiles[k], rows [r_begin,
+// r_begin + rows) of items n0 ...): thread 0 arms one mbarrier a box and
+// issues box b of every tensor on barrier b; the block syncs before anyone
+// waits on a barrier.
+template <typename T, int K>
+__device__ __forceinline__ void load_share(const CUtensorMap* const (&maps)[K],
+                                           T* const (&tiles)[K], uint64_t* bar, const Plan& p,
+                                           int c0, int r_begin, int n0) {
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < p.boxes; ++b) sm90::mbar_init(&bar[b], 1);
+    sm90::mbar_fence_init();
+    const uint32_t box_bytes = (uint32_t)(p.items * p.box_rows * p.width * sizeof(T));
+    for (int b = 0; b < p.boxes; ++b) {
+      sm90::mbar_expect_tx(&bar[b], K * box_bytes);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        sm90::tma_load_3d(tiles[k] + (size_t)b * p.box_rows * p.width, maps[k], &bar[b], c0,
+                          r_begin + b * p.box_rows, n0);
+    }
+  }
+  __syncthreads();
+}
+
+// A block's threads over its share. Thread tl of item it's Ti threads reads
+// 16-byte column j of rows r0, r0 + R, ...; the chunks a warp reads are
+// contiguous. L lanes of a warp add a channel's R row-slot sums (L the
+// least power of two with 4 L >= R, at most 32).
+struct Lanes {
+  int W, IW, Ti, it, tl, nv, R, j, r0, L;
+  __device__ Lanes(const Plan& p, int V) {
+    W = p.width;
+    IW = p.items * W;
+    Ti = kThreads / p.items;
+    it = threadIdx.x / Ti;
+    tl = threadIdx.x % Ti;
+    nv = W / V;
+    R = Ti / nv;
+    j = tl % nv;
+    r0 = tl / nv;
+    L = 1;
+    while (L < 32 && 4 * L < R) L <<= 1;
+  }
+};
+
+// Channel c < IW (item c / W, column c % W) of one sum whose per-thread
+// partials (V a thread) are in ``part``: lane l of its L lanes adds the
+// row slots l, l + L, ... in order, then the L lanes pairwise (xor L / 2,
+// ..., 1); the total goes to out[c]. The caller syncs before and after.
+__device__ __forceinline__ void lane_totals(const float* part, float* out, const Lanes& s, int V) {
+  const int tid = threadIdx.x, lane = tid & 31, L = s.L, per_warp = 32 / L;
+  for (int c0w = (tid >> 5) * per_warp; c0w < s.IW; c0w += (kThreads / 32) * per_warp) {
+    const int c = c0w + lane / L, w = c % s.W;
+    const float* slots = part + (size_t)(c / s.W) * s.Ti * V;
+    float a = 0.f;
+    if (c < s.IW)
+      for (int rr = lane % L; rr < s.R; rr += L) a += slots[(rr * s.nv + w / V) * V + w % V];
+    for (int o = L >> 1; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+    if (lane % L == 0 && c < s.IW) out[c] = a;
+  }
+}
+
+// The cluster's barriers, or the block's where the cluster is one block
+// (launched then without a cluster): at the small maps the cluster's
+// barriers and reads cost a block about a microsecond.
+__device__ __forceinline__ void strip_sync(int cs) {
+  if (cs > 1) sm90::cluster_sync();
+  else __syncthreads();
+}
+__device__ __forceinline__ void strip_arrive(int cs) {
+  if (cs > 1) sm90::cluster_arrive();
+}
+__device__ __forceinline__ void strip_wait(int cs) {
+  if (cs > 1) sm90::cluster_wait();
+}
+
+// *p summed over the cluster's cs blocks in rank order (after a cluster
+// sync that makes every block's *p visible).
+template <int kMaxCluster>
+__device__ __forceinline__ float rank_sum(const float* p, int cs) {
+  if (cs == 1) return 0.f + *p;  // the same sum, read from the block's own memory
+  float v[kMaxCluster];
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r) v[r] = r < cs ? sm90::ld_cluster(p, r) : 0.f;
+  float t = 0.f;
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r)
+    if (r < cs) t += v[r];
+  return t;
+}
+
+// The first channel of channel c's group (c < IW, groups of cg channels
+// within each item's W).
+__device__ __forceinline__ int group_start(int c, int W, int cg) {
+  return c - c % W + (c % W) / cg * cg;
+}
+
 template <typename T, typename Epi>
 __global__ void __launch_bounds__(kThreads, 4)
 strip_kernel(const __grid_constant__ CUtensorMap xmap, const Epi epi, int N, int HW, int C, int cg,
              const Plan p, float eps) {
   constexpr int V = 16 / sizeof(T);
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* base = smem_raw + ((128 - (sm90::smem_addr(smem_raw) & 127)) & 127);
+  uint8_t* base = align128(smem_raw);
   const int W = p.width, rows_alloc = p.boxes * p.box_rows, IW = p.items * W;
   T* xs = reinterpret_cast<T*>(base);
   float* part = reinterpret_cast<float*>(base + round16((size_t)p.items * rows_alloc * W * sizeof(T)));
@@ -118,81 +224,48 @@ strip_kernel(const __grid_constant__ CUtensorMap xmap, const Epi epi, int N, int
   const uint32_t rank = sm90::cluster_rank();
   const int c0 = strip * W, n0 = blockIdx.y * p.items;
   const int r_begin = (int)rank * p.rows, nrows = min(p.rows, HW - r_begin);
-  if (tid == 0) {
-    for (int b = 0; b < p.boxes; ++b) sm90::mbar_init(&bar[b], 1);
-    sm90::mbar_fence_init();
-  }
-  __syncthreads();
-  if (tid == 0) {
-    const uint32_t box_bytes = (uint32_t)(p.items * p.box_rows * W * sizeof(T));
-    for (int b = 0; b < p.boxes; ++b) {
-      sm90::mbar_expect_tx(&bar[b], box_bytes);
-      sm90::tma_load_3d(xs + (size_t)b * p.box_rows * W, &xmap, &bar[b], c0,
-                        r_begin + b * p.box_rows, n0);
-    }
+  {
+    const CUtensorMap* const maps[1] = {&xmap};
+    T* const tiles[1] = {xs};
+    load_share<T, 1>(maps, tiles, bar, p, c0, r_begin, n0);
   }
 
-  // Thread tl of item it's Ti threads reads 16-byte column j of rows
-  // r0, r0 + R, ...; the chunks a warp reads are contiguous.
-  const int Ti = kThreads / p.items, it = tid / Ti, tl = tid % Ti;
-  const int nv = W / V, R = Ti / nv, j = tl % nv, r0 = tl / nv;
+  const Lanes s(p, V);
+  const int it = s.it, tl = s.tl, R = s.R, j = s.j, r0 = s.r0;
   const int n = n0 + it, Ws = min(W, C - c0);
   const bool active = r0 < R && n < N && j * V < Ws;
   const T* xi = xs + (size_t)it * rows_alloc * W + j * V;
   const float cnt = (float)HW * (float)cg;
   float* mine = part + tid * V;
 
-  // Channel c < IW (item c / W, column c % W): L lanes of a warp add its R
-  // row-slot sums (L the least power of two with 4 L >= R, at most 32),
-  // lane l the slots l, l + L, ... in order, then the L lanes pairwise
-  // (xor L / 2, ..., 1); then the cluster's blocks are added in rank order
-  // into tot.
-  int L = 1;
-  while (L < 32 && 4 * L < R) L <<= 1;
+  // One pass's column totals: the row slots and lanes (lane_totals), then
+  // the cluster's blocks in rank order into tot.
   auto column_totals = [&](float* pass_col) {
-    const int lane = tid & 31, per_warp = 32 / L;
-    for (int c0w = (tid >> 5) * per_warp; c0w < IW; c0w += (kThreads / 32) * per_warp) {
-      const int c = c0w + lane / L, w = c % W;
-      const float* slots = part + (size_t)(c / W) * Ti * V;
-      float a = 0.f;
-      if (c < IW)
-        for (int rr = lane % L; rr < R; rr += L) a += slots[(rr * nv + w / V) * V + w % V];
-      for (int o = L >> 1; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
-      if (lane % L == 0 && c < IW) pass_col[c] = a;
-    }
-    sm90::cluster_sync();
-    if (tid < IW) {
-      float v[8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) v[r] = r < cs ? sm90::ld_cluster(&pass_col[tid], r) : 0.f;
-      float t = 0.f;
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-        if (r < cs) t += v[r];
-      tot[tid] = t;
-    }
+    lane_totals(part, pass_col, s, V);
+    strip_sync(cs);
+    if (tid < IW) tot[tid] = rank_sum<8>(&pass_col[tid], cs);
   };
   // The total of channel c's group, its channels in order.
   auto group_total = [&](int c) {
-    const int g0 = c - c % W + (c % W) / cg * cg;
+    const int g0 = group_start(c, W, cg);
     float g = 0.f;
     for (int k = g0; k < g0 + cg; ++k) g += tot[k];
     return g;
   };
 
-  float s[V];
+  float sv[V];
 #pragma unroll
-  for (int u = 0; u < V; ++u) s[u] = 0.f;
+  for (int u = 0; u < V; ++u) sv[u] = 0.f;
   if (active)
     for (int r = r0; r < nrows; r += R) {
       sm90::mbar_wait(&bar[r / p.box_rows], 0);
       float v[V];
       load16<T>(xi + (size_t)r * W, v);
 #pragma unroll
-      for (int u = 0; u < V; ++u) s[u] += v[u];
+      for (int u = 0; u < V; ++u) sv[u] += v[u];
     }
 #pragma unroll
-  for (int u = 0; u < V; ++u) mine[u] = s[u];
+  for (int u = 0; u < V; ++u) mine[u] = sv[u];
   __syncthreads();
   column_totals(col);
   __syncthreads();
@@ -203,7 +276,7 @@ strip_kernel(const __grid_constant__ CUtensorMap xmap, const Epi epi, int N, int
 #pragma unroll
   for (int u = 0; u < V; ++u) {
     mu[u] = mean[it * W + j * V + u];
-    s[u] = 0.f;
+    sv[u] = 0.f;
   }
   if (active)
     for (int r = r0; r < nrows; r += R) {
@@ -212,14 +285,14 @@ strip_kernel(const __grid_constant__ CUtensorMap xmap, const Epi epi, int N, int
 #pragma unroll
       for (int u = 0; u < V; ++u) {
         const float d = v[u] - mu[u];
-        s[u] = fmaf(d, d, s[u]);
+        sv[u] = fmaf(d, d, sv[u]);
       }
     }
 #pragma unroll
-  for (int u = 0; u < V; ++u) mine[u] = s[u];
+  for (int u = 0; u < V; ++u) mine[u] = sv[u];
   __syncthreads();
   column_totals(col + IW);
-  sm90::cluster_arrive();  // done reading the other blocks' sums
+  strip_arrive(cs);  // done reading the other blocks' sums
   __syncthreads();
   if (tid < IW) inv[tid] = 1.f / sqrtf(group_total(tid) / cnt + eps);
   __syncthreads();
@@ -243,7 +316,87 @@ strip_kernel(const __grid_constant__ CUtensorMap xmap, const Epi epi, int N, int
       store16<T>(out + (size_t)r * C, v);
     }
   }
-  sm90::cluster_wait();  // no block leaves while another may still read its sums
+  strip_wait(cs);  // no block leaves while another may still read its sums
+}
+
+// Whether the plan fits the shape: whole groups, 16-byte columns, boxes of
+// at most 256 rows, a cluster of at most max_cluster blocks covering HW,
+// several items only where one box holds an item's rows.
+inline bool plan_ok(int N, int HW, int C, int cg, int V, const Plan& p, int max_cluster) {
+  return N > 0 && N <= 65535 * p.items && HW > 0 && cg > 0 && C % V == 0 && p.width > 0 &&
+         p.width % V == 0 && p.width % cg == 0 && p.width <= 256 && p.items >= 1 &&
+         p.items * p.width <= kThreads && p.cluster >= 1 && p.cluster <= max_cluster &&
+         (long long)p.rows * p.cluster >= HW && p.box_rows >= 1 && p.box_rows <= 256 &&
+         p.boxes >= 1 && p.boxes <= kMaxBoxes && p.boxes * p.box_rows >= p.rows &&
+         (p.boxes == 1 || p.box_rows % 8 == 0) &&
+         (p.items == 1 || (p.cluster == 1 && p.rows == HW && p.boxes == 1 &&
+                           p.box_rows == HW && p.items <= 256));
+}
+
+// The rank-3 map over (N, HW, C) of x (or any tensor of its shape) whose
+// boxes are the plan's (W channels, box_rows rows, items items).
+template <typename T>
+int encode_strip_map(CUtensorMap* map, const T* x, int N, int HW, int C, const Plan& p) {
+  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)HW, (cuuint64_t)N};
+  const cuuint64_t strides[2] = {(cuuint64_t)C * sizeof(T), (cuuint64_t)HW * C * sizeof(T)};
+  const cuuint32_t box[3] = {(cuuint32_t)p.width, (cuuint32_t)p.box_rows, (cuuint32_t)p.items};
+  return sm90::encode_map(map, sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                              : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                          3, x, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// Launches ``kernel`` with ``smem`` bytes of dynamic shared memory on a grid
+// of (strips x cluster, item groups) blocks in clusters of ``cluster``
+// along x (a plain launch where the cluster is one block). A cluster that
+// cannot be co-scheduled would never launch: that is asked once for each
+// kernel, cluster size and shared-memory size (so not again under graph
+// capture). Returns 0 or a CUDA error code.
+template <typename... KArgs, typename... Args>
+int launch_clusters(void (*kernel)(KArgs...), dim3 grid, int cluster, size_t smem,
+                    cudaStream_t st, Args&&... args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (cluster > 8 && (err = cudaFuncSetAttribute(
+                          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) != cudaSuccess)
+    return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  struct Known {
+    const void* fn;
+    int cluster;
+    size_t smem;
+  };
+  static Known known[64];
+  static int n_known = 0;
+  if (cluster > 1) {
+    bool seen = false;
+    for (int i = 0; i < n_known && i < 64 && !seen; ++i)
+      seen = known[i].fn == (const void*)kernel && known[i].cluster == cluster &&
+             known[i].smem == smem;
+    if (!seen) {
+      int clusters = 0;
+      if ((err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg)) !=
+          cudaSuccess)
+        return (int)err;
+      if (clusters == 0) return (int)cudaErrorInvalidConfiguration;
+      known[n_known % 64] = Known{(const void*)kernel, cluster, smem};
+      ++n_known;
+    }
+  }
+  if ((err = cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...)) != cudaSuccess)
+    return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // Checks the plan against the shape and launches the kernel with its
@@ -253,55 +406,14 @@ int launch(const T* x, const Epi& epi, int N, int HW, int C, int G, const Plan& 
            cudaStream_t st) {
   constexpr int V = 16 / sizeof(T);
   const int cg = G > 0 && C % G == 0 ? C / G : 0;
-  const bool ok = N > 0 && N <= 65535 * p.items && HW > 0 && cg > 0 && C % V == 0 &&
-                  p.width > 0 && p.width % V == 0 && p.width % cg == 0 && p.width <= 256 &&
-                  p.items >= 1 && p.items * p.width <= kThreads && p.cluster >= 1 &&
-                  p.cluster <= 8 && (long long)p.rows * p.cluster >= HW &&
-                  p.box_rows >= 1 && p.box_rows <= 256 && p.boxes >= 1 && p.boxes <= kMaxBoxes &&
-                  p.boxes * p.box_rows >= p.rows && (p.boxes == 1 || p.box_rows % 8 == 0) &&
-                  (p.items == 1 || (p.cluster == 1 && p.rows == HW && p.boxes == 1 &&
-                                    p.box_rows == HW && p.items <= 256)) &&
-                  reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  if (!ok) return (int)cudaErrorInvalidValue;
+  if (!plan_ok(N, HW, C, cg, V, p, 8) || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   CUtensorMap xmap;
-  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)HW, (cuuint64_t)N};
-  const cuuint64_t strides[2] = {(cuuint64_t)C * sizeof(T), (cuuint64_t)HW * C * sizeof(T)};
-  const cuuint32_t box[3] = {(cuuint32_t)p.width, (cuuint32_t)p.box_rows, (cuuint32_t)p.items};
-  if (int err = sm90::encode_map(&xmap, sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                                 3, x, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE))
-    return err;
-  const size_t smem = smem_bytes(p, sizeof(T));
-  auto kernel = strip_kernel<T, Epi>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)((C + p.width - 1) / p.width * p.cluster),
-                     (unsigned)((N + p.items - 1) / p.items), 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  // A cluster that cannot be co-scheduled would never launch: asked once for
-  // each cluster size and shared-memory size (so not under graph capture).
-  static size_t schedulable[9] = {};
-  if (p.cluster > 1 && schedulable[p.cluster] != smem) {
-    int clusters = 0;
-    if ((err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg)) != cudaSuccess)
-      return (int)err;
-    if (clusters == 0) return (int)cudaErrorInvalidConfiguration;
-    schedulable[p.cluster] = smem;
-  }
-  if ((err = cudaLaunchKernelEx(&cfg, kernel, xmap, epi, N, HW, C, cg, p, eps)) != cudaSuccess)
-    return (int)err;
-  return (int)cudaGetLastError();
+  if (int err = encode_strip_map<T>(&xmap, x, N, HW, C, p)) return err;
+  const dim3 grid((unsigned)((C + p.width - 1) / p.width * p.cluster),
+                  (unsigned)((N + p.items - 1) / p.items), 1);
+  return launch_clusters(strip_kernel<T, Epi>, grid, p.cluster, smem_bytes(p, sizeof(T)), st, xmap,
+                         epi, N, HW, C, cg, p, eps);
 }
 
 }  // namespace gnstrip

@@ -15,8 +15,9 @@ backward (counterpart of ``cfm_tpu/ops/pallas_groupnorm.py``).
   hand-written Hopper kernels (``csrc/groupnorm.cu``) or raises. When a
   gradient is wanted it is a ``torch.autograd.Function`` that saves x and the
   statistics and whose backward is :func:`fused_group_norm_silu_bwd`.
-- :func:`strip_plan` plans the forward kernel's blocks (``csrc/gn_strip.cuh``,
-  shared with the attention block's GroupNorm stage): the strip width, the
+- :func:`strip_plan` plans the kernels' blocks (``csrc/gn_strip.cuh``,
+  shared with the attention block's GroupNorm stages, and
+  ``csrc/gn_strip_bwd.cuh`` with ``backward=True``): the strip width, the
   cluster that splits a strip's rows and the items a block takes.
 
 The JAX UNet calls the plain reference (on the TPU, XLA fuses the GroupNorm
@@ -36,15 +37,19 @@ from cfm_tpu_torch.ops import _build
 
 _MAX_GROUP_CHANNELS = 256  # the kernels' limit on C / num_groups (one block's threads)
 
-# The forward kernel's plan (csrc/gn_strip.cuh). A strip is whole groups, a
-# multiple of 16 bytes wide, rows of about STRIP_BYTES; a cluster of up to
-# MAX_CLUSTER blocks splits a strip whose rows exceed SHARE_BYTES; at small
-# HW a block takes up to MAX_ITEMS items while the grid keeps MIN_BLOCKS
-# blocks (two an SM of an H100's 132).
+# The kernels' plan (csrc/gn_strip.cuh, csrc/gn_strip_bwd.cuh). A strip is
+# whole groups, a multiple of 16 bytes wide, rows of about STRIP_BYTES; a
+# cluster of up to MAX_CLUSTER blocks splits a strip whose rows exceed
+# SHARE_BYTES (the backward's rows hold x and g, twice the bytes, against
+# SHARE_BYTES_BWD, and only where 8 blocks cannot hold a strip of the
+# narrowest width does its cluster grow to MAX_CLUSTER_BWD); at small HW a
+# block takes up to MAX_ITEMS items while the grid keeps MIN_BLOCKS blocks
+# (two an SM of an H100's 132), and a backward block until the grid is at
+# most MIN_BLOCKS, one wave.
 STRIP_BYTES = 128
-SHARE_BYTES = 64 * 1024
+SHARE_BYTES, SHARE_BYTES_BWD = 64 * 1024, 96 * 1024
 SMEM_BYTES = 227 * 1024  # a block's shared memory on the card
-MAX_CLUSTER, MAX_ITEMS, MAX_BOX_ROWS, MIN_BLOCKS = 8, 8, 256, 264
+MAX_CLUSTER, MAX_CLUSTER_BWD, MAX_ITEMS, MAX_BOX_ROWS, MIN_BLOCKS = 8, 16, 8, 256, 264
 _THREADS, _MAX_BOXES = 256, 32
 
 
@@ -57,20 +62,23 @@ class StripPlan(NamedTuple):
     boxes: int     # boxes of a share
 
 
-def strip_smem_bytes(plan: StripPlan, itemsize: int) -> int:
-    """A block's dynamic shared memory under ``plan``, as
-    ``gnstrip::smem_bytes`` computes it."""
-    tile = -(-plan.items * plan.boxes * plan.box_rows * plan.width * itemsize // 16) * 16
-    return (128 + tile + _THREADS * (16 // itemsize) * 4 + 5 * plan.items * plan.width * 4
-            + _MAX_BOXES * 8)
+def strip_smem_bytes(plan: StripPlan, itemsize: int, backward: bool = False) -> int:
+    """A block's dynamic shared memory under ``plan``, as ``gnstrip::smem_bytes``
+    (or, for the backward, ``gnstrip::smem_bytes_bwd``) computes it."""
+    tiles, vecs, align = (2, 4, 128) if backward else (1, 5, 16)
+    tile = -(-plan.items * plan.boxes * plan.box_rows * plan.width * itemsize // align) * align
+    return (128 + tiles * tile + _THREADS * (16 // itemsize) * 4
+            + vecs * plan.items * plan.width * 4 + _MAX_BOXES * 8)
 
 
-def strip_plan(n: int, hw: int, c: int, num_groups: int, itemsize: int) -> StripPlan:
-    """The forward kernel's blocks for x of (n, hw, c) in a dtype of
-    ``itemsize`` bytes. Raises ValueError for a shape the kernel cannot
-    hold on chip (a strip of the narrowest width over more rows than eight
-    blocks' shared memory) or whose channels are not a multiple of 16
-    bytes."""
+def strip_plan(n: int, hw: int, c: int, num_groups: int, itemsize: int,
+               backward: bool = False) -> StripPlan:
+    """The kernel's blocks for x of (n, hw, c) in a dtype of ``itemsize``
+    bytes: the forward's, or with ``backward`` the backward's, whose share
+    holds x and g. Raises ValueError for a shape the kernel cannot hold on
+    chip (a strip of the narrowest width over more rows than eight blocks'
+    shared memory, sixteen for the backward) or whose channels are not a
+    multiple of 16 bytes."""
     vec = 16 // itemsize
     cg = c // num_groups
     if c % vec:
@@ -78,29 +86,45 @@ def strip_plan(n: int, hw: int, c: int, num_groups: int, itemsize: int) -> Strip
     unit = cg * vec // math.gcd(cg, vec)  # whole groups, whole 16-byte vectors
     if unit > 256:
         raise ValueError(f"a strip of whole groups of {cg} channels is {unit} wide, above 256")
-    width = min(c, unit * max(1, STRIP_BYTES // itemsize // unit))
-    while True:
-        row = width * itemsize
+    tensors, share = (2, SHARE_BYTES_BWD) if backward else (1, SHARE_BYTES)
+
+    def fit(width, max_cluster):
+        row = width * itemsize * tensors
         cluster = 1
-        while cluster < MAX_CLUSTER and -(-hw // cluster) * row > SHARE_BYTES:
+        while cluster < max_cluster and -(-hw // cluster) * row > share:
             cluster *= 2
         rows = -(-hw // cluster)
         boxes = -(-rows // MAX_BOX_ROWS)
         # several boxes start on 128-byte boundaries: rows a multiple of 8
         box_rows = rows if boxes == 1 else -(-rows // (8 * boxes)) * 8
         plan = StripPlan(width, cluster, 1, rows, box_rows, boxes)
-        if strip_smem_bytes(plan, itemsize) <= SMEM_BYTES and boxes <= _MAX_BOXES:
+        fits = strip_smem_bytes(plan, itemsize, backward) <= SMEM_BYTES and boxes <= _MAX_BOXES
+        return plan if fits else None
+
+    width = min(c, unit * max(1, STRIP_BYTES // itemsize // unit))
+    tries = [(width, MAX_CLUSTER), (unit, MAX_CLUSTER)]
+    if backward:
+        tries.append((unit, MAX_CLUSTER_BWD))
+    for width, max_cluster in dict.fromkeys(tries):
+        plan = fit(width, max_cluster)
+        if plan:
             break
-        if width == unit:
-            raise ValueError(f"a strip of {hw} rows x {width} channels does not fit "
-                             f"{MAX_CLUSTER} blocks' shared memory")
-        width = unit
-    if cluster == 1 and hw <= MAX_BOX_ROWS:
-        strips, items = -(-c // width), 1
-        while (items < MAX_ITEMS and 2 * items * hw * row <= SHARE_BYTES
-               and 2 * items * width <= _THREADS
-               and strips * -(-n // (2 * items)) >= MIN_BLOCKS):
-            items *= 2
+    else:
+        raise ValueError(f"a strip of {hw} rows x {width} channels does not fit "
+                         f"{max_cluster} blocks' shared memory")
+    if plan.cluster == 1 and hw <= MAX_BOX_ROWS:
+        strips, items, row = -(-c // plan.width), 1, plan.width * itemsize * tensors
+        if backward:  # latency-bound small maps: fewer, fuller blocks, one wave of them
+            while (items < MAX_ITEMS and 2 * items * plan.width <= _THREADS
+                   and strips * -(-n // items) > MIN_BLOCKS
+                   and strip_smem_bytes(plan._replace(items=2 * items), itemsize, True)
+                   <= SMEM_BYTES):
+                items *= 2
+        else:
+            while (items < MAX_ITEMS and 2 * items * hw * row <= share
+                   and 2 * items * plan.width <= _THREADS
+                   and strips * -(-n // (2 * items)) >= MIN_BLOCKS):
+                items *= 2
         plan = plan._replace(items=items)
     return plan
 
@@ -281,9 +305,10 @@ def fused_group_norm_silu_bwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.
                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dx, dscale, dbias) of the block at x for the output gradient g.
 
-    On a CUDA tensor this launches the backward kernel (and adds one to
-    ``fused_group_norm_silu_bwd.launches``); on a CPU tensor it runs
-    :func:`gn_silu_bwd_reference`."""
+    On a CUDA tensor this launches the backward kernel under
+    ``strip_plan(..., backward=True)`` (and adds one to
+    ``fused_group_norm_silu_bwd.launches``; a shape the plan cannot hold
+    raises ValueError); on a CPU tensor it runs :func:`gn_silu_bwd_reference`."""
     _check(x, scale, bias, num_groups)
     n, h, w, c = x.shape
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device or not g.is_contiguous():
@@ -297,6 +322,9 @@ def fused_group_norm_silu_bwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.
     if x.device.type == "cpu":
         return gn_silu_bwd_reference(x, scale, bias, mean, inv, g, num_groups, apply_silu)
     _device_checks(x)
+    if g.data_ptr() % 16:
+        raise ValueError("g must be 16-byte aligned (the kernel loads it by TMA)")
+    plan = strip_plan(n, h * w, c, num_groups, x.element_size(), backward=True)
     dx = torch.empty_like(x)
     dscale = torch.empty(c, device=x.device, dtype=torch.float32)
     dbias = torch.empty_like(dscale)
@@ -306,7 +334,7 @@ def fused_group_norm_silu_bwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.
             x.data_ptr(), g.data_ptr(), scale.data_ptr(), bias.data_ptr(), mean.data_ptr(),
             inv.data_ptr(), dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), ws.data_ptr(),
             n, h * w, c, num_groups, int(apply_silu), 0 if x.dtype == torch.float32 else 1,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            *plan, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"gn_silu_bwd launch failed: CUDA error {err}")
     fused_group_norm_silu_bwd.launches += 1
@@ -315,14 +343,13 @@ def fused_group_norm_silu_bwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.
 
 fused_group_norm_silu_bwd.launches = 0
 
-
 def _lib() -> ctypes.CDLL:
     lib = _build.load("groupnorm")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gn_silu_fwd.argtypes = [p] * 6 + [i] * 4 + [ctypes.c_float] + [i] * 8 + [p]
         lib.gn_silu_fwd.restype = i
-        lib.gn_silu_bwd.argtypes = [p] * 10 + [i] * 6 + [p]
+        lib.gn_silu_bwd.argtypes = [p] * 10 + [i] * 12 + [p]
         lib.gn_silu_bwd.restype = i
         lib._typed = True
     return lib

@@ -22,8 +22,8 @@ a result:
    the bf16 backward rerun for the same bits; the multi-head attention forward and backward
    (#3, #4) at the ImageNet-64 training and generation shapes and at others
    that take other branches, the gate's edges (S = 896 at D = 64, 768 at
-   D = 128) among them, with the bf16 backward's rerun giving the same
-   bits; the auction's
+   D = 128) among them, with the bf16 forward's and backward's reruns
+   giving the same bits; the auction's
    permutation and round count, which must be identical, on a rerun too, on
    Gaussian, tied, duplicated and rank-1 costs up to n = 512, with its
    assignment cost against scipy's; the tiled auction's (#6) permutation and
@@ -34,8 +34,9 @@ a result:
    backward (#8, #9) at every (N, H, W, C, dtype, SiLU) that one model
    evaluation of each path gives ``GroupNorm32`` (recorded by wrapping the
    wrapper for that pass; the ImageNet-64 paths included), plus a
-   recentred-variance case in float32, the forward rerun for the same
-   bits (its cluster combine has a fixed order); and flash Sinkhorn (#7)
+   recentred-variance case in float32, both rerun for the same bits (their
+   cluster combines and #9's item sum have a fixed order); and flash
+   Sinkhorn (#7)
    at the 2d_sf2m path's shape (n = m = 2048, d = 2, reg 2), at n != m with tails,
    at d = 32, with a non-uniform loga, at a small reg, at 4096 + 4096 2-D
    points (beyond the clouds' room in shared memory, so tiled) and at
@@ -45,7 +46,10 @@ a result:
    1e-4 relative + 1e-5 reg absolute of the plain version after 50
    iterations, and at tol 1e-6 stopping counts within 1 of each other and
    both implied plans within the tolerance, a rerun repeating the bits and
-   the iteration count.
+   the iteration count; then at CIFAR-10's raw scale (d = 3072, reg 100,
+   50 iterations) the plans that the kernel's and the plain version's
+   potentials imply, within 4 f32 ulps of the costs' magnitude over reg of
+   the f64 plan's in the log of every entry.
 4. Times each kernel with CUDA events (the attention-block forward at the
    training and the generation batch and at ImageNet-64's 8x8 shape, and
    its backward at the CIFAR-10 and ImageNet-64 training shapes, by device
@@ -226,6 +230,7 @@ FLASH_TOL, FLASH_CAP = 1e-6, 3000
 # measured, and the idle host time that pads each side of a session.
 PROFILE_TRIES, PROFILE_PAD_S = 4, 0.05
 FLASH_BARRIERS = 2  # grid barriers an iteration of #7 (csrc/flash_sinkhorn.cu)
+FLASH_RAW_ULPS = 4  # flash_raw_scale's gate on the implied plans, in f32 ulps of the costs
 
 
 def flash_ops(d):
@@ -437,7 +442,8 @@ def check_attention():
     """Phase 3: the multi-head attention forward (#3) and backward (#4, through
     the autograd Function) against their plain versions, element-wise within
     TOL abs + rel, at ATTN_SHAPES in float32 (TF32 off) and bfloat16; the
-    bf16 backward called again on the same inputs must give the same bits.
+    bf16 forward and backward called again on the same inputs must give the
+    same bits.
     Returns the largest bf16 forward and backward errors at the ImageNet-64
     shapes."""
     import torch
@@ -476,12 +482,17 @@ def check_attention():
                     worst[name] = max(worst[name], errs[name])
             rerun = ""
             if dtype == torch.bfloat16:
+                with torch.no_grad():
+                    fwd_again = att.attention_t(qkv, scale)
                 again = att.attention_t_bwd(qkv, do.contiguous(), scale)
                 torch.cuda.synchronize()
+                if not torch.equal(fwd_again, out.detach()):
+                    raise AssertionError(f"attention_fwd at N={N} H={H} S={S} D={D} gave other "
+                                         f"bits on a rerun")
                 if not torch.equal(again, leaf.grad):
                     raise AssertionError(f"attention_bwd at N={N} H={H} S={S} D={D} gave other "
                                          f"bits on a rerun")
-                rerun = "; the backward's rerun gives the same bits"
+                rerun = "; the forward's and the backward's reruns give the same bits"
             route = "" if gated else " (refused by the gate: the plain composition, as in JAX)"
             log(f"attention N={N} H={H} S={S} D={D} {dtype}{route}: max abs err forward "
                 f"{errs['fwd']:.3e}, backward {errs['bwd']:.3e} (within {tol} abs+rel){rerun}")
@@ -1017,7 +1028,8 @@ def check_gn_case(x, scale, bias, dy, G, silu, what):
 
 
 def check_gn(paths):
-    """Phase 3: every recorded shape, then the recentred-variance case: f32
+    """Phase 3: every recorded shape, where both kernels' reruns must give
+    the same bits, then the recentred-variance case: f32
     at mean 100, std 1 (the inputs of tests/test_torch_groupnorm.py's
     recentred case, made the same way), where a one-pass E[x^2] - E[x]^2
     variance in f32, computed here too, misses the float64 result by more
@@ -1038,11 +1050,18 @@ def check_gn(paths):
         again = gn.fused_group_norm_silu_fwd(x, scale, bias, G, 1e-5, silu)
         if not all(torch.equal(a, b) for a, b in zip(first, again)):
             raise AssertionError(f"gn_silu_fwd's rerun differs at {N}x{H}x{W}x{C} {dt}")
+        _, mean, inv = first
+        grads = [gn.fused_group_norm_silu_bwd(x, scale, bias, mean, inv, dy, G, silu)
+                 for _ in range(2)]
+        if not all(torch.equal(a, b) for a, b in zip(*grads)):
+            raise AssertionError(f"gn_silu_bwd's rerun differs at {N}x{H}x{W}x{C} {dt}")
         plan = gn.strip_plan(N, H * W, C, G, x.element_size())
+        bplan = gn.strip_plan(N, H * W, C, G, x.element_size(), backward=True)
         log(f"gn_silu N={N} {H}x{W}x{C}/{G} {dt} silu={silu}: " +
             ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) +
-            f"; the forward's rerun gives the same bits; plan width {plan.width}, cluster "
-            f"{plan.cluster}, items {plan.items}")
+            f"; the forward's and the backward's reruns give the same bits; plan width "
+            f"{plan.width}, cluster {plan.cluster}, items {plan.items}; backward plan width "
+            f"{bplan.width}, cluster {bplan.cluster}, items {bplan.items}")
     rng = np.random.default_rng(21)
     x = (100.0 + rng.standard_normal((2, 7, 7, 96))).astype(np.float32)
     rng.standard_normal(96), rng.standard_normal(96)  # the test's scale and bias draws
@@ -1566,17 +1585,19 @@ def profile_evaluation():
 
 # Kernel names by group, matched in this order: #1's stages before #3's, as
 # #1 runs #3's kernels on its own layout (BlockLayout), and #8's strip kernel
-# with its SiLU epilogue (SiluOut) apart from #1's GroupNorm stage (TokensOut).
+# with its SiLU epilogue (SiluOut) apart from #1's and #2's GroupNorm stages
+# (TokensOut, TokensStats, gn_bwd_strip_kernel).
 KERNEL_GROUPS = (
     ("GroupNorm kernels (#8 forward, #9 backward)",
-     ("SiluOut", "gn_silu_bwd_kernel", "gn_silu_wgrad_kernel")),
+     ("SiluOut", "strip_bwd_kernel", "item_sum_kernel")),
     ("auction kernels (#5, #6)", ("auction_kernel", "auction_tiled_kernel")),
     ("flash Sinkhorn (#7)", ("flash_sinkhorn_kernel",)),
     ("attention-block kernels (#1, #2; their stages share code)",
-     ("TokensOut", "round_weights_kernel", "BlockLayout", "mma_gemm_kernel", "gn_stats_kernel",
-      "round_transpose_kernel", "attention_kernel", "gemm_kernel", "bmma_kernel", "fgemm_kernel",
-      "softmax_rows_kernel", "softmax_bwd_rows_kernel", "colsum_partial_kernel",
-      "sum_parts_kernel", "gn_bwd_kernel")),
+     ("TokensOut", "TokensStats", "round_weights_kernel", "BlockLayout", "mma_gemm_kernel",
+      "gn_stats_kernel", "round_transpose_kernel", "attention_kernel", "gemm_kernel",
+      "bmma_kernel", "fgemm_kernel", "softmax_rows_kernel", "softmax_bwd_rows_kernel",
+      "colsum_partial_kernel", "sum_parts_kernel", "sum_jobs_kernel", "gn_bwd_kernel",
+      "gn_bwd_strip_kernel")),
     ("multi-head attention kernels (#3, #4)",
      ("attention_resident", "attention_streamed", "attention_bwd_rows", "attention_bwd_cols")),
 )
@@ -1953,14 +1974,22 @@ def check_flash_sinkhorn():
 
 
 def flash_raw_scale():
-    """Phase 3, measured, not gated: #7 and its plain version at CIFAR-10's
-    batch and width unscaled (128 points, d = 3072, costs near 9,000, reg
-    100), 50 iterations, each against the same iteration in float64 on the
-    dense cost. The potentials are fixed only up to (f + k, g - k), and an
-    f32 solve drifts along that shift as it rounds g (|g| near 9,000, an ulp
-    of 1e-3); the line gives each solve's mean shift of f from the f64 one
-    and the kernel's difference from the plain version with the shift
-    removed."""
+    """Phase 3: #7 and its plain version at CIFAR-10's batch and width
+    unscaled (128 points, d = 3072, costs near 9,000, reg 100), 50
+    iterations, each against the same iteration in float64 on the dense
+    cost. The potentials are fixed only up to (f + k, g - k), and an f32
+    solve drifts along that shift as it rounds them (one near 9,000), so f
+    and g are logged, not gated: the line gives each solve's mean shift of f
+    from the f64 one and the kernel's difference from the plain version
+    with the shift removed. The gate holds the plans they imply, pi_ij =
+    exp((f_i + g_j - C_ij) / reg), which the shift leaves alone: each
+    entry's log, (f_i + g_j - C_ij) / reg, within FLASH_RAW_ULPS f32 ulps of
+    the largest magnitude the iteration rounds (the costs, near 9,000, or a
+    potential) over reg of the f64 plan's, for the kernel and for the plain
+    version. f_i and g_j are each an f32 value of at most that magnitude,
+    rounded once and computed from an lse whose terms (a potential less a
+    cost) are rounded at the same scale: two ulps each, four for their
+    sum."""
     import torch
     from cfm_tpu_torch.ops import flash_sinkhorn as fs
 
@@ -1977,10 +2006,23 @@ def flash_raw_scale():
         g64 = reg * (la64 - torch.logsumexp((f64[:, None] - c) / reg, dim=0))
     k = (f - fr).mean().item()
     free = max((f - fr - k).abs().max().item(), (g - gr + k).abs().max().item())
-    log(f"flash sinkhorn raw scale ({n}, {n}, d={d}) reg {reg}, {iters} iterations (measured, "
-        f"not gated): max |df| kernel vs plain {(f - fr).abs().max().item():.3e}, of which a "
-        f"shift k = {k:.3e} (f + k, g - k), the rest {free:.3e}; mean f - f64: kernel "
-        f"{(f.double() - f64).mean().item():.3e}, plain {(fr.double() - f64).mean().item():.3e}")
+    # the log of the plan's entries against the f64 plan's: the cost cancels
+    plan_err = {name: ((a.double()[:, None] + b.double()[None, :])
+                       - (f64[:, None] + g64[None, :])).abs().max().item() / reg
+                for name, (a, b) in (("kernel", (f, g)), ("plain", (fr, gr)))}
+    top = max(f64.abs().max().item(), g64.abs().max().item(), c.max().item())
+    tol = FLASH_RAW_ULPS * 2.0 ** (math.floor(math.log2(top)) - 23) / reg
+    line = (f"flash sinkhorn raw scale ({n}, {n}, d={d}) reg {reg}, {iters} iterations: "
+            f"max |df| kernel vs plain {(f - fr).abs().max().item():.3e}, of which a shift "
+            f"k = {k:.3e} (f + k, g - k), the rest {free:.3e}; mean f - f64: kernel "
+            f"{(f.double() - f64).mean().item():.3e}, plain {(fr.double() - f64).mean().item():.3e}"
+            f"; implied plans, max |log pi - log pi64|: kernel {plan_err['kernel']:.3e}, plain "
+            f"{plan_err['plain']:.3e} (within {tol:.3e}: {FLASH_RAW_ULPS} f32 ulps of {top:.1f}, "
+            f"the largest of max C = {c.max().item():.1f}, |f| = {f64.abs().max().item():.1f} "
+            f"and |g| = {g64.abs().max().item():.1f}, over reg)")
+    if not max(plan_err.values()) <= tol:
+        raise AssertionError(line)
+    log(line)
 
 
 def time_flash_sinkhorn():

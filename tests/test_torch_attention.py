@@ -210,6 +210,24 @@ def test_backward_kernel_matches_plain_on_cuda(N, H, S, D, dtype, tol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,H,S,D", _CARD_SHAPES)
+def test_forward_kernel_rerun_gives_the_same_bits_on_cuda(N, H, S, D):
+    """The bf16 forward (every card shape passes the gate in bf16) sums in a
+    fixed order: a second call on the same inputs gives the same bits, and
+    both launch the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("the attention kernel runs only on a CUDA device")
+    qkv_t, _ = _card_inputs(N, H, S, D, torch.bfloat16, seed=3)
+    before = tatt.attention_t.launches
+    with torch.no_grad():
+        first = tatt.attention_t(qkv_t, 1.0 / math.sqrt(D))
+        second = tatt.attention_t(qkv_t, 1.0 / math.sqrt(D))
+    torch.cuda.synchronize()
+    assert tatt.attention_t.launches == before + 2
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,S,D", _CARD_SHAPES)
 def test_backward_kernel_rerun_gives_the_same_bits_on_cuda(N, H, S, D):
     """The bf16 backward has no atomics and no order that changes between
     runs: a second call on the same inputs gives the same bits."""

@@ -12,12 +12,16 @@
   E[x^2] - E[x]^2 variance is off by 9e-3 and fails the test's limit.
 - The autograd Function on CPU tensors is the plain forward and backward
   and counts no launches; the wrapper rejects what the kernels do not take.
-- The forward kernel's plan (``strip_plan``) at every shape the six paths
-  give ``GroupNorm32``, and a torch model of its summation order (strips of
-  whole groups, rows split over a cluster, fixed-order combines) against
-  the plain forward and the TPU kernel in interpret mode.
+- The kernels' plans (``strip_plan``, and with ``backward=True`` the
+  backward's, whose share holds x and g) at every shape the six paths give
+  ``GroupNorm32``; the backward's plan takes every shape the forward's does.
+  Torch models of both kernels' summation orders (strips of whole groups,
+  rows split over a cluster, fixed-order combines; for the backward also
+  the fixed-order sum over the items) against the plain versions and the
+  TPU kernels in interpret mode.
 - ``cuda``-marked tests hold kernels #8 and #9 against the plain versions on
-  the card: ``python -m pytest tests/test_torch_groupnorm.py -m cuda -q``.
+  the card, and rerun both for the same bits:
+  ``python -m pytest tests/test_torch_groupnorm.py -m cuda -q``.
   They import no JAX, so they run where only PyTorch is installed.
 """
 
@@ -254,17 +258,19 @@ GN_PATHS = {"cifar10 generation": (512, _CIFAR10), "cifar10 training": (128, _CI
 _ITEMSIZE = {"bf16": 2, "f32": 4}
 
 
-def _check_plan(plan, N, HW, C, G, itemsize):
-    """The invariants gnstrip::launch checks, and the shared-memory limit."""
+def _check_plan(plan, N, HW, C, G, itemsize, backward=False):
+    """The invariants gnstrip::plan_ok checks, and the shared-memory limit
+    (the backward's share holds x and g, and its cluster may reach 16)."""
     vec, cg = 16 // itemsize, C // G
     assert plan.width % cg == 0 and plan.width % vec == 0 and plan.width <= 256
-    assert plan.cluster in (1, 2, 4, 8) and plan.rows * plan.cluster >= HW
+    assert plan.cluster in ((1, 2, 4, 8, 16) if backward else (1, 2, 4, 8))
+    assert plan.rows * plan.cluster >= HW
     assert plan.rows * (plan.cluster - 1) < HW  # every block of a cluster has rows
     assert 1 <= plan.box_rows <= 256 and plan.boxes * plan.box_rows >= plan.rows
     assert plan.boxes == 1 or plan.box_rows % 8 == 0
     assert plan.items * plan.width <= 256 and -(-N // plan.items) <= 65535
     assert plan.items == 1 or (plan.cluster == 1 and plan.rows == HW == plan.box_rows)
-    assert tgn.strip_smem_bytes(plan, itemsize) <= 227 * 1024
+    assert tgn.strip_smem_bytes(plan, itemsize, backward) <= 227 * 1024
 
 
 @pytest.mark.parametrize("path", list(GN_PATHS))
@@ -284,6 +290,42 @@ def test_strip_plan_rejects_what_the_kernel_cannot_hold():
         tgn.strip_plan(2, 16, 36, 12, 2)
     with pytest.raises(ValueError, match="does not fit"):
         tgn.strip_plan(1, 512 * 512, 256, 32, 4)
+
+
+@pytest.mark.parametrize("path", [p for p in GN_PATHS if "training" in p])
+def test_strip_plan_bwd_at_recorded_shapes(path):
+    """The backward's plan at every shape of a training path: the invariants
+    of ``_check_plan`` with x and g in a share within 227 KB, a cluster of
+    at most 8 (16 only beyond what 8 blocks hold), rows split only where a
+    whole strip of x and g exceeds the share."""
+    N, shapes = GN_PATHS[path]
+    for H, W, C, dt in shapes:
+        plan = tgn.strip_plan(N, H * W, C, 32, _ITEMSIZE[dt], backward=True)
+        _check_plan(plan, N, H * W, C, 32, _ITEMSIZE[dt], backward=True)
+        assert plan.cluster <= 8
+        assert plan.cluster == 1 or 2 * H * W * plan.width * _ITEMSIZE[dt] > tgn.SHARE_BYTES_BWD
+
+
+def test_strip_plan_bwd_takes_every_forward_shape():
+    """Every shape the forward's plan takes (so every autograd path that
+    runs forward) has a backward plan that fits, across group widths, dtypes
+    and maps up to the forward's limit (the largest maps need a cluster of
+    16); far beyond it the backward refuses too."""
+    taken = 0
+    for itemsize in (2, 4):
+        for cg in (1, 3, 6, 8, 18, 64, 256):
+            for hw in (1, 49, 256, 257, 1000, 4096, 9999, 30000, 50000, 65000, 70000, 300000):
+                try:
+                    tgn.strip_plan(4, hw, 32 * cg, 32, itemsize)
+                except ValueError:
+                    continue
+                plan = tgn.strip_plan(4, hw, 32 * cg, 32, itemsize, backward=True)
+                _check_plan(plan, 4, hw, 32 * cg, 32, itemsize, backward=True)
+                taken += 1
+    assert taken > 100
+    assert tgn.strip_plan(1, 65000, 32, 32, 2, backward=True).cluster == 16
+    with pytest.raises(ValueError, match="does not fit 16 blocks"):
+        tgn.strip_plan(1, 512 * 512, 256, 32, 4, backward=True)
 
 
 def _strip_model(x, scale, bias, G, eps, silu, plan):
@@ -387,6 +429,118 @@ def test_strip_model_matches_plain_and_tpu_kernel(cg, H, dtype):
                 assert _rel_err(a.float().numpy(), r) <= tol, (plan, name)
 
 
+def _bwd_strip_model(x, scale, bias, mean, inv, g, G, silu, plan):
+    """(dx, dscale, dbias) as strip_bwd_kernel and item_sum_kernel compute
+    them: norm and dy per element in f32; per 16-byte column of a strip, row
+    slot r0 of R adds rows r0, r0 + R, ... of its block's share in order,
+    dy for the first sum and fmaf(dy, norm, s) for the second (one
+    rounding); L lanes take a channel as in ``_strip_model``; the cluster's
+    blocks are added in rank order; m1 and m2 add a group's channels' sums
+    times scale in channel order, over HW * cg; dx = inv * (dy * scale - m1
+    - norm * m2), rounded once to x's dtype; dscale and dbias add the items'
+    column sums on 32 lanes, lane l the items l, l + 32, ... in order, then
+    the lanes pairwise (xor 16, ..., 1)."""
+    n, h, w, c = x.shape
+    hw, cg, vec = h * w, c // G, 16 // x.element_size()
+    width, cs, rows = plan.width, plan.cluster, plan.rows
+    slots = (256 // plan.items) // (width // vec)
+    strips = -(-c // width)
+    cp = strips * width
+    pad = lambda t: F.pad(t, (0, cp - c))
+    xf, gf = (pad(t.float().reshape(n, hw, c)) for t in (x, g))
+    mu, iv = pad(mean)[:, None], pad(inv)[:, None]
+    sc, bi = pad(scale), pad(bias)
+    norm = (xf - mu) * iv
+    if silu:
+        y = norm * sc + bi
+        sig = torch.sigmoid(y)
+        dy = gf * sig * (1.0 + y * (1.0 - sig))
+    else:
+        dy = gf
+    nl = 1
+    while nl < 32 and 4 * nl < slots:
+        nl *= 2
+
+    def totals(add, *vals):  # per-channel totals (n, cp) in the kernel's order
+        vals = [v.reshape(n, hw, strips, width) for v in vals]
+        tot = torch.zeros(n, strips, width)
+        for rank in range(cs):
+            share = [v[:, rank * rows:(rank + 1) * rows] for v in vals]
+            steps = -(-share[0].shape[1] // slots)
+            share = [F.pad(v, (0, 0, 0, 0, 0, steps * slots - v.shape[1]))
+                     .reshape(n, steps, slots, strips, width) for v in share]
+            acc = torch.zeros(n, slots, strips, width)
+            for i in range(steps):
+                acc = add(acc, *(v[:, i] for v in share))
+            lanes = torch.zeros(n, nl, strips, width)
+            for r in range(0, slots, nl):
+                part = acc[:, r:r + nl]
+                lanes = lanes + F.pad(part, (0, 0, 0, 0, 0, nl - part.shape[1]))
+            o = nl // 2
+            while o:
+                lanes = lanes + lanes[:, torch.arange(nl) ^ o]
+                o //= 2
+            tot = tot + lanes[:, 0]
+        return tot.reshape(n, cp)
+
+    db = totals(lambda s, d: s + d, dy)
+    ds = totals(lambda s, d, m: (s.double() + d.double() * m.double()).float(), dy, norm)
+
+    def group_mean(t):  # a group's channels in order, over HW * cg
+        t = t.reshape(n, cp // cg, cg)
+        acc = torch.zeros(n, cp // cg)
+        for k in range(cg):
+            acc = acc + t[..., k]
+        return (acc / torch.tensor(float(hw * cg))).repeat_interleave(cg, dim=-1)[:, None]
+
+    m1, m2 = group_mean(db * sc), group_mean(ds * sc)
+    dx = iv * (dy * sc - m1 - norm * m2)
+
+    def item_sum(t):
+        lanes = torch.zeros(32, c)
+        for i in range(n):
+            lanes[i % 32] = lanes[i % 32] + t[i, :c]
+        for o in (16, 8, 4, 2, 1):
+            lanes = lanes + lanes[torch.arange(32) ^ o]
+        return lanes[0]
+
+    return dx[..., :c].reshape(x.shape).to(x.dtype), item_sum(ds), item_sum(db)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("cg,H", [(1, 4), (1, 28), (2, 7), (4, 32), (6, 64), (12, 8), (18, 16),
+                                  (24, 4), (24, 8)])
+def test_bwd_strip_model_matches_plain_and_tpu_kernel(cg, H, dtype):
+    """The model of #9's summation order, under the backward's planned plan,
+    a plan with several items a block and one with a cluster of 4, against
+    ``gn_silu_bwd_reference`` and the TPU kernel in interpret mode, with
+    the SiLU, at N = 40 up to 16x16 maps (two rounds of the item sum's 32
+    lanes) and N = 4 above: every output
+    within 1e-5 of max(1, its max-abs) in f32; in bf16 dx within 1e-2 (one
+    bf16 rounding step of a gradient up to 2), dscale and dbias within 1e-5."""
+    import jax.numpy as jnp
+
+    C, G, N = 32 * cg, 32, 40 if H <= 16 else 4
+    x, scale, bias, g = _inputs(N, H, C, seed=cg * 100 + H + 1)
+    jd, td = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    xt, gt = torch.from_numpy(x).to(td), torch.from_numpy(g).to(td)
+    st, bt = torch.from_numpy(scale), torch.from_numpy(bias)
+    _, mean, inv = tgn.gn_silu_fwd_reference(xt, st, bt, G, 1e-5, True)
+    ref = tgn.gn_silu_bwd_reference(xt, st, bt, mean, inv, gt, G, True)
+    tpu = _tpu_kernels(jnp.asarray(x, jd), jnp.asarray(scale), jnp.asarray(bias),
+                       jnp.asarray(g, jd), G, True)[3:]
+    planned = tgn.strip_plan(N, H * H, C, G, xt.element_size(), backward=True)
+    plans = {_variant(planned, H * H, v) for v in ("planned", "items", "cluster")}
+    for plan in plans:
+        _check_plan(plan, N, H * H, C, G, xt.element_size(), backward=True)
+        got = _bwd_strip_model(xt, st, bt, mean, inv, gt, G, True, plan)
+        for other in (ref, tpu):
+            for name, a, r in zip(("dx", "dscale", "dbias"), got, other):
+                tol = 1e-2 if dtype == "bf16" and name == "dx" else 1e-5
+                r = r.float() if isinstance(r, torch.Tensor) else np.asarray(r, np.float32)
+                assert _rel_err(a.float().numpy(), r) <= tol, (plan, name)
+
+
 def _on_card(x, scale, bias, g, dtype):
     return [torch.from_numpy(a).cuda().to(dtype if i in (0, 3) else torch.float32)
             for i, a in enumerate((x, scale, bias, g))]
@@ -422,7 +576,8 @@ def _check_kernels_on_cuda(x, scale, bias, g, G, silu, dtype, tol, wtol):
                                    (4, 16, 384), (2, 64, 192), (64, 8, 768)])
 def test_kernels_match_plain_on_cuda(N, H, C, silu, dtype, tol, wtol):
     """Also at a cluster of 8 (64x64, 192 channels) and several items a
-    block (8x8 at N = 64); the forward's rerun gives the same bits."""
+    block (8x8 at N = 64); the forward's and the backward's reruns give the
+    same bits (fixed-order sums, no atomics)."""
     if not torch.cuda.is_available():
         pytest.skip("the GroupNorm kernels run only on a CUDA device")
     from cfm_tpu_torch.device import strict_f32
@@ -431,9 +586,13 @@ def test_kernels_match_plain_on_cuda(N, H, C, silu, dtype, tol, wtol):
     inputs = _inputs(N, H, C, seed=C)
     with strict_f32():
         _check_kernels_on_cuda(*inputs, 32, silu, td, tol, wtol)
-    xt, st, bt, _ = _on_card(*inputs, td)
+    xt, st, bt, gt = _on_card(*inputs, td)
     first = tgn.fused_group_norm_silu_fwd(xt, st, bt, 32, 1e-5, silu)
     again = tgn.fused_group_norm_silu_fwd(xt, st, bt, 32, 1e-5, silu)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    _, mean, inv = first
+    first = tgn.fused_group_norm_silu_bwd(xt, st, bt, mean, inv, gt, 32, silu)
+    again = tgn.fused_group_norm_silu_bwd(xt, st, bt, mean, inv, gt, 32, silu)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
