@@ -1,15 +1,18 @@
 """Command line (counterpart of ``cfm_tpu/cli.py``):
 
-  python -m cfm_tpu_torch.cli train 2d_otcfm trainer.ckpt_interval=0
-  python -m cfm_tpu_torch.cli train 2d_icfm trainer.total_steps=800 --device cpu
+  python -m cfm_tpu_torch.cli train 2d_otcfm trainer.total_steps=2000
+  python -m cfm_tpu_torch.cli train cifar10_otcfm optim.lr=1e-4
+  python -m cfm_tpu_torch.cli train configs/experiment/2d_icfm_quick.yaml --device cpu
+  python -m cfm_tpu_torch.cli eval 2d_otcfm      # restore the latest checkpoint, evaluate
   python -m cfm_tpu_torch.cli presets
 
-``train <preset> [group.field=value ...]`` trains on ``--device`` (default:
-the current CUDA device; ``--device cpu`` runs the plain PyTorch path) and
-ends with a final evaluation (W1, W2 and NFE) on the 2-D presets, whose
-image counterpart, tracking FID, is not ported yet. Checkpointing is not
-ported: a preset that saves one during the run needs
-``trainer.ckpt_interval=0``, and ``eval`` (which restores one) refuses.
+``train <preset or YAML file> [group.field=value ...]`` prints the config
+tree, trains (checkpoints under ``<trainer.ckpt_dir>/<name>``, resuming from
+the latest one there) and ends with a final evaluation: W1, W2 and NFE on
+the 2-D presets, the samples' mean and std, the NFE and the tracking FID on
+the image presets. ``eval`` restores the latest checkpoint and evaluates.
+Both run on ``--device`` (default: the current CUDA device; ``--device cpu``
+runs the plain PyTorch path) and log under ``--log_dir`` (default ``logs``).
 """
 
 from __future__ import annotations
@@ -21,16 +24,16 @@ from cfm_tpu_torch.config import available_presets, load_config
 from cfm_tpu_torch.trainer import Trainer
 
 
-def _pop_device(argv: List[str]) -> Optional[str]:
-    """Remove ``--device D`` or ``--device=D`` from ``argv``; return D."""
+def _pop_flag(argv: List[str], flag: str) -> Optional[str]:
+    """Remove ``--flag V`` or ``--flag=V`` from ``argv``; return V."""
     for i, a in enumerate(argv):
-        if a == "--device":
+        if a == flag:
             if i + 1 >= len(argv):
-                raise SystemExit("--device needs a value, such as cuda or cpu")
-            device = argv[i + 1]
+                raise SystemExit(f"{flag} needs a value")
+            value = argv[i + 1]
             del argv[i:i + 2]
-            return device
-        if a.startswith("--device="):
+            return value
+        if a.startswith(flag + "="):
             del argv[i]
             return a.split("=", 1)[1]
     return None
@@ -46,24 +49,26 @@ def main(argv: Optional[List[str]] = None) -> int:
         for p in available_presets():
             print(p)
         return 0
-    if cmd == "eval":
-        raise NotImplementedError("eval restores a checkpoint, and checkpointing is not ported "
-                                  "yet (ROADMAP.md queue 1 item 9); `train` ends with an "
-                                  "evaluation")
-    if cmd != "train":
+    if cmd not in ("train", "eval"):
         print(f"unknown command {cmd!r}; use train | eval | presets")
         return 2
-    device = _pop_device(argv)
+    device = _pop_flag(argv, "--device")
+    log_dir = _pop_flag(argv, "--log_dir") or "logs"
     if not argv:
         print("missing preset name; see `presets`")
         return 2
     preset = argv.pop(0)
     cfg = load_config(preset, argv)
-    print(f"config: {cfg.name} {' '.join(argv)}".rstrip())
-    trainer = Trainer(cfg, device=device)
-    trainer.fit()
-    if not trainer.is_image:
+    print(cfg.tree_str())
+    trainer = Trainer(cfg, device=device, log_dir=log_dir)
+    if cmd == "train":
+        trainer.fit()
         print("final eval:", trainer.evaluate())
+    else:
+        if trainer.ckpt.latest_step() is None:
+            print("no checkpoint to evaluate; run train first")
+            return 1
+        print("eval:", trainer.evaluate())
     return 0
 
 

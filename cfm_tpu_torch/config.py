@@ -1,20 +1,23 @@
-"""Configuration: the fields the trainer reads, the JAX package's presets
+"""Configuration: the JAX package's dataclasses field for field, its presets
 (``2d_*``, ``cifar10_*`` and ``mnist_*`` for the five matchers, ``2d_sf2m``
-and ``mnist_otcfm_cond``) and dotted ``key=value`` overrides (counterpart
-of ``cfm_tpu/config.py``).
+and ``mnist_otcfm_cond``), dotted ``key=value`` overrides, the ``debug=``
+overlays and YAML files (counterpart of ``cfm_tpu/config.py``).
 
 ``load_config("2d_otcfm", ["optim.lr=1e-3", "trainer.total_steps=1000"])``
+``load_config("configs/experiment/cifar10_otcfm.yaml", ["debug=fdr"])``
 
 ``2d_sf2m`` is [SF]2M: SB-CFM at sigma 1 with a score head, whose
 coupling is the exact plan unless ``matcher.ot_method=sinkhorn`` (the
-entropic plan of reg 2 sigma^2). ``eval.sde`` waits for SDE generation
-(ROADMAP.md queue 1 item 2); YAML files and the debug overlays for queue 1
-item 9.
+entropic plan of reg 2 sigma^2). Two fields are carried and refused by the
+``Trainer``: ``eval.sde`` waits for SDE generation (ROADMAP.md queue 1
+item 2) and ``model.use_checkpoint`` for activation checkpointing (item
+12). ``yaml`` is imported only by the YAML functions.
 """
 
 from __future__ import annotations
 
 import ast
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -23,6 +26,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 class ModelConfig:
     kind: str = "mlp"                # mlp | unet
     width: int = 64                  # the MLP's hidden width
+    hidden_dims: Tuple[int, ...] = (64, 64, 64)
+    activation: str = "selu"
     image_dim: Tuple[int, int, int] = (32, 32, 3)   # (H, W, C)
     num_channels: int = 128
     num_res_blocks: int = 2
@@ -35,6 +40,8 @@ class ModelConfig:
     resblock_updown: bool = False
     class_cond: bool = False
     num_classes: int = 10
+    use_checkpoint: bool = False     # activation checkpointing: refused (item 12)
+    checkpoint_policy: Optional[str] = None
     bf16: bool = True
 
 
@@ -73,21 +80,31 @@ class TrainerConfig:
     total_steps: int = 400001
     seed: int = 0
     log_interval: int = 100
-    eval_interval: int = 5000        # the image branch's evaluation is not ported: fit raises
-    ckpt_interval: int = 20000       # checkpointing is not ported: fit raises if one is due
+    eval_interval: int = 5000
+    ckpt_dir: str = "checkpoints"    # checkpoints go to <ckpt_dir>/<name>
+    ckpt_interval: int = 20000
+    resume: bool = True              # restore the latest checkpoint on construction
     data_parallel: bool = True       # the mesh is not ported: raises with more than one card
+    # A sample grid of sample_grid_n images, as <ckpt_dir>/<name>/samples_<step>.png,
+    # every N steps of an image run (0: off).
+    sample_grid_interval: int = 0
+    sample_grid_n: int = 64
     # Early stopping on an evaluation metric (mode min), checked at every
     # evaluation; "" disables. Patience counts evaluations without improvement.
     early_stop_metric: str = ""
     early_stop_patience: int = 3
     early_stop_min_delta: float = 0.0
+    # Debugging aids (the debug= overlays): the data draws cycle through N
+    # fixed batches (noise, t and dropout stay fresh); a torch.profiler trace
+    # of each fit under profile_dir ("": off); autograd's anomaly mode for
+    # the fit, restored after it.
+    overfit_batches: int = 0
+    profile_dir: str = ""
+    debug_nans: bool = False
 
 
 @dataclass
 class EvalConfig:
-    """Generation and evaluation settings (the 2-D branch's W1/W2; the image
-    branch's evaluation waits for ROADMAP.md queue 1 item 4)."""
-
     ode_method: str = "dopri5"
     ode_steps: int = 100             # for fixed-step generation
     num_eval_samples: int = 2048
@@ -103,6 +120,29 @@ class Config:
     optim: OptimConfig = field(default_factory=OptimConfig)
     trainer: TrainerConfig = field(default_factory=TrainerConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def tree_str(self) -> str:
+        """The config as a plain-text tree, ``config: <name>`` first."""
+        lines = [f"config: {self.name}"]
+
+        def walk(d: Dict[str, Any], indent: str) -> None:
+            items = list(d.items())
+            for i, (k, v) in enumerate(items):
+                last = i == len(items) - 1
+                branch = "`-- " if last else "|-- "
+                if isinstance(v, dict):
+                    lines.append(f"{indent}{branch}{k}")
+                    walk(v, indent + ("    " if last else "|   "))
+                else:
+                    lines.append(f"{indent}{branch}{k} = {v!r}")
+
+        d = self.to_dict()
+        d.pop("name", None)
+        walk(d, "")
+        return "\n".join(lines)
 
 
 def _preset_2d(matcher: str, **kw) -> Config:
@@ -169,22 +209,138 @@ def available_presets() -> List[str]:
     return sorted(PRESETS)
 
 
+DEBUG_MODES = ("default", "fdr", "limit", "overfit", "profiler")
+
+
+def apply_debug(cfg: Config, mode: str) -> Config:
+    """Apply a debug overlay in place and return ``cfg``, as JAX's
+    ``apply_debug``: every mode prefixes the name with ``debug_`` and turns
+    ``debug_nans`` on (but the profiler's); ``default`` runs at most 100
+    steps, ``fdr`` one step and one evaluation, ``limit`` 1% of the steps,
+    ``overfit`` cycles 3 data batches without evaluations, ``profiler``
+    traces at most 100 steps into ``logs/profile_<name>``."""
+    if mode not in DEBUG_MODES:
+        raise ValueError(f"Unknown debug mode {mode!r}; one of {DEBUG_MODES}")
+    t = cfg.trainer
+    cfg.name = f"debug_{cfg.name}"
+    t.debug_nans = True
+    if mode == "default":
+        t.total_steps = min(t.total_steps, 100)
+        t.eval_interval = min(t.eval_interval, t.total_steps) if t.eval_interval else 0
+        t.log_interval = min(t.log_interval, max(t.total_steps // 4, 1))
+    elif mode == "fdr":
+        t.total_steps = 1
+        t.eval_interval = 1
+        t.log_interval = 1
+    elif mode == "limit":
+        t.total_steps = max(t.total_steps // 100, 1)
+        t.eval_interval = min(t.eval_interval, t.total_steps) if t.eval_interval else 0
+        t.log_interval = min(t.log_interval, max(t.total_steps // 10, 1))
+    elif mode == "overfit":
+        t.overfit_batches = 3
+        t.total_steps = min(t.total_steps, 2000)
+        t.eval_interval = 0
+        t.early_stop_metric = ""
+        t.log_interval = min(t.log_interval, max(t.total_steps // 10, 1))
+    elif mode == "profiler":
+        t.debug_nans = False         # anomaly checks would distort the trace
+        t.total_steps = min(t.total_steps, 100)
+        t.eval_interval = 0
+        t.log_interval = min(t.log_interval, max(t.total_steps // 4, 1))
+        t.profile_dir = f"logs/profile_{cfg.name}"
+    return cfg
+
+
 def load_config(preset: Optional[str] = None, overrides: Sequence[str] = ()) -> Config:
-    """A preset with ``group.field=value`` overrides (values literal-eval'd)."""
-    if preset is not None and preset not in PRESETS:
-        raise NotImplementedError(f"preset {preset!r} is not ported yet (ROADMAP.md queue 1 "
-                                  f"item 9); the port has {available_presets()}")
-    cfg = PRESETS[preset]() if preset else Config()
+    """A preset, or a ``.yaml``/``.yml`` file (or any path with a ``/``),
+    with ``group.field=value`` overrides (values literal-eval'd).
+
+    A YAML file may name its base preset under ``preset:``; the command
+    line applies on top of it. ``debug=<mode>`` overlays apply before the
+    other overrides, and ``name=`` before the overlays, which prefix it.
+    """
+    if preset and (preset.endswith((".yaml", ".yml")) or "/" in preset):
+        cfg = _load_yaml_config(preset)
+    else:
+        cfg = _preset(preset) if preset else Config()
+    debug_modes, rest = [], []
     for ov in overrides:
         if "=" not in ov:
             raise ValueError(f"Override must be key=value, got {ov!r}")
         path, raw = (s.strip() for s in ov.split("=", 1))
-        try:
-            value = ast.literal_eval(raw)
-        except (ValueError, SyntaxError):
-            value = raw  # bare string
-        _apply_value(cfg, path, value)
+        if path == "debug":
+            debug_modes.append(raw)
+        elif path == "name":
+            _apply_override(cfg, path, raw)
+        else:
+            rest.append((path, raw))
+    for mode in debug_modes:
+        apply_debug(cfg, mode)
+    for path, raw in rest:
+        _apply_override(cfg, path, raw)
     return cfg
+
+
+def _preset(name: str) -> Config:
+    if name not in PRESETS:
+        raise KeyError(f"unknown preset {name!r}; one of {available_presets()}")
+    return PRESETS[name]()
+
+
+def _flatten(d: Dict[str, Any], prefix: str = "") -> List[Tuple[str, Any]]:
+    out: List[Tuple[str, Any]] = []
+    for k, v in d.items():
+        path = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.extend(_flatten(v, path))
+        else:
+            out.append((path, v))
+    return out
+
+
+def _load_yaml_config(path: str) -> Config:
+    """A Config from a YAML mapping: ``preset:`` (the base), ``name:``,
+    ``debug:`` and nested fields, applied in that order."""
+    import yaml
+
+    with open(path) as fh:
+        doc = yaml.safe_load(fh) or {}
+    if not isinstance(doc, dict):
+        raise ValueError(f"YAML config must be a mapping, got {type(doc).__name__}")
+    base = doc.pop("preset", None)
+    debug_mode = doc.pop("debug", None)
+    cfg = _preset(base) if base else Config()
+    name = doc.pop("name", None)
+    if name is not None:
+        cfg.name = str(name)
+    if debug_mode:
+        apply_debug(cfg, str(debug_mode))
+    for dotted, value in _flatten(doc):
+        _apply_value(cfg, dotted, value)
+    return cfg
+
+
+def save_config(cfg: Config, path: str) -> None:
+    """Write ``cfg`` as YAML; ``load_config(path)`` reads it back."""
+    import yaml
+
+    def clean(v):
+        if isinstance(v, tuple):
+            return [clean(x) for x in v]
+        if isinstance(v, dict):
+            return {k: clean(x) for k, x in v.items()}
+        return v
+
+    with open(path, "w") as fh:
+        yaml.safe_dump(clean(cfg.to_dict()), fh, sort_keys=False)
+
+
+def _apply_override(cfg: Any, path: str, raw: str) -> None:
+    try:
+        value = ast.literal_eval(raw)
+    except (ValueError, SyntaxError):
+        value = raw  # bare string
+    _apply_value(cfg, path, value)
 
 
 def _apply_value(cfg: Any, path: str, value: Any) -> None:

@@ -8,10 +8,10 @@ Recipe: UNet 128ch (1, 2, 2, 2), 4 heads x 64, attention at 16x16, dropout
 Usage:
   python -m cfm_tpu_torch.train_cifar10 --model otcfm --synthetic --total_steps 50
 
-Checkpointing and evaluation are not ported yet: ``--output_dir`` is accepted
-and nothing is written, and a run long enough to reach a checkpoint
-(``--save_step``) or an evaluation (``trainer.eval_interval``) is refused;
-pass ``--save_step 0 --override trainer.eval_interval=0`` for a long run.
+Checkpoints go to ``<output_dir>/checkpoints/cifar10_<model>`` every
+``--save_step`` steps and at the end (a rerun resumes from the latest), the
+metric logs to ``<output_dir>/logs``; the tracking FID is evaluated every
+``trainer.eval_interval`` steps (5000).
 """
 
 from __future__ import annotations
@@ -35,8 +35,7 @@ def main(argv=None) -> Trainer:
     p.add_argument("--grad_clip", type=float, default=1.0)
     p.add_argument("--save_step", type=int, default=20000)
     p.add_argument("--data_dir", default="data")
-    p.add_argument("--output_dir", default="results",
-                   help="accepted; nothing is written until checkpointing is ported")
+    p.add_argument("--output_dir", default="results")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--synthetic", action="store_true",
                    help="train on synthetic images when CIFAR-10 is not on disk")
@@ -57,11 +56,12 @@ def main(argv=None) -> Trainer:
         f"data.synthetic_fallback={args.synthetic}",
         f"trainer.total_steps={args.total_steps}",
         f"trainer.ckpt_interval={args.save_step}",
+        f"trainer.ckpt_dir={args.output_dir}/checkpoints",
         f"trainer.seed={args.seed}",
         f"model.bf16={not args.no_bf16}",
     ] + list(args.override))
     cfg.name = f"cifar10_{args.model}"
-    trainer = Trainer(cfg, device=args.device)
+    trainer = Trainer(cfg, device=args.device, log_dir=f"{args.output_dir}/logs")
     trainer.fit()
     return trainer
 

@@ -6,8 +6,9 @@ Presets: ``mnist_<matcher>`` (icfm, otcfm, fm, sbcfm, vpcfm), or with ``--condit
 UNet's class embedding). After training it samples from the EMA parameters
 with euler at ``eval.ode_steps`` steps (100 in the presets): 80 images, 8
 per class, with ``--conditional``, else 64. The samples are saved as a uint8
-(n, 28, 28, 1) array to ``<output_dir>/mnist_samples.npy`` (plotting waits
-for ROADMAP.md queue 1 item 4).
+(n, 28, 28, 1) array to ``<output_dir>/mnist_samples.npy`` and as a grid of
+8 a row to ``<output_dir>/mnist_samples.png``. Checkpoints go to
+``<output_dir>/checkpoints``, the metric logs to ``<output_dir>/logs``.
 
 Usage:
   python -m cfm_tpu_torch.train_mnist --matcher otcfm --steps 2000
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from cfm_tpu_torch.config import load_config
+from cfm_tpu_torch.eval.plotting import image_grid
 from cfm_tpu_torch.trainer import Trainer
 
 
@@ -54,8 +56,9 @@ def main(argv=None) -> Trainer:
         f"data.batch_size={args.batch_size}",
         f"data.data_dir={args.data_dir}",
         f"data.synthetic_fallback={args.synthetic}",
+        f"trainer.ckpt_dir={args.output_dir}/checkpoints",
     ] + list(args.override))
-    trainer = Trainer(cfg, device=args.device)
+    trainer = Trainer(cfg, device=args.device, log_dir=f"{args.output_dir}/logs")
     trainer.fit()
 
     gen = torch.Generator(device=trainer.device).manual_seed(1)
@@ -67,7 +70,9 @@ def main(argv=None) -> Trainer:
     os.makedirs(args.output_dir, exist_ok=True)
     path = os.path.join(args.output_dir, "mnist_samples.npy")
     np.save(path, out.images.cpu().numpy())
-    print(f"saved {out.images.shape[0]} samples (NFE {out.nfe}) to {path}")
+    grid = image_grid(out.images, nrow=8, save_path=os.path.join(args.output_dir,
+                                                                 "mnist_samples.png"))
+    print(f"saved {out.images.shape[0]} samples (NFE {out.nfe}) to {path} and {grid}")
     return trainer
 
 

@@ -1,47 +1,60 @@
 """Experiment harness on one device (counterpart of ``cfm_tpu/trainer.py``):
-config -> model, matcher, data -> ``fit``, ``generate``, ``evaluate``.
+config -> model, matcher, data -> ``fit``, ``generate``, ``evaluate``, with
+checkpoints, resumption and metric logs.
 
 The 2-D branch (the ``2d_*`` presets): each step draws x0 from the source
 and x1 from the target generator on the device, then runs the train step
-(its draws from the same generator, seeded from ``trainer.seed``). Every
-``eval_interval`` steps ``fit`` calls ``evaluate``: 2048 points generated
-from the EMA parameters (euler, 100 steps in the presets) against fresh
-target points by the exact W1 and W2 (two assignment solves at n = 2048,
-the row-tiled auction kernel on the card, scipy on the CPU), with early
-stopping on an evaluation metric.
+(its draws from the same generator, seeded from ``trainer.seed``). Its
+evaluation: points generated from the EMA parameters against fresh target
+points by the exact W1 and W2 (two assignment solves, the row-tiled auction
+kernel on the card, scipy on the CPU).
 
 The image branch: the uint8 set goes to the device once
 (``data.on_device``, the default) and each step draws batch indices there;
 the step's prep (normalise, flip, draw x0) and the train step run on the
-device. With ``model.class_cond`` the labels go to the device beside the
-images and are gathered with the same indices (y0 = y1 = the batch's
-labels), and the step carries them through the coupling into the model's
-class embedding. ``generate`` samples from the EMA parameters by ODE
-integration. The loss is read back only at ``log_interval``.
+device. With ``model.class_cond`` the labels are gathered with the same
+indices (y0 = y1 = the batch's labels) and ride through the coupling into
+the model's class embedding. Its evaluation: ``eval.num_eval_samples``
+images integrated from N(0, I) with the EMA parameters, their mean, std and
+NFE, and the tracking FID against the first 4096 training images.
 
-With ``matcher.score_head`` ([SF]2M, the ``2d_sf2m`` preset) a second model
-of the same kind, its initial weights from its own seed, learns the score:
-one optimizer, clip and EMA span both heads, and ``generate`` and
-``evaluate`` use the flow head's EMA parameters.
+With ``matcher.score_head`` ([SF]2M) a second model of the same kind, its
+weights from seed + 1, learns the score: one optimizer, clip and EMA span
+both heads; generation and evaluation use the flow head's EMA parameters.
 
-Not ported yet, and refused loudly when asked for: checkpointing (``fit``
-raises if a checkpoint would fall due), the image branch's evaluation
-(tracking FID, ROADMAP.md queue 1 item 4), SDE generation and the
-``eval.sde`` metrics (item 2) and the data-parallel mesh (raises with more
-than one card unless ``trainer.data_parallel=False``). Class-conditional I-CFM is
-refused as the JAX package fails on it: its matcher carries no labels. The
-harness writes no log files; ``eval_log`` keeps the evaluations.
+Checkpoints go to ``<trainer.ckpt_dir>/<name>`` every ``ckpt_interval``
+steps and at the end of every ``fit``; with ``trainer.resume`` (the
+default) a new ``Trainer`` restores the latest one. The random generator is
+seeded from ``trainer.seed`` again on resumption, as the JAX package re-keys
+from it: its state is not in the checkpoint. Metrics go to
+``<log_dir>/<name>_metrics.csv`` and ``.jsonl`` and to stdout (TensorBoard
+with ``CFM_TPU_TB=1``, wandb with ``CFM_TPU_WANDB=1``); ``<name>_hparams.json``
+holds the parameter count and the config, ``exec_time.log`` each fit's steps
+and seconds. The loss is read back only at ``log_interval``.
+
+Refused loudly when asked for: SDE generation and the ``eval.sde`` metrics
+(ROADMAP.md queue 1 item 2), UNet activation checkpointing
+(``model.use_checkpoint``, item 12) and the data-parallel mesh (raises with
+more than one card unless ``trainer.data_parallel=False``, item 10).
+Class-conditional I-CFM is refused as the JAX package fails on it: its
+matcher carries no labels.
 """
 
 from __future__ import annotations
 
 import copy
+import csv
+import dataclasses
+import itertools
+import json
+import os
 import time
-from typing import Dict, List, NamedTuple, Optional, Tuple, Union
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from cfm_tpu_torch.checkpoint import CheckpointManager
 from cfm_tpu_torch.config import Config
 from cfm_tpu_torch.coupling import wasserstein
 from cfm_tpu_torch.data.images import (infinite_batches, load_cifar10, load_mnist,
@@ -49,7 +62,7 @@ from cfm_tpu_torch.data.images import (infinite_batches, load_cifar10, load_mnis
 from cfm_tpu_torch.data.toy import _DIM_AWARE, two_dim_data
 from cfm_tpu_torch.device import DeviceLike, resolve_device
 from cfm_tpu_torch.generate import Generated, generate
-from cfm_tpu_torch.integrate import odeint, vector_field_from_model
+from cfm_tpu_torch.integrate import ODESolution, odeint, vector_field_from_model
 from cfm_tpu_torch.models.mlp import MLP
 from cfm_tpu_torch.models.unet import UNetModelWrapper
 from cfm_tpu_torch.paths import (ConditionalFlowMatcher,
@@ -57,7 +70,9 @@ from cfm_tpu_torch.paths import (ConditionalFlowMatcher,
                                  SchrodingerBridgeConditionalFlowMatcher,
                                  TargetConditionalFlowMatcher,
                                  VariancePreservingConditionalFlowMatcher)
-from cfm_tpu_torch.train import TrainState, init_train_state, make_optimizer, make_train_step
+from cfm_tpu_torch.train import (TrainState, init_train_state, make_optimizer, make_train_step,
+                                 warmup_lr_schedule)
+from cfm_tpu_torch.utils import count_params, param_summary
 
 _2D_SETS = {"moons", "moon", "8gaussians", "pinwheel", "checkerboard", "checker",
             "circles", "circle", "2spirals", "swiss", "swissroll", "scurve",
@@ -112,6 +127,9 @@ def build_model(cfg: Config, device: DeviceLike = None, seed: Optional[int] = No
         return MLP(dim=dim, w=m.width, seed=seed, device=device)
     if m.kind != "unet":
         raise ValueError(f"Unknown model kind: {m.kind}")
+    if m.use_checkpoint:
+        raise NotImplementedError("model.use_checkpoint (UNet activation checkpointing) is not "
+                                  "ported yet (ROADMAP.md queue 1 item 12)")
     return UNetModelWrapper(
         dim=m.image_dim, num_channels=m.num_channels, num_res_blocks=m.num_res_blocks,
         channel_mult=m.channel_mult, num_heads=m.num_heads,
@@ -121,10 +139,81 @@ def build_model(cfg: Config, device: DeviceLike = None, seed: Optional[int] = No
         dtype=torch.bfloat16 if m.bf16 else torch.float32, seed=seed, device=device)
 
 
+TRACKING_REF_IMAGES = 4096  # the training set's first images: tracking FID's reference
+
+
+def _overfit_generator(seed: int, salt: int, step: int, n_batches: int,
+                       device: torch.device) -> torch.Generator:
+    """The generator of a data draw that repeats with period ``n_batches``
+    (``trainer.overfit_batches``): step k draws batch k mod n again. The
+    salt keeps the draws of x0, x1 and the image indices apart."""
+    seed = int(np.random.SeedSequence([seed, salt, step % n_batches]).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+class MetricLogger:
+    """Metrics as CSV, JSONL and (through the caller) stdout, as the JAX
+    package logs them; TensorBoard event files with ``CFM_TPU_TB=1`` (the
+    dependency-free writer of ``tb_events``) and wandb with
+    ``CFM_TPU_WANDB=1`` where it imports.
+
+    The CSV's columns are the first row's: a row with other keys (an
+    evaluation's) goes to the JSONL only."""
+
+    def __init__(self, log_dir: str, name: str):
+        os.makedirs(log_dir, exist_ok=True)
+        self.log_dir = log_dir
+        self.path = os.path.join(log_dir, f"{name}_metrics.csv")
+        self.jsonl_path = os.path.join(log_dir, f"{name}_metrics.jsonl")
+        self._file = self._writer = self._wandb = self._tb = None
+        if os.environ.get("CFM_TPU_TB") == "1":
+            from cfm_tpu_torch.tb_events import TBEventWriter
+
+            self._tb = TBEventWriter(os.path.join(log_dir, "tensorboard", name))
+        if os.environ.get("CFM_TPU_WANDB") == "1":
+            try:
+                import wandb
+            except ImportError:
+                print("WARNING: CFM_TPU_WANDB=1 but wandb does not import; not logging to it")
+            else:
+                self._wandb = wandb
+                wandb.init(project="cfm_tpu", name=name, dir=log_dir)
+
+    def log(self, step: int, metrics: Dict[str, float]) -> None:
+        row = {"step": step, **{k: float(v) for k, v in metrics.items()}}
+        if self._writer is None:
+            self._file = open(self.path, "a", newline="")
+            self._writer = csv.DictWriter(self._file, fieldnames=list(row))
+            if self._file.tell() == 0:
+                self._writer.writeheader()
+        try:
+            self._writer.writerow(row)
+        except ValueError:  # keys the CSV's columns do not have
+            pass
+        self._file.flush()
+        with open(self.jsonl_path, "a") as fh:
+            fh.write(json.dumps(row) + "\n")
+        if self._wandb is not None:
+            self._wandb.log(row, step=step)
+        if self._tb is not None:
+            for k, v in row.items():
+                if k != "step":
+                    self._tb.add_scalar(k, v, step)
+            self._tb.flush()
+
+    def close(self) -> None:
+        if self._file:
+            self._file.close()
+        if self._wandb is not None:
+            self._wandb.finish()
+        if self._tb is not None:
+            self._tb.close()
+
+
 class Trainer:
     """Config-driven training of the 2-D and image branches on one device."""
 
-    def __init__(self, cfg: Config, device: DeviceLike = None):
+    def __init__(self, cfg: Config, device: DeviceLike = None, log_dir: str = "logs"):
         self.cfg = cfg
         self.is_image = cfg.data.dataset in ("cifar10", "mnist")
         if cfg.eval.sde:
@@ -137,6 +226,7 @@ class Trainer:
         self.device = resolve_device(device)
         self.matcher = build_matcher(cfg)
         self.model = build_model(cfg, self.device)
+        self.logger = MetricLogger(log_dir, cfg.name)
         # The score head's weights come from a seed of their own, as JAX folds
         # 1 into the flow head's init key.
         self.score_model = (build_model(cfg, self.device, seed=cfg.trainer.seed + 1)
@@ -151,10 +241,30 @@ class Trainer:
                                        class_conditional=cfg.model.class_cond,
                                        score_model=self.score_model)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.trainer.seed)
-        print(f"model: {cfg.model.kind}  params: {sum(p.numel() for p in self.state.params):,}"
-              f"  device: {self.device}")
+
+        self.ckpt = CheckpointManager(os.path.join(cfg.trainer.ckpt_dir, cfg.name),
+                                      save_interval=cfg.trainer.ckpt_interval)
+        if cfg.trainer.resume and self.ckpt.latest_step() is not None:
+            try:
+                self.ckpt.restore(self.state)
+            except ValueError as e:
+                raise ValueError(
+                    f"Checkpoint under {cfg.trainer.ckpt_dir}/{cfg.name} does not match the "
+                    "current model's parameter tree (it likely predates a model change). "
+                    "Delete the stale directory or point trainer.ckpt_dir elsewhere to start "
+                    "fresh.") from e
+            print(f"resumed from step {self.state.step}")
+
+        self.n_params = count_params(self.state.params)
+        print(f"model: {cfg.model.kind}  params: {self.n_params:,}  device: {self.device}")
+        if os.environ.get("CFM_TPU_MODEL_SUMMARY") == "1":
+            print(param_summary(self._named_params(), max_depth=2 if self.score_model else 1))
+        with open(os.path.join(self.logger.log_dir, f"{cfg.name}_hparams.json"), "w") as fh:
+            json.dump({"model/params/total": self.n_params, "config": dataclasses.asdict(cfg)},
+                      fh, indent=1, default=str)
 
         self._ema_model: Optional[torch.nn.Module] = None
+        self._tracking = None  # (feature function, reference features), made at first use
         self.eval_log: List[Dict[str, float]] = []  # step, the metrics and the seconds taken
         if not self.is_image:
             self._target = two_dim_data(cfg.data.dataset, _vector_dim(cfg))
@@ -169,6 +279,7 @@ class Trainer:
                 raise
             data, labels = loader(cfg.data.data_dir, train=True, synthetic=True)
             print(f"WARNING: {cfg.data.dataset} not found on disk; using synthetic data")
+        self._ref_images_u8 = np.ascontiguousarray(data[:TRACKING_REF_IMAGES])
         labels = labels.astype(np.int64) if cfg.model.class_cond else None
         if cfg.data.on_device:
             self._device_data = torch.from_numpy(data).to(self.device)
@@ -179,13 +290,32 @@ class Trainer:
             self._device_data = self._device_labels = None
             self._batches = infinite_batches(data, labels, cfg.data.batch_size,
                                              seed=cfg.trainer.seed)
+            if cfg.trainer.overfit_batches:  # replay the first N batches
+                pool = [next(self._batches) for _ in range(cfg.trainer.overfit_batches)]
+                self._batches = itertools.cycle(pool)
 
-    def _batch(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    def _named_params(self) -> Iterator[Tuple[str, torch.Tensor]]:
+        if self.score_model is None:
+            return self.model.named_parameters()
+        return itertools.chain(
+            (("flow." + n, p) for n, p in self.model.named_parameters()),
+            (("score." + n, p) for n, p in self.score_model.named_parameters()))
+
+    def _data_generator(self, salt: int, step: int) -> torch.Generator:
+        """The generator of a data draw at ``step``: the trainer's, or with
+        ``overfit_batches`` one that repeats with that period."""
+        n = self.cfg.trainer.overfit_batches
+        if not n:
+            return self.generator
+        return _overfit_generator(self.cfg.trainer.seed, salt, step, n, self.device)
+
+    def _batch(self, step: Optional[int] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The next uint8 batch on the device, and its labels when the model
         is class-conditional (else None)."""
         if self._device_data is not None:
+            g = self.generator if step is None else self._data_generator(2, step)
             idx = torch.randint(0, self._device_data.shape[0], (self.cfg.data.batch_size,),
-                                generator=self.generator, device=self.device)
+                                generator=g, device=self.device)
             y = None if self._device_labels is None else self._device_labels[idx]
             return self._device_data[idx], y
         batch = next(self._batches)
@@ -202,67 +332,111 @@ class Trainer:
         x0 = torch.randn(x1.shape, generator=self.generator, device=self.device)
         return x0, x1
 
-    def _vectors(self) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _vectors(self, step: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """x0 from the source and x1 from the target, drawn on the device."""
         bs = self.cfg.data.batch_size
-        return (self._source(self.generator, bs, self.device),
-                self._target(self.generator, bs, self.device))
+        g0 = self.generator if step is None else self._data_generator(0, step)
+        g1 = self.generator if step is None else self._data_generator(1, step)
+        return self._source(g0, bs, self.device), self._target(g1, bs, self.device)
 
-    def _refuse_unported(self, start: int, total: int) -> None:
-        t = self.cfg.trainer
-        due = [("a checkpoint", t.ckpt_interval, "checkpointing is not ported yet (ROADMAP.md "
-                "queue 1 item 9); set trainer.ckpt_interval=0")]
+    def _step(self, i: int) -> Dict[str, torch.Tensor]:
+        """Train step ``i`` (0-based): its data, prep and the step function."""
         if self.is_image:
-            due.append(("an evaluation", t.eval_interval, "the image branch's evaluation is "
-                        "not ported yet (ROADMAP.md queue 1 item 4); set trainer.eval_interval=0"))
-        for what, every, why in due:
-            if every > 0 and total // every > start // every:
-                due_at = (start // every + 1) * every
-                raise NotImplementedError(f"{what} falls due at step {due_at} of this fit, and "
-                                          f"{why} or fit fewer steps")
+            x1_u8, y = self._batch(i)
+            x0, x1 = self._prep(x1_u8)
+            labels = (y, y) if y is not None else ()
+        else:
+            (x0, x1), labels = self._vectors(i), ()
+        return self.step_fn(self.state, x0, x1, *labels, generator=self.generator)
 
     def fit(self, max_steps: Optional[int] = None) -> TrainState:
-        t = self.cfg.trainer
+        """Train to ``max_steps`` (default ``trainer.total_steps``) from the
+        state's step: log every ``log_interval`` steps, evaluate every
+        ``eval_interval``, save a sample grid every ``sample_grid_interval``
+        (image runs) and a checkpoint when due, then a final checkpoint."""
+        cfg, t = self.cfg, self.cfg.trainer
         total = t.total_steps if max_steps is None else max_steps
         start = self.state.step
         if t.early_stop_metric and not t.eval_interval:
             raise ValueError("early_stop_metric requires eval_interval > 0")
-        self._refuse_unported(start, total)
-        last_t, last_step = time.perf_counter(), start
+        # The debug hooks are scoped to this fit: anomaly mode restored, the
+        # profiler stopped, in the finally below.
+        anomaly = None
+        if t.debug_nans:
+            anomaly = (torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled())
+            torch.autograd.set_detect_anomaly(True, check_nan=True)
+        prof = None
+        if t.profile_dir:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+        t0 = time.perf_counter()
+        last_t, last_step, step = t0, start, start
         es_best, es_bad = float("inf"), 0
-        for i in range(start, total):
-            if self.is_image:
-                x1_u8, y = self._batch()
-                x0, x1 = self._prep(x1_u8)
-                labels = (y, y) if y is not None else ()
-            else:
-                (x0, x1), labels = self._vectors(), ()
-            metrics = self.step_fn(self.state, x0, x1, *labels, generator=self.generator)
-            step = i + 1
-            if step % t.log_interval == 0 or step == total:
-                out = {k: float(v) for k, v in metrics.items()}  # the one host read
-                now = time.perf_counter()
-                sps = (step - last_step) / max(now - last_t, 1e-9)
-                last_t, last_step = now, step
-                print(f"step {step:7d}  loss {out['loss']:.4f}  {sps:.2f} steps/s")
-                if not np.isfinite(out["loss"]):
-                    raise ValueError(f"Loss Not Finite at step {step}: {out['loss']}")
-            if t.eval_interval and step % t.eval_interval == 0:
-                t0 = time.perf_counter()
-                ev = self.evaluate()
-                self.eval_log.append({"step": step, **ev, "seconds": time.perf_counter() - t0})
-                print("  eval:", {k: round(v, 4) for k, v in self.eval_log[-1].items()})
-                if t.early_stop_metric:  # mode min, patience counted in evaluations
-                    cur = ev[self._early_stop_key(ev)]
-                    if cur < es_best - t.early_stop_min_delta:
-                        es_best, es_bad = cur, 0
-                    else:
-                        es_bad += 1
-                        if es_bad >= t.early_stop_patience:
-                            print(f"early stop at step {step}: {t.early_stop_metric} did not "
-                                  f"improve past {es_best:.4f} for {es_bad} evals")
-                            break
+        try:
+            for i in range(start, total):
+                metrics = self._step(i)
+                step = i + 1
+                if step % t.log_interval == 0 or step == total:
+                    out = {k: float(v) for k, v in metrics.items()}  # the one host read
+                    now = time.perf_counter()
+                    sps = (step - last_step) / max(now - last_t, 1e-9)
+                    last_t, last_step = now, step
+                    out["steps_per_s"] = sps
+                    # The lr of this step's update: the schedule at count step - 1.
+                    out["lr"] = warmup_lr_schedule(cfg.optim.lr, cfg.optim.warmup_steps)(step - 1)
+                    self.logger.log(step, out)
+                    print(f"step {step:7d}  loss {out['loss']:.4f}  {sps:.2f} steps/s")
+                    if not np.isfinite(out["loss"]):
+                        raise ValueError(f"Loss Not Finite at step {step}: {out['loss']}")
+                if t.eval_interval and step % t.eval_interval == 0:
+                    t_ev = time.perf_counter()
+                    ev = self.evaluate()
+                    self.eval_log.append({"step": step, **ev,
+                                          "seconds": time.perf_counter() - t_ev})
+                    self.logger.log(step, {f"eval/{k}": v for k, v in ev.items()})
+                    print("  eval:", {k: round(v, 4) for k, v in self.eval_log[-1].items()})
+                    if t.early_stop_metric:  # mode min, patience counted in evaluations
+                        cur = ev[self._early_stop_key(ev)]
+                        if cur < es_best - t.early_stop_min_delta:
+                            es_best, es_bad = cur, 0
+                        else:
+                            es_bad += 1
+                            if es_bad >= t.early_stop_patience:
+                                print(f"early stop at step {step}: {t.early_stop_metric} did "
+                                      f"not improve past {es_best:.4f} for {es_bad} evals")
+                                break
+                if self.is_image and t.sample_grid_interval and step % t.sample_grid_interval == 0:
+                    self._save_sample_grid(step)
+                # The host's step count; the save reads the device only when due.
+                self.ckpt.save(self.state, step=step)
+        finally:
+            if prof is not None:
+                prof.stop()
+                os.makedirs(t.profile_dir, exist_ok=True)
+                path = os.path.join(t.profile_dir, f"{cfg.name}.pt.trace.json")
+                prof.export_chrome_trace(path)
+                print(f"torch profiler trace written to {path}")
+            if anomaly is not None:
+                torch.autograd.set_detect_anomaly(anomaly[0], check_nan=anomaly[1])
+            # The steps actually executed, also after an early exit.
+            with open(os.path.join(self.logger.log_dir, "exec_time.log"), "a") as fh:
+                fh.write(f"{cfg.name}: {max(step - start, 0)} steps in "
+                         f"{time.perf_counter() - t0:.1f}s\n")
+        self.ckpt.save(self.state, force=True)
         return self.state
+
+    def _save_sample_grid(self, step: int) -> None:
+        from cfm_tpu_torch.eval.plotting import image_grid
+
+        cfg = self.cfg
+        out = self.generate(cfg.trainer.sample_grid_n, method="euler", n_steps=cfg.eval.ode_steps,
+                            generator=self.generator)
+        path = image_grid(out.images, nrow=8, save_path=os.path.join(
+            cfg.trainer.ckpt_dir, cfg.name, f"samples_{step}.png"))
+        print(f"  saved sample grid: {path}")
 
     def _early_stop_key(self, ev: Dict[str, float]) -> str:
         """The metric's key in ``ev``; the logged "eval/" spelling is accepted."""
@@ -286,42 +460,74 @@ class Trainer:
         return self._ema_model
 
     def generate(self, n: int, method: Optional[str] = None, n_steps: Optional[int] = None,
-                 y: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None) -> Union[Generated, Samples]:
+                 y: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
+                 return_solution: bool = False) -> Union[Generated, Samples, ODESolution]:
         """Sample ``n`` points from the EMA parameters by ODE integration, with
         the preset's ``eval.ode_method`` and ``eval.ode_steps`` unless given.
 
         2-D branch: from the source distribution (drawn from ``generator``,
-        default the trainer's), returns the float samples and the NFE. Image
-        branch: from N(0, I), returns the uint8 images and the NFE; ``y``
-        (n,) are the class labels of a class-conditional model.
+        default the trainer's); returns the float samples and the NFE. Image
+        branch: from N(0, I) (``generator``, default seed 0); returns the
+        uint8 images and the NFE. ``y`` (n,) are the class labels of a
+        class-conditional model. ``return_solution=True`` returns the
+        solver's ``ODESolution`` instead (float ``final`` and ``nfe``), and
+        the image branch's noise then comes from the trainer's generator
+        unless one is given.
         """
         cfg = self.cfg
         method, n_steps = method or cfg.eval.ode_method, n_steps or cfg.eval.ode_steps
         model = self._ema()
-        if not self.is_image:
-            x0 = self._source(generator or self.generator, n, self.device)
-            ts = ([0.0, 1.0] if method == "dopri5"
-                  else np.linspace(0.0, 1.0, n_steps + 1, dtype=np.float32))
-            with torch.inference_mode():
-                sol = odeint(vector_field_from_model(model), x0, ts, method=method,
-                             return_trajectory=False)
-            return Samples(sol.final, sol.nfe)
         if y is not None:
             y = torch.as_tensor(y, device=self.device)
-        return generate(model, n, x_shape=tuple(cfg.model.image_dim), method=method,
-                        n_steps=n_steps, y=y, generator=generator, device=self.device)
+        if self.is_image and not return_solution:
+            return generate(model, n, x_shape=tuple(cfg.model.image_dim), method=method,
+                            n_steps=n_steps, y=y, generator=generator, device=self.device)
+        g = generator or self.generator
+        x0 = (torch.randn((n, *cfg.model.image_dim), generator=g, device=self.device)
+              if self.is_image else self._source(g, n, self.device))
+        ts = ([0.0, 1.0] if method == "dopri5"
+              else np.linspace(0.0, 1.0, n_steps + 1, dtype=np.float32))
+        with torch.inference_mode():
+            sol = odeint(vector_field_from_model(model, y), x0, ts, method=method,
+                         return_trajectory=False)
+        return sol if return_solution else Samples(sol.final, sol.nfe)
+
+    def tracking_fid(self, gen: torch.Tensor) -> Optional[float]:
+        """FID under the tracking features (``eval/fid.py``) between generated
+        samples (floats in [-1, 1]) and the first 4096 training images; None
+        without reference images. Its scale is not Inception FID's; only its
+        trend means something. The samples become uint8 as JAX's
+        ``tracking_fid`` makes them: ``(gen + 1) * 127.5``, clipped,
+        truncated (not ``quantize_to_uint8``'s + 128)."""
+        ref = getattr(self, "_ref_images_u8", None)
+        if ref is None:
+            return None
+        from cfm_tpu_torch.eval.fid import (batched_features, fid_from_features,
+                                            make_tracking_feature_fn)
+
+        if self._tracking is None:
+            fn = make_tracking_feature_fn(self.cfg.model.image_dim, device=self.device)
+            self._tracking = (fn, batched_features(fn, ref, device=self.device))
+        fn, ref_feats = self._tracking
+        gen_u8 = torch.clamp((gen + 1.0) * 127.5, 0, 255).to(torch.uint8)
+        return fid_from_features(batched_features(fn, gen_u8, device=self.device), ref_feats)
 
     def evaluate(self, n: Optional[int] = None) -> Dict[str, float]:
-        """2-D branch: ``n`` points (``eval.num_eval_samples``) generated from
-        the EMA parameters against ``n`` fresh target points: the exact W1
-        and W2 and the NFE."""
-        if self.is_image:
-            raise NotImplementedError("the image branch's evaluation (tracking FID) is not "
-                                      "ported yet (ROADMAP.md queue 1 item 4)")
+        """``n`` samples (``eval.num_eval_samples``) generated from the EMA
+        parameters with the configured method. 2-D branch: against ``n``
+        fresh target points, the exact W1 and W2 and the NFE. Image branch:
+        the float samples' mean and std, the NFE and the tracking FID."""
         n = n or self.cfg.eval.num_eval_samples
-        gen = self.generate(n)
+        sol = self.generate(n, return_solution=True)
+        gen, nfe = sol.final, float(sol.nfe)
+        if self.is_image:
+            out = {"gen_mean": float(gen.mean()), "gen_std": float(gen.std(correction=0)),
+                   "nfe": nfe}
+            tfid = self.tracking_fid(gen)
+            if tfid is not None:
+                out["tracking_fid"] = tfid
+            return out
         target = self._target(self.generator, n, self.device)
-        return {"w1": float(wasserstein(gen.samples, target, power=1)),
-                "w2": float(wasserstein(gen.samples, target, power=2)),
-                "nfe": float(gen.nfe)}
+        return {"w1": float(wasserstein(gen, target, power=1)),
+                "w2": float(wasserstein(gen, target, power=2)),
+                "nfe": nfe}

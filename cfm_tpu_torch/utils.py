@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import List, Union
+from typing import Iterable, List, Tuple, Union
 
 import torch
 
@@ -30,6 +30,30 @@ def ema_update(ema_params: List[torch.Tensor], new_params: List[torch.Tensor],
     ema_params, new_params = list(ema_params), list(new_params)
     torch._foreach_mul_(ema_params, decay)
     torch._foreach_add_(ema_params, new_params, alpha=1.0 - decay)
+
+
+def count_params(params: Union[torch.nn.Module, Iterable[torch.Tensor]]) -> int:
+    """The number of scalar parameters of a module or a list of tensors."""
+    if isinstance(params, torch.nn.Module):
+        params = params.parameters()
+    return sum(p.numel() for p in params)
+
+
+def param_summary(named: Union[torch.nn.Module, Iterable[Tuple[str, torch.Tensor]]],
+                  max_depth: int = 1) -> str:
+    """A table of parameter counts grouped by the first ``max_depth``
+    components of each parameter's dotted module path (a module's
+    ``named_parameters()``), sorted by name and ending with the total."""
+    if isinstance(named, torch.nn.Module):
+        named = named.named_parameters()
+    groups: dict = {}
+    for name, p in named:
+        key = ".".join(name.split(".")[:max_depth]) or "(root)"
+        groups[key] = groups.get(key, 0) + p.numel()
+    width = max(map(len, groups)) if groups else 6
+    lines = [f"{name:<{width}}  {cnt:>12,}" for name, cnt in sorted(groups.items())]
+    lines.append(f"{'TOTAL':<{width}}  {sum(groups.values()):>12,}")
+    return "\n".join(lines)
 
 
 def flatten_batch(x: torch.Tensor) -> torch.Tensor:

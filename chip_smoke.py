@@ -148,17 +148,43 @@ a result:
 17. ``wasserstein(x0, x1, method="sinkhorn", power=2)`` of 2048 8-Gaussian
     points against 2048 moons points at reg 2: one #7 launch on the card,
     within 1e-4 relative of the same call on the CPU (the dense Sinkhorn).
+18. The presets as given: ``cli.main(["train", "cifar10_otcfm", ...])`` with
+    only the step count and the intervals cut (40 steps, a checkpoint at 20,
+    an evaluation at 40: 2048 images by dopri5 and the tracking FID), then
+    its final evaluation; a new ``Trainer`` resumes at 40 with the saved
+    tensors bit for bit (and a restore on the CPU too) and fits to 60 (1
+    auction, 5 + 5 attention-block and 46 + 46 GroupNorm launches a step); a
+    third resumes at 60, and one step from it and from the live state, with
+    the same ``StepDraws`` under ``cudnn.deterministic``, gives the same
+    bits; one more step with ``trainer.debug_nans`` (anomaly mode: the
+    same launches); ``cli eval``; ``compute_fid --synthetic`` from that checkpoint,
+    4096 images by euler-100 through the tracking features, then 1024 by
+    dopri5 through the Inception trunk with random weights from an npz
+    (``CFM_TPU_INCEPTION_WEIGHTS``), the trunk's card and CPU features
+    agreeing under ``strict_f32`` on 2 images. Logs the seconds to save and
+    restore a recipe checkpoint, to evaluate and to take a tracking FID,
+    Inception images/s and the FID lines, beside the card's name and power
+    limit.
+
+Every ``Trainer`` and ``cli`` run writes its checkpoints and logs into a
+fresh directory under ``build/smoke_runs/``. The phases that time ``fit``
+(8 to 10, 13 and 16) build their trainers with checkpoint saves skipped, so
+their windows hold the steps alone; phase 18 times the saves.
 
 The last three lines are the kernels' JSON record (``launches`` summed over
-the paths of phases 6, 8, 10 to 14, 16 and 17), the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+the paths of phases 6, 8, 10 to 14, 16, 17 and 18), the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -231,6 +257,11 @@ FLASH_TOL, FLASH_CAP = 1e-6, 3000
 PROFILE_TRIES, PROFILE_PAD_S = 4, 0.05
 FLASH_BARRIERS = 2  # grid barriers an iteration of #7 (csrc/flash_sinkhorn.cu)
 FLASH_RAW_ULPS = 4  # flash_raw_scale's gate on the implied plans, in f32 ulps of the costs
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# Phase 18: cifar10_otcfm as given but for the steps and intervals.
+PRESET_STEPS, PRESET_CKPT, PRESET_EVAL, PRESET_RESUMED = 40, 20, 40, 60
+PRESET_FID_GEN, PRESET_INCEPTION_N = 4096, 1024
+INCEPTION_TOL = 1e-4  # the trunk's card vs CPU features under strict_f32, relative to the max
 
 
 def flash_ops(d):
@@ -243,6 +274,30 @@ def flash_ops(d):
 
 def log(*a):
     print(*a, flush=True)
+
+
+def run_dir(tag):
+    """A fresh directory for one phase's checkpoints and logs."""
+    d = os.path.join(ROOT, "build", "smoke_runs", tag)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def phase_trainer(preset, overrides, tag, skip_saves=False):
+    """``Trainer(load_config(preset, overrides))`` with its checkpoints and
+    logs under ``run_dir(tag)``. With ``skip_saves`` its checkpoint
+    manager saves nothing: the phases that time ``fit`` keep the save out of
+    their windows (phase 18 times it)."""
+    from cfm_tpu_torch.config import load_config
+    from cfm_tpu_torch.trainer import Trainer
+
+    d = run_dir(tag)
+    trainer = Trainer(load_config(preset, list(overrides) + [f"trainer.ckpt_dir={d}/ckpt"]),
+                      log_dir=f"{d}/logs")
+    if skip_saves:
+        trainer.ckpt.save = lambda *args, **kwargs: False
+    return trainer
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -710,11 +765,9 @@ def coupling_cost(seed=0):
 def twod_cost():
     """2d_otcfm's coupling cost: a batch of 256 8-Gaussian points against
     256 moons points, drawn as the preset's ``Trainer`` draws a step's."""
-    from cfm_tpu_torch.config import load_config
     from cfm_tpu_torch.ops.cost import sq_euclidean_cost
-    from cfm_tpu_torch.trainer import Trainer
 
-    trainer = Trainer(load_config("2d_otcfm", ["trainer.ckpt_interval=0"]))
+    trainer = phase_trainer("2d_otcfm", ["trainer.ckpt_interval=0"], "twod_cost")
     return sq_euclidean_cost(*trainer._vectors())
 
 
@@ -1467,11 +1520,10 @@ def twod_training():
     band's OT-CFM threshold. Then three more steps profiled as in phase 9.
     Returns the counts of the 5000 steps."""
     import torch
-    from cfm_tpu_torch.config import load_config
-    from cfm_tpu_torch.trainer import Trainer
 
-    cfg = load_config("2d_otcfm", ["trainer.ckpt_interval=0", "trainer.log_interval=1000"])
-    trainer = Trainer(cfg)
+    trainer = phase_trainer("2d_otcfm", ["trainer.ckpt_interval=0", "trainer.log_interval=1000"],
+                            "2d_otcfm", skip_saves=True)
+    cfg = trainer.cfg
     torch.cuda.synchronize()
     zero_counts()
     t0 = time.perf_counter()
@@ -1517,11 +1569,13 @@ def twod_cli_runs(steps=300):
 
     out = {}
     for kind in ("icfm", "fm", "sbcfm", "vpcfm", "sf2m"):
+        d = run_dir(f"cli_2d_{kind}")
         zero_counts()
         t0 = time.perf_counter()
         rc = cli.main(["train", f"2d_{kind}", f"trainer.total_steps={steps}",
                        "trainer.ckpt_interval=0", "trainer.eval_interval=0",
-                       f"trainer.log_interval={steps}"])
+                       f"trainer.log_interval={steps}", f"trainer.ckpt_dir={d}/ckpt",
+                       "--log_dir", f"{d}/logs"])
         sec = time.perf_counter() - t0
         launched = read_counts()
         log(f"cli train 2d_{kind}: {steps} steps and the final evaluation in {sec:.2f} s, "
@@ -1675,12 +1729,10 @@ def training_path(preset, data_dir, per_step):
     ``per_step`` times the steps. Returns the counts, the trainer and the ms
     per step."""
     import torch
-    from cfm_tpu_torch.config import load_config
-    from cfm_tpu_torch.trainer import Trainer
 
-    cfg = load_config(preset, ["trainer.log_interval=1000", "data.synthetic_fallback=True",
-                               f"data.data_dir={data_dir}"])
-    trainer = Trainer(cfg)
+    trainer = phase_trainer(preset, ["trainer.log_interval=1000", "data.synthetic_fallback=True",
+                                     f"data.data_dir={data_dir}"], preset, skip_saves=True)
+    cfg = trainer.cfg
     if trainer.model.dtype != torch.bfloat16 or cfg.data.batch_size != TRAIN_BATCH:
         raise AssertionError(f"the training path must run {preset} in bf16 at batch 128")
     trainer.fit(TRAIN_WARMUP)
@@ -2081,11 +2133,9 @@ def sync_free_steps():
     data draw included, under set_sync_debug_mode("error"), after three
     warm-up steps: any host synchronisation raises and fails the run."""
     import torch
-    from cfm_tpu_torch.config import load_config
-    from cfm_tpu_torch.trainer import Trainer
 
     for preset, overrides in (("2d_otcfm", ["trainer.ckpt_interval=0"]), ("2d_sf2m", SF2M)):
-        trainer = Trainer(load_config(preset, overrides))
+        trainer = phase_trainer(preset, overrides, f"sync_free_{preset}")
         for _ in range(3):
             trainer.step_fn(trainer.state, *trainer._vectors(), generator=trainer.generator)
         torch.cuda.synchronize()
@@ -2112,12 +2162,12 @@ def sf2m_training():
     evaluation."""
     import numpy as np
     import torch
-    from cfm_tpu_torch.config import load_config
     from cfm_tpu_torch.ops import flash_sinkhorn as fs
-    from cfm_tpu_torch.trainer import Trainer
 
-    cfg = load_config("2d_sf2m", SF2M + ["trainer.log_interval=100000", "trainer.eval_interval=0"])
-    trainer = Trainer(cfg)
+    trainer = phase_trainer("2d_sf2m", SF2M + ["trainer.log_interval=100000",
+                                               "trainer.eval_interval=0"], "2d_sf2m",
+                            skip_saves=True)
+    cfg = trainer.cfg
     untrained = trainer.evaluate()
     trainer.fit(SF2M_WARMUP)
     total = SF2M_WARMUP + SF2M_STEPS
@@ -2190,6 +2240,344 @@ def wasserstein_sinkhorn():
     return launched
 
 
+def captured(fn, args):
+    """``fn(args)`` with its standard output captured; the output is also
+    logged, the config tree left out. Returns (result, output)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(args)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if not line.startswith(("|", "`", " ")) or line.startswith("  eval"):
+            log(f"  | {line}")
+    return result, text
+
+
+def printed_dict(text, prefix):
+    """The dict that the last line starting with ``prefix`` prints."""
+    import ast
+
+    lines = [ln for ln in text.splitlines() if ln.startswith(prefix)]
+    if not lines:
+        raise AssertionError(f"no {prefix!r} line in the output")
+    return ast.literal_eval(lines[-1][len(prefix):].strip())
+
+
+def state_tensors(state):
+    return [t.detach() for lst in (state.params, state.ema_params, state.opt_state.mu,
+                                   state.opt_state.nu) for t in lst]
+
+
+def same_bits(a, b):
+    """Whether two lists of tensors hold the same bits, and the indices of
+    those that differ."""
+    import torch
+
+    def raw(t):
+        return t.detach().cpu().reshape(-1).view(torch.uint8)
+
+    bad = [i for i, (x, y) in enumerate(zip(a, b))
+           if x.shape != y.shape or x.dtype != y.dtype or not torch.equal(raw(x), raw(y))]
+    return len(a) == len(b) and not bad, bad
+
+
+def eval_launches(nfe):
+    """The kernels one recipe-width image evaluation of ``nfe`` model
+    evaluations launches."""
+    return dict(attn_block_fwd=5 * nfe, gn_silu_fwd=GN_PER_EVAL["cifar10"] * nfe)
+
+
+def random_inception_npz(path, seed=0):
+    """The Inception trunk with He-normal kernels and a randomised folded
+    BatchNorm (mean and bias N(0, 0.1), var U(0.5, 1.5)) drawn from ``seed``,
+    written as the ported-weights npz."""
+    import torch
+    from cfm_tpu_torch.eval.inception import InceptionV3Features, port_torch_inception_weights
+
+    g = torch.Generator().manual_seed(seed)
+    model = InceptionV3Features()
+    with torch.no_grad():
+        for name, t in list(model.named_parameters()) + list(model.named_buffers()):
+            if name.endswith("conv.weight"):
+                t.copy_(torch.randn(t.shape, generator=g) * math.sqrt(2.0 / t[0].numel()))
+            elif name.endswith("running_var"):
+                t.copy_(0.5 + torch.rand(t.shape, generator=g))
+            elif name.endswith(("bn.bias", "running_mean")):
+                t.copy_(0.1 * torch.randn(t.shape, generator=g))
+    port_torch_inception_weights(model.state_dict(), path)
+
+
+def presets_as_given(per_step, smi):
+    """Phase 18: ``cifar10_otcfm`` as the preset gives it, but for the step
+    count and the intervals, through the entry points a user calls: train
+    with a checkpoint and two evaluations, resume, evaluate, compute the
+    FID both ways. Returns the launch counts of its main-path windows."""
+    import numpy as np
+    import torch
+    from cfm_tpu_torch import cli, compute_fid
+    from cfm_tpu_torch.checkpoint import restore_train_state, save_train_state
+    from cfm_tpu_torch.config import load_config
+    from cfm_tpu_torch.data.images import load_cifar10
+    from cfm_tpu_torch.device import strict_f32
+    from cfm_tpu_torch.eval.fid import batched_features, inception_feature_fn
+    from cfm_tpu_torch.train import OptState, StepDraws, TrainState
+    from cfm_tpu_torch.trainer import Trainer
+
+    root = run_dir("presets")
+    out_dir, data_dir = os.path.join(root, "results"), "build/no_cifar10"
+    logs = os.path.join(out_dir, "logs")
+    ckpt = os.path.join(out_dir, "checkpoints", "cifar10_otcfm")
+    over = [f"trainer.ckpt_dir={out_dir}/checkpoints", f"data.data_dir={data_dir}",
+            f"trainer.ckpt_interval={PRESET_CKPT}", f"trainer.eval_interval={PRESET_EVAL}"]
+    total = dict.fromkeys(kernel_fns(), 0)
+
+    def add(launched):
+        for k, v in launched.items():
+            total[k] += v
+
+    def expect(what, launched, *parts):
+        want = dict.fromkeys(launched, 0)
+        for part in parts:
+            for k, v in part.items():
+                want[k] = want.get(k, 0) + v
+        if launched != want:
+            raise AssertionError(f"{what}: launches {launched}, expected {want}")
+        add(launched)
+
+    # 1. cli train: 40 steps, a checkpoint at 20, the evaluation at 40, the final one.
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    rc, text = captured(cli.main, ["train", "cifar10_otcfm", f"trainer.total_steps={PRESET_STEPS}",
+                                   *over, "--log_dir", logs])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launched = read_counts()
+    rows = [json.loads(line) for line in open(os.path.join(logs, "cifar10_otcfm_metrics.jsonl"))]
+    in_loop = [r for r in rows if "eval/nfe" in r]
+    final = printed_dict(text, "final eval:")
+    if rc != 0 or len(in_loop) != 1 or in_loop[0]["step"] != PRESET_EVAL:
+        raise AssertionError(f"cli train cifar10_otcfm: rc {rc}, evaluations {in_loop}")
+    evals = [{k[5:]: v for k, v in in_loop[0].items() if k != "step"}, final]
+    if not all(math.isfinite(v) for e in evals for v in e.values()) or any(
+            set(e) != {"gen_mean", "gen_std", "nfe", "tracking_fid"} for e in evals):
+        raise AssertionError(f"cli train cifar10_otcfm: evaluations {evals}")
+    steps = sorted(f for f in os.listdir(ckpt) if f.endswith(".pt"))
+    if steps != ["torch_step_20.pt", "torch_step_40.pt"]:
+        raise AssertionError(f"cli train cifar10_otcfm: checkpoints {steps}")
+    nfe = int(evals[0]["nfe"] + evals[1]["nfe"])
+    expect("cli train cifar10_otcfm", launched, {k: v * PRESET_STEPS for k, v in per_step.items()},
+           eval_launches(nfe))
+    log(f"cli train cifar10_otcfm: {PRESET_STEPS} steps, checkpoints {steps}, evaluations at "
+        f"step {PRESET_EVAL} {evals[0]} and final {evals[1]} in {sec:.3f} s; launches "
+        f"{launched} ({smi})")
+
+    # 2. A new Trainer resumes at 40 with the saved bits, on the card and on the CPU.
+    cfg = load_config("cifar10_otcfm", [f"trainer.total_steps={PRESET_RESUMED}", *over])
+    trainer = Trainer(cfg, log_dir=logs)
+    saved = torch.load(os.path.join(ckpt, "torch_step_40.pt"), map_location="cpu",
+                       weights_only=True)
+    saved_tensors = [t for k in ("params", "ema_params", "mu", "nu") for t in saved[k]]
+    ok, bad = same_bits(state_tensors(trainer.state), saved_tensors)
+    if not ok or trainer.state.step != PRESET_STEPS or trainer.state.opt_state.count != PRESET_STEPS:
+        raise AssertionError(f"resume at {trainer.state.step}: tensors {bad} differ from the file")
+    cpu_state = TrainState([torch.empty_like(p, device="cpu") for p in trainer.state.params],
+                           [torch.empty_like(p, device="cpu") for p in trainer.state.params],
+                           OptState(0, [torch.empty_like(p, device="cpu")
+                                        for p in trainer.state.params],
+                                    [torch.empty_like(p, device="cpu")
+                                     for p in trainer.state.params]))
+    restore_train_state(os.path.join(ckpt, "torch_step_40.pt"), cpu_state)
+    ok_cpu, bad_cpu = same_bits(state_tensors(cpu_state), state_tensors(trainer.state))
+    if not ok_cpu or cpu_state.step != PRESET_STEPS:
+        raise AssertionError(f"restore on the CPU: tensors {bad_cpu} differ from the card's")
+    n_params = sum(p.numel() for p in trainer.state.params)
+    log(f"resumed at step {trainer.state.step}: {len(saved_tensors)} tensors "
+        f"({4 * n_params} floats) equal the file's bits on the card and restored on the CPU")
+
+    # The recipe checkpoint's save and restore seconds.
+    path = os.path.join(root, "timing.pt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_train_state(path, trainer.state)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restore_train_state(path, trainer.state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restore_train_state(path, cpu_state)
+    restore_cpu_s = time.perf_counter() - t0
+    log(f"recipe checkpoint ({n_params} parameters x 4 f32 copies, "
+        f"{os.path.getsize(path) / 1e9:.3f} GB): save {save_s:.3f} s, restore to the card "
+        f"{restore_s:.3f} s, restore to the CPU {restore_cpu_s:.3f} s ({smi})")
+
+    # Fit on to 60 from the restored state: the launches of phase 8 a step.
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launched = read_counts()
+    expect("the resumed fit", launched,
+           {k: v * (PRESET_RESUMED - PRESET_STEPS) for k, v in per_step.items()})
+    log(f"resumed fit to step {trainer.state.step}: {sec:.3f} s with the save at "
+        f"{PRESET_RESUMED}; checkpoints {trainer.ckpt.all_steps()}; launches {launched}")
+
+    # 3. The next step from the live state and from the state restored from its
+    # checkpoint, with the same draws, under cudnn.deterministic: the same bits.
+    again = Trainer(cfg, log_dir=logs)
+    ok, bad = same_bits(state_tensors(again.state), state_tensors(trainer.state))
+    if not ok or again.state.step != PRESET_RESUMED:
+        raise AssertionError(f"resume at {again.state.step}: tensors {bad} differ")
+    x0, x1 = trainer._prep(trainer._batch()[0])
+
+    def draws():
+        return StepDraws.draw(torch.Generator(device="cuda").manual_seed(7), x0, coupled=True,
+                              dropout=True)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        zero_counts()
+        losses = [t.step_fn(t.state, x0, x1, draws=draws())["loss"] for t in (trainer, again)]
+        torch.cuda.synchronize()
+        launched = read_counts()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    expect("the two next steps", launched, {k: 2 * v for k, v in per_step.items()})
+    ok, bad = same_bits(state_tensors(again.state) + [losses[1]],
+                        state_tensors(trainer.state) + [losses[0]])
+    if not ok:
+        names = [n for n, _ in trainer.model.named_parameters()]
+        k = len(names)
+        where = [f"{('params', 'ema', 'mu', 'nu', 'loss')[i // k]}:{names[i % k] if i < 4 * k else ''}"
+                 for i in bad]
+        raise AssertionError(f"the next step from the restored state differs from the live "
+                             f"state's in {len(bad)} tensors: {where[:10]}")
+    log(f"next step from the live and the restored state at {PRESET_RESUMED} (same StepDraws, "
+        f"cudnn.deterministic): the same bits in all {len(state_tensors(trainer.state))} "
+        f"tensors and the loss {float(losses[0]):.6f}; launches {launched}")
+
+    # Seconds per image evaluation and per tracking FID, on the restored trainer.
+    again.evaluate()  # the tracking reference features, made once
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = again.evaluate()
+    eval_s = time.perf_counter() - t0
+    gen = again.generate(cfg.eval.num_eval_samples, return_solution=True).final
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tfid = again.tracking_fid(gen)
+    tfid_s = time.perf_counter() - t0
+    log(f"image evaluation ({cfg.eval.num_eval_samples} images, {cfg.eval.ode_method}, NFE "
+        f"{ev['nfe']:.0f}, tracking FID {ev['tracking_fid']:.4f}): {eval_s:.3f} s; a tracking FID "
+        f"of {gen.shape[0]} samples against the cached reference: {tfid_s:.3f} s "
+        f"(FID {tfid:.4f}) ({smi})")
+    del trainer, gen
+
+    # trainer.debug_nans: anomaly mode for one fit step; the kernels'
+    # autograd Functions (#2, #9) still launch under it, and it is restored.
+    last = again.state.step + 1  # its step above counted
+    cfg.trainer.debug_nans = True
+    zero_counts()
+    t0 = time.perf_counter()
+    again.fit(last)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launched = read_counts()
+    cfg.trainer.debug_nans = False
+    if torch.is_anomaly_enabled() or again.ckpt.latest_step() != last:
+        raise AssertionError(f"anomaly mode on after fit, or no checkpoint at {last}")
+    expect("a step under anomaly mode", launched, per_step)
+    log(f"one step with trainer.debug_nans (autograd anomaly mode) and its save: {sec:.3f} s; "
+        f"launches {launched}")
+    del again
+
+    # 4. cli eval restores the latest checkpoint (62) and evaluates.
+    zero_counts()
+    t0 = time.perf_counter()
+    rc, text = captured(cli.main, ["eval", "cifar10_otcfm", f"trainer.total_steps={PRESET_RESUMED}",
+                                   *over, "--log_dir", logs])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launched = read_counts()
+    ev = printed_dict(text, "eval:")
+    if rc != 0 or f"resumed from step {last}" not in text or not all(
+            math.isfinite(v) for v in ev.values()):
+        raise AssertionError(f"cli eval: rc {rc}, {ev}")
+    expect("cli eval", launched, eval_launches(int(ev["nfe"])))
+    log(f"cli eval cifar10_otcfm at step {last}: {ev} in {sec:.3f} s with the "
+        f"Trainer's construction; launches {launched}")
+
+    # 5. compute_fid through the tracking features: 4096 images by euler-100.
+    base = ["--synthetic", "--output_dir", out_dir, "--data_dir", data_dir]
+    weights = os.environ.pop("CFM_TPU_INCEPTION_WEIGHTS", None)
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        fid, text = captured(compute_fid.main, ["--num_gen", str(PRESET_FID_GEN),
+                                                "--integration_method", "euler"] + base)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launched = read_counts()
+        batches = -(-PRESET_FID_GEN // 1024)
+        if not math.isfinite(fid) or "FID[tracking" not in text:
+            raise AssertionError(f"compute_fid (tracking): {fid}")
+        expect("compute_fid euler", launched, eval_launches(100 * batches))
+        fid_line = [ln for ln in text.splitlines() if ln.startswith("FID[")][-1]
+        log(f"compute_fid --synthetic --num_gen {PRESET_FID_GEN} euler-100: {fid_line} in "
+            f"{sec:.3f} s; launches {launched} ({smi})")
+
+        # 6. compute_fid through the Inception trunk with random weights.
+        npz = os.path.join(root, "inception_random.npz")
+        random_inception_npz(npz)
+        os.environ["CFM_TPU_INCEPTION_WEIGHTS"] = npz
+        zero_counts()
+        t0 = time.perf_counter()
+        fid, text = captured(compute_fid.main, ["--num_gen", str(PRESET_INCEPTION_N), "--num_ref",
+                                                str(PRESET_INCEPTION_N)] + base)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launched = read_counts()
+        nfe = int(re.findall(r"generated \d+/\d+ \(nfe/batch (\d+)\)", text)[-1])
+        if not math.isfinite(fid) or "FID[inception[legacy_tensorflow]]" not in text:
+            raise AssertionError(f"compute_fid (inception): {fid}")
+        expect("compute_fid dopri5", launched, eval_launches(nfe))
+        fid_line = [ln for ln in text.splitlines() if ln.startswith("FID[")][-1]
+        log(f"compute_fid --synthetic --num_gen {PRESET_INCEPTION_N} --num_ref "
+            f"{PRESET_INCEPTION_N} dopri5 (random Inception weights): {fid_line} in {sec:.3f} s; "
+            f"launches {launched} ({smi})")
+    finally:
+        os.environ.pop("CFM_TPU_INCEPTION_WEIGHTS", None)
+        if weights is not None:
+            os.environ["CFM_TPU_INCEPTION_WEIGHTS"] = weights
+
+    # The trunk on the card against the CPU, and its rate.
+    images = load_cifar10(data_dir, synthetic=True)[0][:PRESET_INCEPTION_N]
+    card = inception_feature_fn(npz, device="cuda")
+    cpu = inception_feature_fn(npz, device="cpu")
+    with torch.inference_mode(), strict_f32():
+        f_card = card(torch.from_numpy(images[:2]).cuda()).cpu()
+        f_cpu = cpu(torch.from_numpy(images[:2]))
+    err = float((f_card - f_cpu).abs().max() / f_cpu.abs().max())
+    if not err <= INCEPTION_TOL:
+        raise AssertionError(f"Inception card vs CPU: relative error {err}")
+    batched_features(card, images[:256], 256, device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = batched_features(card, images, 256, device="cuda")
+    sec = time.perf_counter() - t0
+    if feats.shape != (PRESET_INCEPTION_N, 2048) or not np.isfinite(feats).all():
+        raise AssertionError(f"Inception features {feats.shape}")
+    log(f"Inception trunk (legacy_tensorflow, random weights): card vs CPU under strict_f32 on 2 "
+        f"images, max error {err:.2e} of the features' max (limit {INCEPTION_TOL}); "
+        f"{PRESET_INCEPTION_N} images in {sec:.3f} s = {PRESET_INCEPTION_N / sec:.1f} images/s "
+        f"at batch 256, TF32 as compute_fid runs ({smi})")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2243,10 +2631,10 @@ def main() -> int:
     check_2d_step_and_w2()
     launches = {"generation": main_path()}
     profile_evaluation()
-    per_step = dict(auction=1, attn_block_fwd=5, attn_block_bwd=5,
-                    gn_silu_fwd=GN_PER_EVAL["cifar10"], gn_silu_bwd=GN_PER_EVAL["cifar10"])
+    cifar_per_step = dict(auction=1, attn_block_fwd=5, attn_block_bwd=5,
+                          gn_silu_fwd=GN_PER_EVAL["cifar10"], gn_silu_bwd=GN_PER_EVAL["cifar10"])
     launches["cifar10 training"], trainer, ms_per_step = training_path(
-        "cifar10_otcfm", "build/no_cifar10", per_step)
+        "cifar10_otcfm", "build/no_cifar10", cifar_per_step)
     profile_train_step(trainer, ms_per_step)
     del trainer
     per_step = dict(auction=1, gn_silu_fwd=GN_PER_EVAL["mnist"], gn_silu_bwd=GN_PER_EVAL["mnist"])
@@ -2262,6 +2650,7 @@ def main() -> int:
     sync_free_steps()
     launches["2d_sf2m training"] = sf2m_training()
     launches["sinkhorn wasserstein"] = wasserstein_sinkhorn()
+    launches["presets as given"] = presets_as_given(cifar_per_step, smi)
     total = {k: sum(run[k] for run in launches.values()) for k in kernel_fns()}
     log(f"launches by path {launches}; summed {total}")
 

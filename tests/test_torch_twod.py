@@ -16,6 +16,9 @@ Trainer's 2-D branch and cli.py) against JAX, on the CPU.
   parameters and EMA 1e-6).
 - An 800-step ``2d_icfm`` run on the CPU passes the JAX package's gate,
   W2 < 1.1 (``tests/test_quality_band.py:94-99``).
+
+Every Trainer and cli run writes its checkpoints and logs under the test's
+own temporary directory.
 """
 
 import numpy as np
@@ -30,6 +33,11 @@ from cfm_tpu_torch import trainer as ttrn
 from cfm_tpu_torch.data import toy as ttoy
 from cfm_tpu_torch.models.convert import mlp_params_from_flax
 from cfm_tpu_torch.models.mlp import MLP
+
+
+def iso(tmp_path):
+    """The test's own checkpoint directory, as an override."""
+    return [f"trainer.ckpt_dir={tmp_path / 'ckpt'}"]
 
 
 def _flax_mlp(dim, out_dim=None, time_varying=True, seed=0):
@@ -341,13 +349,14 @@ def test_2d_sf2m_step_matches_jax_make_train_step():
                                    err_msg=f"{head} {name}")
 
 
-def test_2d_sf2m_trainer_seeds_the_score_head_apart_and_generates_from_the_flow():
+def test_2d_sf2m_trainer_seeds_the_score_head_apart_and_generates_from_the_flow(tmp_path):
     """The score MLP has flax's init statistics but not the flow MLP's
     weights; the optimizer state spans both heads; ``generate`` integrates
     the flow head's EMA parameters alone."""
     trainer = ttrn.Trainer(tcfg.load_config("2d_sf2m", ["trainer.total_steps=2",
                                                         "trainer.ckpt_interval=0",
-                                                        "data.batch_size=32"]), device="cpu")
+                                                        "data.batch_size=32"] + iso(tmp_path)),
+                           device="cpu", log_dir=str(tmp_path))
     flow, score = trainer.model, trainer.score_model
     assert isinstance(score, MLP) and score.w == flow.w == 64
     assert not torch.equal(flow.Dense_1.weight, score.Dense_1.weight)
@@ -378,7 +387,7 @@ BAND = ["optim.lr=1e-3", "optim.ema_decay=0.999", "matcher.sigma=0.1", "trainer.
         "eval.ode_steps=100", "eval.num_eval_samples=1024"]
 
 
-def test_short_2d_icfm_run_passes_the_jax_gate():
+def test_short_2d_icfm_run_passes_the_jax_gate(tmp_path):
     """800 steps of ``2d_icfm`` on the CPU: W2 < 1.1, JAX's gate for the same
     protocol. One seed's W2 at 800 steps is noisy in both packages (JAX,
     seeds 0 and 1: 1.04 and 1.22; the port, seeds 0 to 3: 1.34, 1.06, 0.95,
@@ -387,8 +396,8 @@ def test_short_2d_icfm_run_passes_the_jax_gate():
     w2 = []
     for seed in range(3):
         cfg = tcfg.load_config("2d_icfm", BAND + ["trainer.total_steps=800",
-                                                  f"trainer.seed={seed}"])
-        trainer = ttrn.Trainer(cfg, device="cpu")
+                                                  f"trainer.seed={seed}"] + iso(tmp_path / str(seed)))
+        trainer = ttrn.Trainer(cfg, device="cpu", log_dir=str(tmp_path))
         trainer.fit()
         ev = trainer.evaluate()
         assert ev["nfe"] == 100 and ev["w1"] <= ev["w2"] * (1 + 1e-6)
@@ -396,14 +405,14 @@ def test_short_2d_icfm_run_passes_the_jax_gate():
     assert np.median(w2) < 1.1, w2
 
 
-def test_2d_trainer_evaluates_every_interval_and_stops_early(capsys):
+def test_2d_trainer_evaluates_every_interval_and_stops_early(capsys, tmp_path):
     cfg = tcfg.load_config("2d_otcfm", ["trainer.total_steps=6", "trainer.eval_interval=2",
                                         "trainer.ckpt_interval=0", "trainer.log_interval=2",
                                         "eval.num_eval_samples=64", "eval.ode_steps=4",
                                         "data.batch_size=32", "trainer.early_stop_metric=eval/w2",
                                         "trainer.early_stop_patience=1",
-                                        "trainer.early_stop_min_delta=100.0"])
-    trainer = ttrn.Trainer(cfg, device="cpu")
+                                        "trainer.early_stop_min_delta=100.0"] + iso(tmp_path))
+    trainer = ttrn.Trainer(cfg, device="cpu", log_dir=str(tmp_path))
     assert isinstance(trainer.model, MLP) and trainer.model.w == 64
     assert isinstance(trainer.matcher, tpa.ExactOptimalTransportConditionalFlowMatcher)
     state = trainer.fit()
@@ -424,7 +433,7 @@ def test_2d_trainer_evaluates_every_interval_and_stops_early(capsys):
 
 
 @pytest.mark.parametrize("kind", ["icfm", "fm", "sbcfm", "vpcfm", "sf2m"])
-def test_2d_presets_match_jax_and_train(kind):
+def test_2d_presets_match_jax_and_train(kind, tmp_path):
     from cfm_tpu.config import load_config as jload
     from cfm_tpu.trainer import build_matcher as jbuild
 
@@ -434,68 +443,89 @@ def test_2d_presets_match_jax_and_train(kind):
             assert value == getattr(getattr(ref, group), field), (kind, group, field)
     assert type(ttrn.build_matcher(cfg)).__name__ == type(jbuild(ref)).__name__
     trainer = ttrn.Trainer(tcfg.load_config(f"2d_{kind}", [
-        "trainer.total_steps=3", "trainer.ckpt_interval=0", "data.batch_size=16"]), device="cpu")
+        "trainer.total_steps=3", "trainer.ckpt_interval=0", "data.batch_size=16"] + iso(tmp_path)),
+        device="cpu", log_dir=str(tmp_path))
     assert trainer.fit().step == 3
     assert torch.isfinite(trainer.generate(8, n_steps=2).samples).all()
 
 
-def test_2d_sf2m_and_unported_pieces_refuse():
+def test_2d_sf2m_and_unported_pieces_refuse(tmp_path):
     """``2d_sf2m``, the score head and the entropic coupling, refused before
     the entropic branch was ported, now load and train; ``eval.sde`` (SDE
-    generation, item 2) and the checkpoint still refuse."""
+    generation, item 2) still refuses. The preset's checkpoint, refused
+    before the harness was ported, is saved when it falls due (at 5000 of
+    5000 steps in the preset; here at 3 of 3) and a new Trainer resumes there."""
     from cfm_tpu.config import load_config as jload
 
     cfg = tcfg.load_config("2d_sf2m")
     assert cfg.matcher == tcfg.MatcherConfig(**jload("2d_sf2m").matcher.__dict__)
-    for override in (["matcher.score_head=True"], ["matcher.ot_method='sinkhorn'"]):
+    for i, override in enumerate((["matcher.score_head=True"], ["matcher.ot_method='sinkhorn'"])):
         trainer = ttrn.Trainer(tcfg.load_config("2d_sbcfm", override + [
-            "trainer.total_steps=2", "trainer.ckpt_interval=0", "data.batch_size=16"]),
-            device="cpu")
+            "trainer.total_steps=2", "trainer.ckpt_interval=0", "data.batch_size=16"]
+            + iso(tmp_path / str(i))), device="cpu", log_dir=str(tmp_path))
         assert trainer.fit().step == 2
     assert trainer.matcher.ot_sampler.method == "sinkhorn" and trainer.score_model is None
     with pytest.raises(NotImplementedError, match="queue 1 item 2"):
         ttrn.Trainer(tcfg.load_config("2d_sf2m", ["eval.sde=True"]), device="cpu")
-    trainer = ttrn.Trainer(tcfg.load_config("2d_otcfm"), device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint falls due at step 5000"):
-        trainer.fit()
+    assert tcfg.load_config("2d_otcfm").trainer.ckpt_interval == 5000
+    cfg = tcfg.load_config("2d_otcfm", ["trainer.total_steps=3", "trainer.ckpt_interval=3",
+                                        "trainer.eval_interval=0", "data.batch_size=16"]
+                           + iso(tmp_path))
+    trainer = ttrn.Trainer(cfg, device="cpu", log_dir=str(tmp_path))
+    trainer.fit()
+    assert trainer.ckpt.all_steps() == [3]
+    resumed = ttrn.Trainer(cfg, device="cpu", log_dir=str(tmp_path))
+    assert resumed.state.step == 3 and resumed.fit().step == 3
+    assert all(torch.equal(a, b) for a, b in zip(resumed.state.params, trainer.state.params))
     with pytest.raises(ValueError, match="Unknown 2D dataset"):
-        ttrn.Trainer(tcfg.load_config("2d_otcfm", ["data.dataset='nope'"]), device="cpu")
+        ttrn.Trainer(tcfg.load_config("2d_otcfm", ["data.dataset='nope'"] + iso(tmp_path / "x")),
+                     device="cpu", log_dir=str(tmp_path))
 
 
-def test_funnel_target_gets_a_gaussian_source_of_its_dimension():
+def test_funnel_target_gets_a_gaussian_source_of_its_dimension(tmp_path):
     cfg = tcfg.load_config("2d_icfm", ["data.dataset='funnel'", "trainer.total_steps=2",
-                                       "trainer.ckpt_interval=0", "data.batch_size=8"])
-    trainer = ttrn.Trainer(cfg, device="cpu")
+                                       "trainer.ckpt_interval=0", "data.batch_size=8"]
+                           + iso(tmp_path))
+    trainer = ttrn.Trainer(cfg, device="cpu", log_dir=str(tmp_path))
     assert trainer.model.dim == 10
     assert trainer.fit().step == 2
     assert tuple(trainer.generate(4, n_steps=2).samples.shape) == (4, 10)
 
 
-def test_cli_trains_evaluates_and_lists_presets(capsys):
+def test_cli_trains_evaluates_and_lists_presets(capsys, tmp_path):
+    """``cli train`` prints the config tree, trains, saves and ends with the
+    final evaluation; ``cli eval``, refused before checkpoints were ported,
+    restores the latest checkpoint and evaluates, and without one prints
+    JAX's line and returns 1."""
     assert tcli.main(["presets"]) == 0
     listed = capsys.readouterr().out.split()
     assert "2d_otcfm" in listed and "cifar10_fm" in listed and "2d_sf2m" in listed
-    assert tcli.main(["train", "2d_vpcfm", "trainer.total_steps=4", "--device", "cpu",
-                      "trainer.ckpt_interval=0", "eval.num_eval_samples=32",
-                      "eval.ode_steps=2", "trainer.log_interval=2"]) == 0
+    run = ["trainer.total_steps=4", "trainer.ckpt_interval=0", "eval.num_eval_samples=32",
+           "eval.ode_steps=2", "trainer.log_interval=2", "--log_dir", str(tmp_path)] + iso(tmp_path)
+    assert tcli.main(["train", "2d_vpcfm", "--device", "cpu"] + run) == 0
     out = capsys.readouterr().out
     assert "step       4" in out and "final eval: {'w1'" in out and "device: cpu" in out
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tcli.main(["eval", "2d_otcfm"])
+    assert "config: 2d_vpcfm\n|-- model\n" in out
+    assert tcli.main(["eval", "2d_vpcfm", "--device=cpu"] + run) == 0
+    out = capsys.readouterr().out
+    assert "resumed from step 4" in out and "eval: {'w1'" in out
+    assert tcli.main(["eval", "2d_otcfm", "--device", "cpu"] + run) == 1
+    assert "no checkpoint to evaluate; run train first" in capsys.readouterr().out
     assert tcli.main(["bogus"]) == 2
 
 
-def test_cli_trains_2d_sf2m_with_the_entropic_coupling(capsys):
+def test_cli_trains_2d_sf2m_with_the_entropic_coupling(capsys, tmp_path):
     assert tcli.main(["train", "2d_sf2m", "matcher.ot_method=sinkhorn", "trainer.total_steps=4",
                       "trainer.ckpt_interval=0", "data.batch_size=64", "eval.num_eval_samples=32",
-                      "eval.ode_steps=2", "trainer.log_interval=2", "--device", "cpu"]) == 0
+                      "eval.ode_steps=2", "trainer.log_interval=2", "--device", "cpu",
+                      "--log_dir", str(tmp_path)] + iso(tmp_path)) == 0
     out = capsys.readouterr().out
     assert "config: 2d_sbcfm" in out and "params: 17,412" in out and "final eval: {'w1'" in out
 
 
-def test_2d_trainer_without_a_card_raises(monkeypatch):
+def test_2d_trainer_without_a_card_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        ttrn.Trainer(tcfg.load_config("2d_otcfm"))
+        ttrn.Trainer(tcfg.load_config("2d_otcfm", iso(tmp_path)), log_dir=str(tmp_path))
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        tcli.main(["train", "2d_otcfm", "trainer.ckpt_interval=0"])
+        tcli.main(["train", "2d_otcfm", "--log_dir", str(tmp_path)] + iso(tmp_path))
