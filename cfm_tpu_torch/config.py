@@ -8,10 +8,11 @@ overlays and YAML files (counterpart of ``cfm_tpu/config.py``).
 
 ``2d_sf2m`` is [SF]2M: SB-CFM at sigma 1 with a score head, whose
 coupling is the exact plan unless ``matcher.ot_method=sinkhorn`` (the
-entropic plan of reg 2 sigma^2). Two fields are carried and refused by the
-``Trainer``: ``eval.sde`` waits for SDE generation (ROADMAP.md queue 1
-item 2) and ``model.use_checkpoint`` for activation checkpointing (item
-12). ``yaml`` is imported only by the YAML functions.
+entropic plan of reg 2 sigma^2). ``eval.sde`` adds the SDE metrics of a
+score head to an evaluation; ``model.use_checkpoint`` (with
+``model.checkpoint_policy`` None, "dots" or "dots_no_batch") recomputes
+the UNet's blocks in the backward. ``yaml`` is imported only by the YAML
+functions.
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ class ModelConfig:
     resblock_updown: bool = False
     class_cond: bool = False
     num_classes: int = 10
-    use_checkpoint: bool = False     # activation checkpointing: refused (item 12)
+    use_checkpoint: bool = False     # activation checkpointing of the UNet's blocks
+    # What a checkpointed block saves: None (nothing) | "dots" | "dots_no_batch".
     checkpoint_policy: Optional[str] = None
     bf16: bool = True
 
@@ -108,7 +110,7 @@ class EvalConfig:
     ode_method: str = "dopri5"
     ode_steps: int = 100             # for fixed-step generation
     num_eval_samples: int = 2048
-    sde: bool = False                # SDE generation metrics: not ported, refused
+    sde: bool = False                # with a score head: sde_kl (and sde_w2 on 2-D)
 
 
 @dataclass

@@ -3,13 +3,14 @@
 Counterpart of the single-device body of ``cfm_tpu.train.
 make_data_parallel_sample_fn`` and of ``gen_batch`` in
 ``examples/compute_fid.py``: x0 ~ N(0, I) in NHWC, ``odeint`` through the
-model over [0, 1] (adaptive methods over the two-point span, fixed-step
-methods over ``n_steps`` intervals), final state to uint8.
+model over [0, 1] (the adaptive dopri5 and tsit5 over the two-point span,
+fixed-step methods over ``n_steps`` intervals, unless a grid is given),
+final state to uint8.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -18,7 +19,7 @@ from cfm_tpu_torch.device import DeviceLike, resolve_device
 from cfm_tpu_torch.eval.protocol import quantize_to_uint8
 from cfm_tpu_torch.integrate import odeint, vector_field_from_model
 
-_ADAPTIVE = ("dopri5",)
+_ADAPTIVE = ("dopri5", "tsit5")
 _FIXED = ("euler", "midpoint", "heun", "rk4")
 
 
@@ -31,7 +32,8 @@ def generate(model: torch.nn.Module, n: int, *, x_shape: Tuple[int, int, int] = 
              method: str = "dopri5", n_steps: int = 100, rtol: float = 1e-5,
              atol: float = 1e-5, max_steps: int = 16384, batch_size: Optional[int] = None,
              generator: Optional[torch.Generator] = None, x0: Optional[torch.Tensor] = None,
-             y: Optional[torch.Tensor] = None, device: DeviceLike = None) -> Generated:
+             y: Optional[torch.Tensor] = None, grid: Optional[Sequence[float]] = None,
+             device: DeviceLike = None) -> Generated:
     """Generate ``n`` images of shape ``x_shape`` (H, W, C) with ``model``.
 
     Runs on ``device`` (``cuda`` unless ``device="cpu"`` is asked for), where
@@ -39,8 +41,10 @@ def generate(model: torch.nn.Module, n: int, *, x_shape: Tuple[int, int, int] = 
     ``generator`` (a ``torch.Generator`` on that device; default: seed 0), or
     is given as ``x0`` of shape (n, *x_shape). Batches of ``batch_size``
     (default: all ``n``) are integrated one after another. ``y`` (n,) are
-    the class labels of a class-conditional model. Raises if dopri5 does not
-    reach t = 1 within ``max_steps``.
+    the class labels of a class-conditional model. ``grid`` replaces the time
+    grid (``Trainer.generate`` gives tsit5 ``n_steps + 1`` points, as the
+    JAX ``Trainer`` does). Raises if an adaptive method does not reach t = 1
+    within ``max_steps``.
     """
     device = resolve_device(device)
     if method not in _ADAPTIVE + _FIXED:
@@ -57,8 +61,12 @@ def generate(model: torch.nn.Module, n: int, *, x_shape: Tuple[int, int, int] = 
     x0 = x0.to(device=device, dtype=torch.float32)
     if y is not None and tuple(y.shape) != (n,):
         raise ValueError(f"y must have shape ({n},), got {tuple(y.shape)}")
-    ts = (np.array([0.0, 1.0], np.float32) if method in _ADAPTIVE
-          else np.linspace(0.0, 1.0, n_steps + 1, dtype=np.float32))
+    if grid is not None:
+        ts = np.asarray(grid, dtype=np.float32)
+    elif method in _ADAPTIVE:
+        ts = np.array([0.0, 1.0], np.float32)
+    else:
+        ts = np.linspace(0.0, 1.0, n_steps + 1, dtype=np.float32)
     images, nfe = [], 0
     with torch.inference_mode():
         for start in range(0, n, batch_size or n):

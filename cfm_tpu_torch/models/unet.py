@@ -35,10 +35,23 @@ Counterpart of ``cfm_tpu/models/unet.py`` (``UNetModel``,
   generator on a CUDA model draws on the CPU and copies the masks over, which
   is how a test gives two devices the same masks). Gradients through the
   attention kernels take their backward kernels (#2, #4).
+- ``use_checkpoint`` wraps each ResBlock and AttentionBlock of a
+  :class:`UNetModel` in ``torch.utils.checkpoint.checkpoint`` (non-reentrant)
+  when a gradient is wanted: the backward recomputes the block, relaunching
+  its forward kernels (#1, #3, #8). ``checkpoint_policy`` None saves nothing;
+  "dots" saves the outputs of convolutions and matmuls (``aten.convolution``,
+  ``mm``, ``addmm``, ``bmm``, ``baddbmm``), as JAX's ``checkpoint_dots``
+  saves ``conv_general_dilated`` and ``dot_general``; "dots_no_batch" saves
+  only the matmuls without batch dimensions (``mm``, ``addmm``). A block's
+  recompute draws its dropout masks again from the generator's state at the
+  block's start and then puts the generator back, so the masks, the
+  gradients and the generator's state after the step are an unwrapped
+  step's. No module is wrapped: the parameter names do not change.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional, Sequence, Tuple
 
@@ -344,15 +357,90 @@ class AttentionPool2d(nn.Module):
         return self.Dense_1(out)[:, 0]
 
 
+_aten = torch.ops.aten
+# The ops whose outputs a checkpointed block keeps under each policy.
+CHECKPOINT_POLICIES = {
+    None: frozenset(),
+    "dots": frozenset({_aten.convolution.default, _aten.mm.default, _aten.addmm.default,
+                       _aten.bmm.default, _aten.baddbmm.default}),
+    "dots_no_batch": frozenset({_aten.mm.default, _aten.addmm.default}),
+}
+
+
+class _GeneratorReplay:
+    """The dropout generator across a checkpointed block: its state at the
+    block's start is kept, set again for the recompute, and the state the
+    recompute found is put back after it."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator, self.start = generator, None
+
+    @contextlib.contextmanager
+    def forward(self):
+        self.start = self.generator.get_state()
+        yield
+
+    @contextlib.contextmanager
+    def recompute(self):
+        now = self.generator.get_state()
+        self.generator.set_state(self.start)
+        try:
+            yield
+        finally:
+            self.generator.set_state(now)
+
+
+@contextlib.contextmanager
+def _entered(contexts):
+    with contextlib.ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+        yield
+
+
+def _checkpointed(block, h: torch.Tensor, policy: Optional[str],
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``block(h)`` under non-reentrant activation checkpointing with
+    ``policy``; ``generator``, where the block draws dropout masks from it,
+    is replayed for the recompute."""
+    from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    saved = CHECKPOINT_POLICIES[policy]
+
+    def save(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    def context_fn():
+        fwd, rec = [], []
+        if generator is not None:
+            replay = _GeneratorReplay(generator)
+            fwd.append(replay.forward())
+            rec.append(replay.recompute())
+        if saved:
+            caching, cached = create_selective_checkpoint_contexts(save)
+            fwd.append(caching)
+            rec.append(cached)
+        return _entered(fwd), _entered(rec)
+
+    return checkpoint(block, h, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=context_fn)
+
+
 class _Trunk(nn.Module):
     """What :class:`UNetModel` and :class:`EncoderUNetModel` share, under the
     flax scope names: the time embedding, the stem conv, the input blocks and
     the middle, and flax's initialisers."""
 
     def __init__(self, model_channels: int, dropout: float, num_head_channels: int,
-                 use_scale_shift_norm: bool, dtype: torch.dtype):
+                 use_scale_shift_norm: bool, dtype: torch.dtype, use_checkpoint: bool = False,
+                 checkpoint_policy: Optional[str] = None):
         super().__init__()
+        if checkpoint_policy not in CHECKPOINT_POLICIES:
+            raise ValueError(f"Unknown checkpoint_policy {checkpoint_policy!r}; one of "
+                             f"{list(CHECKPOINT_POLICIES)}")
         self.model_channels, self.dtype = model_channels, dtype
+        self.use_checkpoint, self.checkpoint_policy = use_checkpoint, checkpoint_policy
         self.emb_dim = 4 * model_channels
         self._res_kw = dict(use_scale_shift_norm=use_scale_shift_norm, dtype=dtype, dropout=dropout)
         self._num_head_channels = num_head_channels
@@ -411,8 +499,21 @@ class _Trunk(nn.Module):
 
     def _run(self, name: str, h: torch.Tensor, emb: torch.Tensor, train: bool,
              generator: Optional[torch.Generator]) -> torch.Tensor:
+        """One block of the trunk; a ResBlock or an AttentionBlock under
+        activation checkpointing when ``use_checkpoint`` and a gradient is
+        wanted."""
         m = getattr(self, name)
-        return m(h, emb, train, generator) if isinstance(m, ResBlock) else m(h)
+        if isinstance(m, ResBlock):
+            def block(x):
+                return m(x, emb, train, generator)
+        elif isinstance(m, AttentionBlock):
+            block = m
+        else:
+            return m(h)
+        if not (self.use_checkpoint and torch.is_grad_enabled()):
+            return block(h)
+        draws = isinstance(m, ResBlock) and train and 0.0 < m.dropout.rate < 1.0
+        return _checkpointed(block, h, self.checkpoint_policy, generator if draws else None)
 
     def _down_and_middle(self, x: torch.Tensor, emb: torch.Tensor, train: bool,
                          generator: Optional[torch.Generator]
@@ -435,18 +536,21 @@ class UNetModel(_Trunk):
     ``attention_resolutions`` holds downsample factors, as in the JAX
     package. ``seed`` makes the initial parameters (flax's initialisers:
     N(0, 1/fan_in) kernels, zero biases, zero-initialised output convs and
-    attention out-projections).
+    attention out-projections). ``use_checkpoint`` and ``checkpoint_policy``
+    are activation checkpointing (the module docstring); both are plain
+    attributes, read at every call.
     """
 
     def __init__(self, in_channels: int, model_channels: int, out_channels: int,
                  num_res_blocks: int, attention_resolutions: Sequence[int] = (),
                  dropout: float = 0.0, channel_mult: Sequence[float] = (1, 2, 4, 8),
                  conv_resample: bool = True, num_classes: Optional[int] = None,
-                 num_heads: int = 1, num_head_channels: int = -1,
+                 use_checkpoint: bool = False, num_heads: int = 1, num_head_channels: int = -1,
                  num_heads_upsample: int = -1, use_scale_shift_norm: bool = False,
                  resblock_updown: bool = False, dtype: torch.dtype = torch.float32,
-                 seed: int = 0):
-        super().__init__(model_channels, dropout, num_head_channels, use_scale_shift_norm, dtype)
+                 checkpoint_policy: Optional[str] = None, seed: int = 0):
+        super().__init__(model_channels, dropout, num_head_channels, use_scale_shift_norm, dtype,
+                         use_checkpoint, checkpoint_policy)
         self.num_classes = num_classes
         heads_up = num_heads if num_heads_upsample == -1 else num_heads_upsample
         if num_classes is not None:
@@ -617,6 +721,7 @@ def UNetModelWrapper(
     learn_sigma: bool = False,
     class_cond: bool = False,
     num_classes: int = NUM_CLASSES,
+    use_checkpoint: bool = False,
     attention_resolutions: str = "16",
     num_heads: int = 1,
     num_head_channels: int = -1,
@@ -625,6 +730,7 @@ def UNetModelWrapper(
     dropout: float = 0.0,
     resblock_updown: bool = False,
     dtype: torch.dtype = torch.float32,
+    checkpoint_policy: Optional[str] = None,
     seed: int = 0,
     device: DeviceLike = None,
 ) -> UNetModel:
@@ -656,12 +762,14 @@ def UNetModelWrapper(
         dropout=dropout,
         channel_mult=tuple(channel_mult),
         num_classes=num_classes if class_cond else None,
+        use_checkpoint=use_checkpoint,
         num_heads=num_heads,
         num_head_channels=num_head_channels,
         num_heads_upsample=num_heads_upsample,
         use_scale_shift_norm=use_scale_shift_norm,
         resblock_updown=resblock_updown,
         dtype=dtype,
+        checkpoint_policy=checkpoint_policy,
         seed=seed,
     )
     return model.to(device).eval()

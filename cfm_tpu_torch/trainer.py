@@ -20,7 +20,16 @@ NFE, and the tracking FID against the first 4096 training images.
 
 With ``matcher.score_head`` ([SF]2M) a second model of the same kind, its
 weights from seed + 1, learns the score: one optimizer, clip and EMA span
-both heads; generation and evaluation use the flow head's EMA parameters.
+both heads; ODE generation uses the flow head's EMA parameters, and
+``generate_sde`` both heads' (dx = [v + s] dt + sigma dW, sigma the
+matcher's or 1). With ``eval.sde`` an evaluation adds ``sde_kl``, the mean
+Girsanov KL of such a rollout, and on the 2-D branch ``sde_w2``, its W2
+against the same target points as ``w2``.
+
+``model.use_checkpoint`` recomputes each UNet ResBlock and attention block
+in the backward (``model.checkpoint_policy``: None saves nothing, "dots"
+the convolutions' and matmuls' outputs, "dots_no_batch" the matmuls
+without batch dimensions); the parameters keep their names.
 
 Checkpoints go to ``<trainer.ckpt_dir>/<name>`` every ``ckpt_interval``
 steps and at the end of every ``fit``; with ``trainer.resume`` (the
@@ -32,10 +41,9 @@ with ``CFM_TPU_TB=1``, wandb with ``CFM_TPU_WANDB=1``); ``<name>_hparams.json``
 holds the parameter count and the config, ``exec_time.log`` each fit's steps
 and seconds. The loss is read back only at ``log_interval``.
 
-Refused loudly when asked for: SDE generation and the ``eval.sde`` metrics
-(ROADMAP.md queue 1 item 2), UNet activation checkpointing
-(``model.use_checkpoint``, item 12) and the data-parallel mesh (raises with
-more than one card unless ``trainer.data_parallel=False``, item 10).
+Refused loudly when asked for: the data-parallel mesh (raises with more
+than one card unless ``trainer.data_parallel=False``, ROADMAP.md queue 1
+item 10).
 Class-conditional I-CFM is refused as the JAX package fails on it: its
 matcher carries no labels.
 """
@@ -49,7 +57,7 @@ import itertools
 import json
 import os
 import time
-from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple, Union
+from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -62,7 +70,8 @@ from cfm_tpu_torch.data.images import (infinite_batches, load_cifar10, load_mnis
 from cfm_tpu_torch.data.toy import _DIM_AWARE, two_dim_data
 from cfm_tpu_torch.device import DeviceLike, resolve_device
 from cfm_tpu_torch.generate import Generated, generate
-from cfm_tpu_torch.integrate import ODESolution, odeint, vector_field_from_model
+from cfm_tpu_torch.integrate import (FlowSolver, ODESolution, SDESolution, odeint,
+                                    vector_field_from_model)
 from cfm_tpu_torch.models.mlp import MLP
 from cfm_tpu_torch.models.unet import UNetModelWrapper
 from cfm_tpu_torch.paths import (ConditionalFlowMatcher,
@@ -127,15 +136,13 @@ def build_model(cfg: Config, device: DeviceLike = None, seed: Optional[int] = No
         return MLP(dim=dim, w=m.width, seed=seed, device=device)
     if m.kind != "unet":
         raise ValueError(f"Unknown model kind: {m.kind}")
-    if m.use_checkpoint:
-        raise NotImplementedError("model.use_checkpoint (UNet activation checkpointing) is not "
-                                  "ported yet (ROADMAP.md queue 1 item 12)")
     return UNetModelWrapper(
         dim=m.image_dim, num_channels=m.num_channels, num_res_blocks=m.num_res_blocks,
         channel_mult=m.channel_mult, num_heads=m.num_heads,
         num_head_channels=m.num_head_channels, attention_resolutions=m.attention_resolutions,
         dropout=m.dropout, use_scale_shift_norm=m.use_scale_shift_norm,
         resblock_updown=m.resblock_updown, class_cond=m.class_cond, num_classes=m.num_classes,
+        use_checkpoint=m.use_checkpoint, checkpoint_policy=m.checkpoint_policy,
         dtype=torch.bfloat16 if m.bf16 else torch.float32, seed=seed, device=device)
 
 
@@ -216,9 +223,6 @@ class Trainer:
     def __init__(self, cfg: Config, device: DeviceLike = None, log_dir: str = "logs"):
         self.cfg = cfg
         self.is_image = cfg.data.dataset in ("cifar10", "mnist")
-        if cfg.eval.sde:
-            raise NotImplementedError("eval.sde (SDE generation and the sde_kl / sde_w2 "
-                                      "metrics) is not ported yet (ROADMAP.md queue 1 item 2)")
         if cfg.trainer.data_parallel and torch.cuda.device_count() > 1:
             raise NotImplementedError(
                 "the data-parallel mesh is not ported yet (ROADMAP.md queue 1 item 10); "
@@ -263,7 +267,8 @@ class Trainer:
             json.dump({"model/params/total": self.n_params, "config": dataclasses.asdict(cfg)},
                       fh, indent=1, default=str)
 
-        self._ema_model: Optional[torch.nn.Module] = None
+        self._ema_model: Optional[torch.nn.Module] = None        # the flow head's EMA copy
+        self._ema_score_model: Optional[torch.nn.Module] = None  # the score head's
         self._tracking = None  # (feature function, reference features), made at first use
         self.eval_log: List[Dict[str, float]] = []  # step, the metrics and the seconds taken
         if not self.is_image:
@@ -447,17 +452,21 @@ class Trainer:
                              f"{sorted(ev)}")
         return key
 
-    def _ema(self) -> torch.nn.Module:
-        """The (flow) model with its EMA parameters, the first entries of the
-        state's EMA list (a copy kept across calls)."""
-        if self._ema_model is None:
-            self._ema_model = copy.deepcopy(self.model).requires_grad_(False)
-            self._ema_model.zero_grad(set_to_none=True)
+    def _ema(self, head: str = "flow") -> torch.nn.Module:
+        """The flow model with its EMA parameters, the first entries of the
+        state's EMA list, or with ``head="score"`` the score model with the
+        entries after them (a copy of each kept across calls)."""
+        attr = "_ema_model" if head == "flow" else "_ema_score_model"
+        if getattr(self, attr) is None:
+            model = self.model if head == "flow" else self.score_model
+            setattr(self, attr, copy.deepcopy(model).requires_grad_(False))
+            getattr(self, attr).zero_grad(set_to_none=True)
+        ema = getattr(self, attr)
+        start = 0 if head == "flow" else len(list(self.model.parameters()))
         with torch.no_grad():
-            flow = list(self._ema_model.parameters())
-            for p, e in zip(flow, self.state.ema_params[:len(flow)]):
-                p.copy_(e)
-        return self._ema_model
+            for i, p in enumerate(ema.parameters()):
+                p.copy_(self.state.ema_params[start + i])
+        return ema
 
     def generate(self, n: int, method: Optional[str] = None, n_steps: Optional[int] = None,
                  y: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
@@ -479,18 +488,53 @@ class Trainer:
         model = self._ema()
         if y is not None:
             y = torch.as_tensor(y, device=self.device)
-        if self.is_image and not return_solution:
-            return generate(model, n, x_shape=tuple(cfg.model.image_dim), method=method,
-                            n_steps=n_steps, y=y, generator=generator, device=self.device)
-        g = generator or self.generator
-        x0 = (torch.randn((n, *cfg.model.image_dim), generator=g, device=self.device)
-              if self.is_image else self._source(g, n, self.device))
+        # dopri5 writes grid points by dense output and takes the two-point
+        # span; tsit5 lands on every point of the n_steps-interval grid, as
+        # the JAX Trainer gives it.
         ts = ([0.0, 1.0] if method == "dopri5"
               else np.linspace(0.0, 1.0, n_steps + 1, dtype=np.float32))
+        if self.is_image and not return_solution:
+            return generate(model, n, x_shape=tuple(cfg.model.image_dim), method=method,
+                            n_steps=n_steps, y=y, generator=generator, device=self.device,
+                            grid=ts if method == "tsit5" else None)
+        g = generator or self.generator
+        x0 = self._x0(n, g)
         with torch.inference_mode():
             sol = odeint(vector_field_from_model(model, y), x0, ts, method=method,
                          return_trajectory=False)
         return sol if return_solution else Samples(sol.final, sol.nfe)
+
+    def _x0(self, n: int, g: torch.Generator) -> torch.Tensor:
+        """n source points: N(0, I) images, or the 2-D branch's source."""
+        if self.is_image:
+            return torch.randn((n, *self.cfg.model.image_dim), generator=g, device=self.device)
+        return self._source(g, n, self.device)
+
+    def generate_sde(self, n: int, n_steps: Optional[int] = None, logqp: bool = False,
+                     generator: Optional[torch.Generator] = None, method: str = "euler",
+                     x0: Optional[torch.Tensor] = None,
+                     noise: Optional[Sequence[torch.Tensor]] = None) -> SDESolution:
+        """Sample ``n`` points by the SDE dx = [v + s] dt + sigma dW of both
+        heads' EMA parameters ([SF]2M), sigma ``matcher.sigma`` or 1 where it
+        is 0, over ``n_steps`` (default ``eval.ode_steps``) intervals of
+        [0, 1] with ``method`` ("euler" or "heun"). x0 and each step's
+        normals come from ``generator`` (default the trainer's), or are
+        given as ``x0`` and ``noise``. Returns the ``SDESolution`` (initial
+        and final states, NFE, with ``logqp`` the KL of each sample)."""
+        if self.score_model is None:
+            raise ValueError("SDE generation requires a score head (matcher.score_head)")
+        cfg = self.cfg
+        n_steps = n_steps or cfg.eval.ode_steps
+        g = generator or self.generator
+        x0 = self._x0(n, g) if x0 is None else x0.to(self.device)
+        sigma = cfg.matcher.sigma if cfg.matcher.sigma > 0 else 1.0
+        solver = FlowSolver(drift=vector_field_from_model(self._ema("flow")),
+                            score=vector_field_from_model(self._ema("score")), sigma=sigma)
+        with torch.inference_mode():
+            return solver.sdeint(None if noise is not None else g, x0,
+                                 np.linspace(0.0, 1.0, n_steps + 1, dtype=np.float32),
+                                 logqp=logqp, return_trajectory=False, method=method,
+                                 noise=noise)
 
     def tracking_fid(self, gen: torch.Tensor) -> Optional[float]:
         """FID under the tracking features (``eval/fid.py``) between generated
@@ -516,18 +560,29 @@ class Trainer:
         """``n`` samples (``eval.num_eval_samples``) generated from the EMA
         parameters with the configured method. 2-D branch: against ``n``
         fresh target points, the exact W1 and W2 and the NFE. Image branch:
-        the float samples' mean and std, the NFE and the tracking FID."""
-        n = n or self.cfg.eval.num_eval_samples
+        the float samples' mean and std, the NFE and the tracking FID. With
+        a score head and ``eval.sde``, also ``sde_kl``, the mean KL of an
+        SDE rollout of ``n`` samples (``generate_sde``), and on the 2-D
+        branch ``sde_w2``, its W2 against the same target points."""
+        cfg = self.cfg
+        n = n or cfg.eval.num_eval_samples
         sol = self.generate(n, return_solution=True)
         gen, nfe = sol.final, float(sol.nfe)
+        target = None
         if self.is_image:
             out = {"gen_mean": float(gen.mean()), "gen_std": float(gen.std(correction=0)),
                    "nfe": nfe}
             tfid = self.tracking_fid(gen)
             if tfid is not None:
                 out["tracking_fid"] = tfid
-            return out
-        target = self._target(self.generator, n, self.device)
-        return {"w1": float(wasserstein(gen, target, power=1)),
-                "w2": float(wasserstein(gen, target, power=2)),
-                "nfe": nfe}
+        else:
+            target = self._target(self.generator, n, self.device)
+            out = {"w1": float(wasserstein(gen, target, power=1)),
+                   "w2": float(wasserstein(gen, target, power=2)),
+                   "nfe": nfe}
+        if self.score_model is not None and cfg.eval.sde:
+            sde = self.generate_sde(n, logqp=True)
+            out["sde_kl"] = float(sde.logqp.mean())
+            if target is not None:
+                out["sde_w2"] = float(wasserstein(sde.final, target, power=2))
+        return out

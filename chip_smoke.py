@@ -166,14 +166,44 @@ a result:
     Inception images/s and the FID lines, beside the card's name and power
     limit.
 
+19. MNIST [SF]2M by SDE: ``train_mnist.main(["--matcher", "sbcfm", "--sde",
+    "--synthetic", ...])`` at the preset's width and batch (two bf16 UNets,
+    batch 128): 30 steps (1 auction, 54 + 54 GroupNorm launches a step) and
+    64 images by the SDE of both EMA heads (Euler-Maruyama, 100 steps: 54
+    GroupNorm launches a step, nothing else); 20 more steps timed; one
+    evaluation with ``eval.sde`` (2048 images: euler-100, then the SDE with
+    the KL); 64 images by ``generate_sde`` timed; the same rollout on the
+    same noise with random seeded heads through the kernels and through the
+    plain versions on the card, the final within MNIST_SDE_TOL of its
+    max-abs.
+20. ``2d_sf2m`` as given with ``eval.sde=True``, 300 steps, then one
+    evaluation: W1, W2, ``sde_kl``, ``sde_w2`` on the same 2048 target
+    points, three #6 launches; then the heun method's rollout.
+21. Activation checkpointing: ``cifar10_otcfm`` (dropout 0.1, through the
+    ``Trainer``) and the ImageNet-64 model (dropout 0.1, batch 32), each
+    with ``use_checkpoint`` off, on with policy None and on with "dots":
+    ms and device ms a step, the peak memory, the launches (a wrapped
+    block's forward kernels twice a step: #1 5 + 5 and #8 46 + 45 for
+    CIFAR-10; #3 7 + 7, #1 8 + 8 and #8 87 + 86 for ImageNet-64); then one
+    step from the same state with the same ``StepDraws`` under
+    ``cudnn.deterministic`` for each policy, whose parameters and generator
+    state must equal the unwrapped step's bit for bit.
+22. tsit5 and the adjoint: the recipe width (random weights) generating
+    512 images by tsit5 over ``generate``'s two-point span and over
+    ``Trainer.generate``'s 101-point grid, beside phase 6's dopri5; then
+    ``odeint_adjoint`` through the MNIST flow head on 8 images at
+    rtol = atol = 1e-4 (#8 in every evaluation, #9 in every vector-Jacobian
+    product of the backward), its gradients within ADJOINT_GRAD_TOL of the
+    same adjoint through the plain versions on the card.
+
 Every ``Trainer`` and ``cli`` run writes its checkpoints and logs into a
 fresh directory under ``build/smoke_runs/``. The phases that time ``fit``
-(8 to 10, 13 and 16) build their trainers with checkpoint saves skipped, so
-their windows hold the steps alone; phase 18 times the saves.
+(8 to 10, 13, 16, 19 and 21) build their trainers with checkpoint saves
+skipped, so their windows hold the steps alone; phase 18 times the saves.
 
 The last three lines are the kernels' JSON record (``launches`` summed over
-the paths of phases 6, 8, 10 to 14, 16, 17 and 18), the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+the paths of phases 6, 8, 10 to 14, 16 to 22), the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1621,6 +1651,8 @@ def main_path():
         if launched != want or out.nfe == 0:
             raise AssertionError(f"{name}: launches {launched} for NFE {out.nfe}, expected {want}")
         total = {k: v + launched[k] for k, v in total.items()}
+        if name == "dopri5":
+            main_path.dopri5 = (out.nfe, GEN_BATCH / sec)  # phase 22's yardstick
     return total
 
 
@@ -2578,6 +2610,484 @@ def presets_as_given(per_step, smi):
     return total
 
 
+# Phases 19-22: SDE generation, activation checkpointing, tsit5 and the adjoint.
+MNIST_SDE_STEPS, MNIST_SDE_TIMED, MNIST_SDE_GEN = 30, 20, 64
+MNIST_SDE_TOL = 2e-2      # kernels vs plain versions, SDE rollout: of the final's max-abs
+SF2M_SDE_STEPS = 300      # 2d_sf2m steps before its evaluation with eval.sde
+CKPT_WARMUP, CKPT_STEPS, CKPT_PROFILED = 2, 8, 2
+CKPT_POLICIES = ((False, None), (True, None), (True, "dots"))
+TSIT5_GEN = 512
+ADJOINT_N, ADJOINT_TOL, ADJOINT_GRAD_TOL = 8, 1e-4, 5e-2
+MNIST = dict(dim=(28, 28, 1), num_channels=32, num_res_blocks=1, channel_mult=(1, 2, 2),
+             num_heads=1, num_head_channels=-1, attention_resolutions="14")
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """The UNet's kernel wrappers swapped for their plain PyTorch versions,
+    which run on the card as on the CPU and differentiate by autograd: the
+    yardstick of phases 19 and 22. Nothing launches inside."""
+    from cfm_tpu_torch.models import unet
+    from cfm_tpu_torch.ops import attention as att
+    from cfm_tpu_torch.ops import attn_block as ab
+    from cfm_tpu_torch.ops import groupnorm as gn
+
+    names = ("fused_group_norm_silu", "fused_attention_block", "attention_t")
+    saved = {n: getattr(unet, n) for n in names}
+    unet.fused_group_norm_silu = gn.gn_silu_reference
+    unet.fused_attention_block = ab.attention_block_reference
+    unet.attention_t = att.attn_reference_t
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(unet, n, f)
+
+
+def per_step_launches(per_step, steps):
+    return {k: per_step.get(k, 0) * steps for k in kernel_fns()}
+
+
+def mnist_sde(smi):
+    """Phase 19: [SF]2M on MNIST through ``train_mnist.main(["--matcher",
+    "sbcfm", "--sde", "--synthetic", ...])`` at the preset's width and batch
+    (two UNets, bf16, batch 128): MNIST_SDE_STEPS steps and 64 images by
+    the SDE (euler, 100 steps), the counts set to 0 just before and read
+    just after; then MNIST_SDE_TIMED more steps timed, one evaluation with
+    ``eval.sde`` at the preset's 2048 samples, 64 images by ``generate_sde``
+    timed, and the same rollout on the same noise with random seeded
+    weights in both heads through the kernels and through the plain
+    versions. Returns the trainer and the launch counts of its windows."""
+    import numpy as np
+    import torch
+    from cfm_tpu_torch import train_mnist
+
+    d = run_dir("mnist_sde")
+    gn_eval = GN_PER_EVAL["mnist"]
+    train_step = dict(auction=1, gn_silu_fwd=2 * gn_eval, gn_silu_bwd=2 * gn_eval)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer, text = captured(train_mnist.main, [
+        "--matcher", "sbcfm", "--sde", "--synthetic", "--steps", str(MNIST_SDE_STEPS),
+        "--data_dir", "build/no_mnist", "--output_dir", d,
+        "--override", "trainer.log_interval=1000", "--override", "trainer.ckpt_interval=0"])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {"mnist sde cli": read_counts()}
+    cfg = trainer.cfg
+    samples = np.load(os.path.join(d, "mnist_samples.npy"))
+    want = per_step_launches(train_step, MNIST_SDE_STEPS)
+    want["gn_silu_fwd"] += 2 * gn_eval * 100
+    log(f"train_mnist --matcher sbcfm --sde: {MNIST_SDE_STEPS} steps (batch "
+        f"{cfg.data.batch_size}, bf16 {cfg.model.bf16}, two UNets) and {samples.shape[0]} SDE "
+        f"samples in {sec:.3f} s; launches {launches['mnist sde cli']}")
+    if (launches["mnist sde cli"] != want or samples.shape != (MNIST_SDE_GEN, 28, 28, 1)
+            or cfg.data.batch_size != TRAIN_BATCH or not cfg.model.bf16
+            or (cfg.matcher.kind, cfg.matcher.sigma, cfg.eval.sde) != ("sbcfm", 1.0, True)
+            or "saved 64 samples (NFE 100)" not in text):
+        raise AssertionError(f"train_mnist --sde: launches {launches['mnist sde cli']}, expected "
+                             f"{want}; samples {samples.shape}")
+    trainer.ckpt.save = lambda *args, **kwargs: False
+    step_fn, recorded = trainer.step_fn, []
+
+    def recording_step(*args, **kwargs):
+        metrics = step_fn(*args, **kwargs)
+        recorded.append(metrics["loss"])
+        return metrics
+
+    trainer.step_fn = recording_step
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    trainer.fit(MNIST_SDE_STEPS + MNIST_SDE_TIMED)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches["mnist sde training"] = read_counts()
+    trainer.step_fn = step_fn
+    losses = [float(v) for v in recorded]
+    log(f"training mnist_sbcfm + score head bf16 batch {TRAIN_BATCH}: {MNIST_SDE_TIMED} steps in "
+        f"{sec:.3f} s = {1e3 * sec / MNIST_SDE_TIMED:.2f} ms per step; loss first "
+        f"{losses[0]:.5f} last {losses[-1]:.5f}; launches {launches['mnist sde training']} "
+        f"({smi})")
+    if (launches["mnist sde training"] != per_step_launches(train_step, MNIST_SDE_TIMED)
+            or not all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"mnist sde training: launches {launches['mnist sde training']}, "
+                             f"losses {losses}")
+    zero_counts()
+    t0 = time.perf_counter()
+    ev = trainer.evaluate()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches["mnist sde evaluation"] = read_counts()
+    n_eval = cfg.eval.num_eval_samples
+    log(f"  evaluation with eval.sde at {n_eval} samples in {sec:.3f} s: "
+        f"{ {k: round(v, 5) for k, v in ev.items()} }; launches "
+        f"{launches['mnist sde evaluation']}")
+    want = per_step_launches(dict(gn_silu_fwd=gn_eval * (100 + 2 * 100)), 1)
+    if (set(ev) != {"gen_mean", "gen_std", "nfe", "tracking_fid", "sde_kl"}
+            or not math.isfinite(ev["sde_kl"]) or launches["mnist sde evaluation"] != want):
+        raise AssertionError(f"mnist sde evaluation {ev}, launches "
+                             f"{launches['mnist sde evaluation']}, expected {want}")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    trainer.generate_sde(MNIST_SDE_GEN, generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    sol = trainer.generate_sde(MNIST_SDE_GEN, generator=gen)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches["mnist sde generation"] = read_counts()
+    log(f"generation by SDE (mnist_sbcfm, both EMA heads, euler-100): {MNIST_SDE_GEN} images in "
+        f"{sec:.3f} s = {MNIST_SDE_GEN / sec:.2f} imgs/s, NFE {sol.nfe}, launches "
+        f"{launches['mnist sde generation']} ({smi})")
+    want = per_step_launches(dict(gn_silu_fwd=2 * gn_eval * 100), 1)
+    if (launches["mnist sde generation"] != want or sol.nfe != 100
+            or not bool(torch.isfinite(sol.final).all())):
+        raise AssertionError(f"mnist sde generation: launches {launches['mnist sde generation']}, "
+                             f"expected {want}, NFE {sol.nfe}")
+    # Kernels against plain versions: both heads given random seeded weights.
+    heads = [seeded_model(MNIST, torch.bfloat16, "cpu", seed=s) for s in (41, 43)]
+    with torch.no_grad():
+        for e, p in zip(trainer.state.ema_params,
+                        [p for h in heads for p in h.parameters()]):
+            e.copy_(p)
+    g = torch.Generator().manual_seed(45)
+    x0 = torch.randn((MNIST_SDE_GEN, 28, 28, 1), generator=g).cuda()
+    noise = [torch.randn((MNIST_SDE_GEN, 28, 28, 1), generator=g).cuda() for _ in range(100)]
+    zero_counts()
+    kern = trainer.generate_sde(MNIST_SDE_GEN, x0=x0, noise=noise, logqp=True)
+    got = read_counts()
+    with plain_versions():
+        plain = trainer.generate_sde(MNIST_SDE_GEN, x0=x0, noise=noise, logqp=True)
+    if read_counts() != got or got["gn_silu_fwd"] != 2 * gn_eval * 100:
+        raise AssertionError(f"SDE check launches {got}, then {read_counts()}")
+    scale = plain.final.abs().max().item()
+    err = (kern.final - plain.final).abs().max().item() / scale
+    kl_err = ((kern.logqp - plain.logqp).abs().max() / plain.logqp.abs().max()).item()
+    log(f"  SDE rollout (random seeded heads, 64 images, 100 steps, the same noise): kernels vs "
+        f"plain versions on the card, final within {err:.2e} of its max-abs {scale:.3f} "
+        f"(limit {MNIST_SDE_TOL}), KL within {kl_err:.2e} relative")
+    if not err <= MNIST_SDE_TOL or not kl_err <= MNIST_SDE_TOL:
+        raise AssertionError(f"SDE rollout kernels vs plain: {err}, KL {kl_err}")
+    return trainer, launches
+
+
+def sf2m_sde(smi):
+    """Phase 20: ``2d_sf2m`` as the preset gives it with ``eval.sde=True``:
+    SF2M_SDE_STEPS steps, then one evaluation (W1, W2, sde_kl, sde_w2 at
+    2048 points), the counts set to 0 just before: three #6 launches and
+    nothing else. Then the heun method's rollout (200 NFE) and its W2 (one
+    #6 launch). Returns the counts of both windows."""
+    import torch
+    from cfm_tpu_torch.coupling import wasserstein
+
+    trainer = phase_trainer("2d_sf2m", ["eval.sde=True", "trainer.eval_interval=0",
+                                        "trainer.log_interval=100000"], "2d_sf2m_sde",
+                            skip_saves=True)
+    trainer.fit(SF2M_SDE_STEPS)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    ev = trainer.evaluate()
+    sec = time.perf_counter() - t0
+    launched = read_counts()
+    log(f"2d_sf2m evaluation with eval.sde after {SF2M_SDE_STEPS} steps: "
+        f"{ {k: round(v, 6) for k, v in ev.items()} } in {sec:.3f} s; launches {launched} ({smi})")
+    want = dict.fromkeys(launched, 0)
+    want["auction_tiled"] = 3
+    if (launched != want or set(ev) != {"w1", "w2", "nfe", "sde_kl", "sde_w2"}
+            or not all(math.isfinite(v) for v in ev.values())):
+        raise AssertionError(f"2d_sf2m eval.sde: {ev}, launches {launched}, expected {want}")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    zero_counts()
+    t0 = time.perf_counter()
+    heun = trainer.generate_sde(trainer.cfg.eval.num_eval_samples, logqp=True, method="heun",
+                                generator=g)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    target = trainer._target(g, trainer.cfg.eval.num_eval_samples, "cuda")
+    w2 = float(wasserstein(heun.final, target, power=2))
+    heun_launched = read_counts()
+    log(f"  heun rollout: NFE {heun.nfe}, {sec:.3f} s, KL mean {float(heun.logqp.mean()):.6f}, "
+        f"W2 against fresh target points {w2:.6f}; launches {heun_launched}")
+    want["auction_tiled"] = 1
+    if heun.nfe != 200 or not math.isfinite(w2) or heun_launched != want:
+        raise AssertionError(f"2d_sf2m heun: NFE {heun.nfe}, W2 {w2}, launches {heun_launched}")
+    return {k: v + heun_launched[k] for k, v in launched.items()}
+
+
+def checkpoint_runs(name, run_steps, reset, model, per_step, smi):
+    """Phase 21 for one path: for each (use_checkpoint, policy) of
+    CKPT_POLICIES, ``reset()`` the state, CKPT_WARMUP steps, then
+    CKPT_STEPS with the counts and the peak memory set just before and read
+    just after, then CKPT_PROFILED steps under the device profiler. A
+    wrapped block's forward kernels run twice a step (the forward and the
+    recompute). Returns the counts summed over the policies."""
+    import torch
+
+    total = dict.fromkeys(kernel_fns(), 0)
+    for use, policy in CKPT_POLICIES:
+        model.use_checkpoint, model.checkpoint_policy = use, policy
+        what = f"use_checkpoint={use}" + (f" policy={policy}" if use else "")
+        reset()
+        run_steps(CKPT_WARMUP)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        losses = run_steps(CKPT_STEPS)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launched = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        wall = device_profile(lambda: run_steps(CKPT_PROFILED),
+                              f"a {name} train step, {what}", top=0, per=CKPT_PROFILED)
+        busy = device_profile.last["busy_ms"] if device_profile.last else float("nan")
+        want = per_step_launches(per_step(use), CKPT_STEPS)
+        log(f"checkpointing {name} {what}: {1e3 * sec / CKPT_STEPS:.2f} ms a step, device "
+            f"{busy:.3f} ms a step (wall {wall:.2f} traced), max memory allocated {peak:.3f} GiB; "
+            f"loss last {float(losses[-1]):.5f}; launches {launched} ({smi})")
+        if launched != want or not all(math.isfinite(float(v)) for v in losses):
+            raise AssertionError(f"checkpointing {name} {what}: launches {launched}, "
+                                 f"expected {want}")
+        total = {k: v + launched[k] for k, v in total.items()}
+    model.use_checkpoint, model.checkpoint_policy = False, None
+    return total
+
+
+def same_step_bits(name, reset, one_step, model):
+    """Phase 21: from the same state, one step with the same draws (dropout
+    masks from a fresh seeded generator) under ``cudnn.deterministic``, for
+    each policy: the parameters and the generator's state after the step
+    must equal the unwrapped step's bit for bit."""
+    import torch
+
+    ref = None
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for use, policy in CKPT_POLICIES:
+            model.use_checkpoint, model.checkpoint_policy = use, policy
+            reset()
+            params, gen_state = one_step()
+            if ref is None:
+                ref = (params, gen_state)
+                continue
+            ok, bad = same_bits(params, ref[0])
+            if not ok or not torch.equal(gen_state, ref[1]):
+                raise AssertionError(f"{name} policy {policy}: {len(bad)} tensors differ from the "
+                                     f"unwrapped step (first {bad[:5]})")
+            log(f"  {name} policy {policy}: one step's {len(params)} parameters and the "
+                f"generator's state equal the unwrapped step's bit for bit")
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        model.use_checkpoint, model.checkpoint_policy = False, None
+
+
+def checkpointing(imagenet, smi):
+    """Phase 21: activation checkpointing on ``cifar10_otcfm`` (dropout 0.1,
+    bf16, batch 128, synthetic data, through ``Trainer``) and on the
+    ImageNet-64 model (dropout 0.1, bf16, batch 32, ``make_train_step``),
+    each off, with policy None and with "dots". Returns the counts."""
+    import numpy as np
+    import torch
+    from cfm_tpu_torch.data.images import normalize_images
+    from cfm_tpu_torch.paths import ExactOptimalTransportConditionalFlowMatcher
+    from cfm_tpu_torch.train import StepDraws, init_train_state, make_optimizer, make_train_step
+
+    out = {}
+    # CIFAR-10: the Trainer's model; its state reset to the initial tensors.
+    trainer = phase_trainer("cifar10_otcfm", ["trainer.log_interval=100000",
+                                              "data.synthetic_fallback=True",
+                                              "data.data_dir=build/no_cifar10"],
+                            "cifar10_checkpointing", skip_saves=True)
+    init = [t.detach().cpu().clone() for t in state_tensors(trainer.state)]
+
+    def reset_cifar():
+        with torch.no_grad():
+            for t, v in zip(state_tensors(trainer.state), init):
+                t.copy_(v)
+        trainer.state.opt_state.count, trainer.state.step = 0, 0
+
+    def cifar_steps(n):
+        return [trainer._step(trainer.state.step)["loss"] for _ in range(n)]
+
+    gn_c = GN_PER_EVAL["cifar10"]
+    out["cifar10 checkpointing"] = checkpoint_runs(
+        "cifar10_otcfm", cifar_steps, reset_cifar, trainer.model,
+        lambda use: dict(auction=1, attn_block_fwd=10 if use else 5, attn_block_bwd=5,
+                         gn_silu_fwd=2 * gn_c - 1 if use else gn_c, gn_silu_bwd=gn_c), smi)
+    x1 = normalize_images(trainer._device_data[:TRAIN_BATCH])
+    x0 = torch.randn(x1.shape, generator=torch.Generator(device="cuda").manual_seed(3),
+                     device="cuda")
+
+    def cifar_one_step():
+        g = torch.Generator(device="cuda").manual_seed(5)
+        draws = StepDraws.draw(g, x0, coupled=True, dropout=True)
+        trainer.step_fn(trainer.state, x0, x1, draws=draws)
+        torch.cuda.synchronize()
+        return [p.detach().clone() for p in trainer.state.params], g.get_state()
+
+    same_step_bits("cifar10_otcfm", reset_cifar, cifar_one_step, trainer.model)
+    del trainer, init
+
+    # ImageNet-64: the phase 11-12 model; its parameters reset to a copy.
+    B = IMAGENET_BATCH
+    init = [p.detach().cpu().clone() for p in imagenet.parameters()]
+    rng = np.random.default_rng(21)
+    n_batches = 8
+    images = torch.from_numpy(rng.integers(0, 256, (n_batches * B,) + IMAGENET64["dim"],
+                                           dtype=np.uint8)).cuda()
+    labels = torch.from_numpy(rng.integers(0, IMAGENET64["num_classes"], n_batches * B)).cuda()
+    opt = make_optimizer(lr=1e-4, grad_clip=1.0)
+    holder = {}
+
+    def reset_imagenet():
+        holder.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            for p, v in zip(imagenet.parameters(), init):
+                p.copy_(v)
+        holder["state"] = init_train_state(imagenet, opt)
+        holder["step"] = make_train_step(ExactOptimalTransportConditionalFlowMatcher(), imagenet,
+                                         opt, ema_decay=0.9999, train_mode=True,
+                                         class_conditional=True)
+        holder["g"] = torch.Generator(device="cuda").manual_seed(12)
+
+    def imagenet_steps(n):
+        losses, state = [], holder["state"]
+        for _ in range(n):
+            i = state.step % n_batches * B
+            x1, y = normalize_images(images[i:i + B]), labels[i:i + B]
+            x0 = torch.randn(x1.shape, generator=holder["g"], device="cuda")
+            losses.append(holder["step"](state, x0, x1, y, y, generator=holder["g"])["loss"])
+        return losses
+
+    gn_i = GN_PER_EVAL["imagenet64"]
+    out["imagenet64 checkpointing"] = checkpoint_runs(
+        "imagenet64", imagenet_steps, reset_imagenet, imagenet,
+        lambda use: dict(auction=1, attention_fwd=14 if use else 7, attention_bwd=7,
+                         attn_block_fwd=16 if use else 8, attn_block_bwd=8,
+                         gn_silu_fwd=2 * gn_i - 1 if use else gn_i, gn_silu_bwd=gn_i), smi)
+    x1 = normalize_images(images[:B])
+    y = labels[:B]
+    x0 = torch.randn(x1.shape, generator=torch.Generator(device="cuda").manual_seed(3),
+                     device="cuda")
+
+    def imagenet_one_step():
+        g = torch.Generator(device="cuda").manual_seed(5)
+        draws = StepDraws.draw(g, x0, coupled=True, dropout=True)
+        holder["step"](holder["state"], x0, x1, y, y, draws=draws)
+        torch.cuda.synchronize()
+        return [p.detach().clone() for p in holder["state"].params], g.get_state()
+
+    same_step_bits("imagenet64", reset_imagenet, imagenet_one_step, imagenet)
+    holder.clear()
+    with torch.no_grad():
+        for p, v in zip(imagenet.parameters(), init):
+            p.copy_(v)
+    return out
+
+
+def tsit5_generation(dopri5, smi):
+    """Phase 22: the recipe width (random seeded weights, bf16) generating
+    TSIT5_GEN images by tsit5 at rtol = atol = 1e-5, over ``generate``'s
+    two-point span and over ``Trainer.generate``'s 101-point grid, beside
+    phase 6's dopri5 (``dopri5``: (NFE, images/s)). Returns the counts."""
+    import numpy as np
+    import torch
+    from cfm_tpu_torch.generate import generate
+
+    model = seeded_model(RECIPE, torch.bfloat16, "cuda", seed=0)
+    total = dict.fromkeys(kernel_fns(), 0)
+    for what, grid in (("two-point span", None),
+                       ("101-point grid", np.linspace(0.0, 1.0, 101, dtype=np.float32))):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = generate(model, TSIT5_GEN, generator=gen, method="tsit5", grid=grid)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launched = read_counts()
+        log(f"generation tsit5 ({what}): {TSIT5_GEN} images in {sec:.3f} s = "
+            f"{TSIT5_GEN / sec:.2f} imgs/s, NFE {out.nfe}; dopri5 (phase 6) NFE {dopri5[0]}, "
+            f"{dopri5[1]:.2f} imgs/s; launches {launched} ({smi})")
+        want = dict.fromkeys(total, 0)
+        want.update(eval_launches(out.nfe))
+        if launched != want or out.images.float().std().item() < 1.0 or (
+                grid is not None and out.nfe < 2 + 6 * 100):
+            raise AssertionError(f"tsit5 {what}: launches {launched} for NFE {out.nfe}")
+        total = {k: v + launched[k] for k, v in total.items()}
+    return total
+
+
+def adjoint_gradients(trainer, smi):
+    """Phase 22: ``odeint_adjoint`` through the MNIST flow head (phase 19's
+    trainer, its zero-initialised layers given seeded values) on
+    ADJOINT_N images at rtol = atol = ADJOINT_TOL, the gradients of
+    sum(x(1)^2) for every parameter and x0; then the same through the plain
+    versions, within ADJOINT_GRAD_TOL of each gradient's max-abs, or of 1e-3
+    of the largest gradient's where that is more: a bias added before a
+    GroupNorm of one channel a group (the MNIST UNet's 32 channels in 32
+    groups) is removed by it, so its true gradient is 0 and its values are
+    rounding noise, as phase 5's train-step check allows. The backward's
+    vector-Jacobian products run #9 inside ``torch.autograd.grad``.
+    Returns the counts of the kernel run."""
+    import torch
+    from cfm_tpu_torch.integrate import odeint_adjoint
+
+    model = randomize_zero_layers(trainer.model, 47).train(False)
+    params = tuple(model.parameters())
+    x0 = torch.randn((ADJOINT_N, 28, 28, 1), generator=torch.Generator().manual_seed(48)).cuda()
+    calls = {"fwd": 0, "vjp": 0}
+
+    def f(p, t, x):
+        calls["vjp" if torch.is_grad_enabled() else "fwd"] += 1
+        return model(torch.full((x.shape[0],), t, device=x.device), x)
+
+    def grads():
+        for p in params:
+            p.grad = None
+        x = x0.clone().requires_grad_(True)
+        final = odeint_adjoint(f, params, x, [0.0, 1.0], rtol=ADJOINT_TOL, atol=ADJOINT_TOL)
+        (final ** 2).sum().backward()
+        torch.cuda.synchronize()
+        return [x.grad] + [p.grad.clone() for p in params]
+
+    grads()  # warm-up
+    calls.update(fwd=0, vjp=0)
+    zero_counts()
+    t0 = time.perf_counter()
+    kern = grads()
+    sec = time.perf_counter() - t0
+    launched, n = read_counts(), dict(calls)
+    gn_eval = GN_PER_EVAL["mnist"]
+    want = dict.fromkeys(launched, 0)
+    want.update(gn_silu_fwd=gn_eval * (n["fwd"] + n["vjp"]), gn_silu_bwd=gn_eval * n["vjp"])
+    log(f"odeint_adjoint over the MNIST flow head (bf16, {ADJOINT_N} images, rtol = atol = "
+        f"{ADJOINT_TOL}): {n['fwd']} forward and {n['vjp']} adjoint evaluations in {sec:.3f} s; "
+        f"launches {launched} ({smi})")
+    if launched != want or not all(bool(torch.isfinite(g).all()) for g in kern):
+        raise AssertionError(f"adjoint launches {launched}, expected {want}")
+    with plain_versions():
+        calls.update(fwd=0, vjp=0)
+        plain = grads()
+    if read_counts() != launched:
+        raise AssertionError("the plain adjoint launched a kernel")
+    gmax = max(b.abs().max().item() for b in plain)
+    worst = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-3 * gmax)
+                for a, b in zip(kern, plain))
+    log(f"  gradients (x0 and {len(params)} parameters) against the plain versions' adjoint "
+        f"({calls['fwd']} and {calls['vjp']} evaluations): worst {worst:.2e} of a gradient's "
+        f"max-abs or 1e-3 of the largest's {gmax:.4g} (limit {ADJOINT_GRAD_TOL})")
+    if not worst <= ADJOINT_GRAD_TOL:
+        raise AssertionError(f"adjoint gradients kernels vs plain: {worst}")
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -2651,6 +3161,12 @@ def main() -> int:
     launches["2d_sf2m training"] = sf2m_training()
     launches["sinkhorn wasserstein"] = wasserstein_sinkhorn()
     launches["presets as given"] = presets_as_given(cifar_per_step, smi)
+    sde_trainer, sde_launches = mnist_sde(smi)
+    launches.update(sde_launches)
+    launches["2d_sf2m eval.sde"] = sf2m_sde(smi)
+    launches.update(checkpointing(imagenet, smi))
+    launches["tsit5 generation"] = tsit5_generation(main_path.dopri5, smi)
+    launches["adjoint"] = adjoint_gradients(sde_trainer, smi)
     total = {k: sum(run[k] for run in launches.values()) for k in kernel_fns()}
     log(f"launches by path {launches}; summed {total}")
 

@@ -2,8 +2,8 @@
 train_mnist.py) on the CPU, at a tiny configuration: it trains with finite
 losses, unconditionally and class-conditionally, generates from the EMA
 parameters, saves checkpoints and evaluates when they fall due, refuses
-what is not ported yet (the mesh, SDE evaluation, activation checkpointing,
-unknown sets), and nothing runs on the CPU unless asked for. Every Trainer
+what is not ported yet (the mesh) and unknown sets, and nothing runs on the
+CPU unless asked for. Every Trainer
 writes its checkpoints and logs under the test's own temporary directory.
 """
 
@@ -99,8 +99,9 @@ def test_trainer_streams_host_batches(tmp_path):
 
 def test_trainer_refuses_what_is_not_ported(monkeypatch, tmp_path):
     """A checkpoint and an evaluation falling due, refused before the harness
-    and the image evaluation were ported, now run; the mesh, SDE evaluation,
-    activation checkpointing and class-conditional I-CFM still refuse."""
+    and the image evaluation were ported, now run, and so do SDE evaluation
+    and activation checkpointing; the mesh and class-conditional I-CFM still
+    refuse."""
     cfg = tcfg.load_config("cifar10_otcfm", TINY + ["trainer.ckpt_interval=2",
                                                     "eval.num_eval_samples=8",
                                                     "eval.ode_method=euler",
@@ -117,10 +118,13 @@ def test_trainer_refuses_what_is_not_ported(monkeypatch, tmp_path):
     with pytest.raises(NotImplementedError, match="data-parallel mesh"):
         ttrn.Trainer(tcfg.load_config("cifar10_otcfm", TINY + iso(tmp_path)), device="cpu",
                      log_dir=str(tmp_path))
+    for override in (["matcher.score_head=True", "eval.sde=True"],
+                     ["model.use_checkpoint=True", "model.checkpoint_policy='dots'"]):
+        cfg = tcfg.load_config("cifar10_otcfm", TINY + ["trainer.data_parallel=False"] + override
+                               + iso(tmp_path / "lifted"))
+        lifted = ttrn.Trainer(cfg, device="cpu", log_dir=str(tmp_path))
+        assert lifted.cfg.eval.sde or lifted.model.use_checkpoint
     for override, error, match in (
-            (["matcher.score_head=True", "eval.sde=True"], NotImplementedError,
-             "queue 1 item 2"),
-            (["model.use_checkpoint=True"], NotImplementedError, "queue 1 item 12"),
             (["model.class_cond=True", "matcher.kind='icfm'"], ValueError,
              "class-conditional training needs a coupled matcher"),
             (["data.dataset='nope'"], ValueError, "Unknown 2D dataset")):
@@ -210,7 +214,8 @@ def test_trainer_runs_mnist_otcfm_cond_and_generates_by_label(on_device, capsys,
 def test_train_mnist_entry_point(tmp_path, capsys):
     """``train_mnist.py --conditional --synthetic`` at a tiny size: trains,
     then saves 80 uint8 samples, 8 per class, as an array and as a PNG grid
-    of 8 a row; --sde raises; another matcher trains."""
+    of 8 a row; another matcher trains. (``--sde``, refused before, is
+    driven in ``test_torch_sde.py``.)"""
     from cfm_tpu_torch import train_mnist
 
     args = ["--conditional", "--synthetic", "--steps", "2", "--batch_size", "4", "--device",
@@ -224,7 +229,5 @@ def test_train_mnist_entry_point(tmp_path, capsys):
     assert "saved 80 samples (NFE 2)" in capsys.readouterr().out
     assert (tmp_path / "mnist_samples.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
     assert (tmp_path / "checkpoints" / "mnist_otcfm_cond" / "torch_step_2.pt").exists()
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        train_mnist.main(["--sde", "--device", "cpu"])
     trainer = train_mnist.main(["--matcher", "sbcfm", "--synthetic", "--steps", "1"] + args[4:])
     assert trainer.state.step == 1 and trainer.cfg.name == "mnist_sbcfm"

@@ -451,8 +451,8 @@ def test_2d_presets_match_jax_and_train(kind, tmp_path):
 
 def test_2d_sf2m_and_unported_pieces_refuse(tmp_path):
     """``2d_sf2m``, the score head and the entropic coupling, refused before
-    the entropic branch was ported, now load and train; ``eval.sde`` (SDE
-    generation, item 2) still refuses. The preset's checkpoint, refused
+    the entropic branch was ported, now load and train; so does
+    ``eval.sde`` (SDE generation), refused before. The preset's checkpoint, refused
     before the harness was ported, is saved when it falls due (at 5000 of
     5000 steps in the preset; here at 3 of 3) and a new Trainer resumes there."""
     from cfm_tpu.config import load_config as jload
@@ -465,8 +465,9 @@ def test_2d_sf2m_and_unported_pieces_refuse(tmp_path):
             + iso(tmp_path / str(i))), device="cpu", log_dir=str(tmp_path))
         assert trainer.fit().step == 2
     assert trainer.matcher.ot_sampler.method == "sinkhorn" and trainer.score_model is None
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        ttrn.Trainer(tcfg.load_config("2d_sf2m", ["eval.sde=True"]), device="cpu")
+    sde = ttrn.Trainer(tcfg.load_config("2d_sf2m", ["eval.sde=True"] + iso(tmp_path / "sde")),
+                       device="cpu", log_dir=str(tmp_path))
+    assert sde.cfg.eval.sde and sde.score_model is not None
     assert tcfg.load_config("2d_otcfm").trainer.ckpt_interval == 5000
     cfg = tcfg.load_config("2d_otcfm", ["trainer.total_steps=3", "trainer.ckpt_interval=3",
                                         "trainer.eval_interval=0", "data.batch_size=16"]
