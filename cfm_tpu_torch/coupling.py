@@ -23,8 +23,8 @@ sizes, the host LP otherwise; on the card at n = 2048, the 2-D
 evaluation's size, the row-tiled auction kernel) or the entropic W2 (the
 flash route at 2048^2 on the card).
 
-``sample_trajectory`` waits for the trajectory data (ROADMAP.md queue 1
-item 8).
+:meth:`OTPlanSampler.sample_trajectory` chains the plans of adjacent
+timepoints of a (bs, T, *dim) population into per-sample trajectories.
 """
 
 from __future__ import annotations
@@ -229,6 +229,24 @@ class OTPlanSampler:
         out = (x0[i], x1[j], y0[i] if y0 is not None else None,
                y1[j] if y1 is not None else None)
         return out + (bad,) if return_status else out
+
+    def sample_trajectory(self, generator: Optional[torch.Generator], X: torch.Tensor,
+                          gumbel: Optional[list] = None) -> torch.Tensor:
+        """Chain the plans of adjacent timepoints over a (bs, T, *dim)
+        population: sample i starts at X[i, 0], and at each timepoint draws
+        its next index from its current index's plan row, by Gumbel-max over
+        ``log(max(row, 1e-38))`` (a categorical draw). ``gumbel`` holds the
+        T - 1 (bs, bs) Gumbel noises, drawn from ``generator`` in timepoint
+        order when not given. Returns the re-ordered (bs, T, *dim) batch."""
+        bs, times = X.shape[0], X.shape[1]
+        indices = [torch.arange(bs, device=X.device)]
+        for t in range(times - 1):
+            pi = self.get_map(X[:, t], X[:, t + 1])
+            logits = torch.log(torch.clamp(pi[indices[-1]], min=1e-38))
+            g = (-torch.empty(logits.shape, device=X.device).exponential_(
+                generator=generator).log() if gumbel is None else gumbel[t].to(X.device))
+            indices.append(torch.argmax(logits + g, dim=1))
+        return torch.stack([X[:, t][indices[t]] for t in range(times)], dim=1)
 
 
 def wasserstein(x0: torch.Tensor, x1: torch.Tensor, method: Optional[str] = None,

@@ -5,6 +5,9 @@ to ``Dense_k.{weight,bias}``, the (in, out) kernel transposed;
 :func:`mlp_pair_params_from_flax` maps the [SF]2M trainer's
 ``{"flow": ..., "score": ...}`` pair to the flow and score MLPs.
 :func:`unet_params_from_flax` maps the UNet family's trees.
+:func:`mlpodef_params_from_flax` maps the GRN family's (``MLPODEF``,
+``HyperMLPODEF``, ``BayesMLPODEF``, ``DibsMLPODEF``, ``DeepSet``), stacked
+ensembles included.
 
 The torch modules carry the flax scope names, so each leaf maps by its path:
 
@@ -93,4 +96,22 @@ def unet_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for path, a in _leaves(params):
         name, value = _convert_leaf(path[-1], a)
         out[".".join(path[:-1] + (name,))] = torch.from_numpy(np.ascontiguousarray(value))
+    return out
+
+
+def mlpodef_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``params``: the ``params`` collection of a flax ``MLPODEF``,
+    ``HyperMLPODEF``, ``BayesMLPODEF``, ``DibsMLPODEF`` or ``DeepSet``, or of a
+    ``make_ensemble`` init, whose leaves carry a leading member axis. Returns
+    float32 CPU tensors keyed like the port module's ``named_parameters()``
+    (the ensemble's axis kept in front): a ``Dense`` ``kernel`` (in, out)
+    becomes ``weight`` (out, in); every other leaf (biases, the
+    locally-connected (d, m_in, m_out) weights, edge logits, the DiBS
+    factors, ``fc1_kernel``) keeps its layout."""
+    out = {}
+    for path, a in _leaves(params):
+        name, value = path[-1], a
+        if name == "kernel":
+            name, value = "weight", np.swapaxes(a, -1, -2)
+        out[".".join(path[:-1] + (name,))] = torch.tensor(np.ascontiguousarray(value))
     return out

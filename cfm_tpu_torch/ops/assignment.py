@@ -31,12 +31,14 @@ def auction_assignment(cost: torch.Tensor, *, num_phases: int = 12) -> torch.Ten
     """Min-cost perfect assignment of a square cost: perm (n,) int64, with
     person i assigned to object ``perm[i]``. Within ``n * eps_final`` of the
     optimum, ``eps_final = range / 2 / 4**(num_phases - 1)``; at most
-    ``200 n + 20000`` rounds."""
+    ``200 n + 20000`` rounds. The rounds run are left in ``.last_rounds``
+    (an int), as the kernel wrappers leave theirs."""
     n = cost.shape[0]
     if cost.shape != (n, n):
         raise ValueError("auction_assignment requires a square cost matrix")
     dev = cost.device
     if n == 1:
+        auction_assignment.last_rounds = 0
         return torch.zeros(1, dtype=torch.long, device=dev)
     benefit = -cost.float()
     cost_range = torch.clamp(benefit.max() - benefit.min(), min=1e-12)
@@ -72,7 +74,11 @@ def auction_assignment(cost: torch.Tensor, *, num_phases: int = 12) -> torch.Ten
         obj_to_person = torch.where(advance, -1, obj_to_person)
         eps = torch.where(advance, eps / _EPS_DECAY, eps)
         rounds += 1
+    auction_assignment.last_rounds = rounds
     return _complete_assignment(person_to_obj, obj_to_person)
+
+
+auction_assignment.last_rounds = None
 
 
 def hungarian_assignment(cost: torch.Tensor) -> torch.Tensor:

@@ -22,3 +22,8 @@ def sq_euclidean_cost(x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
     sq1 = x1.float().square().sum(dim=-1)
     cross = x0.float() @ x1.float().T  # low-precision operands are exact in f32
     return torch.clamp(sq0[:, None] + sq1[None, :] - 2.0 * cross, min=0.0)
+
+
+def euclidean_cost(x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
+    """C[i, j] = ||x0_i - x1_j||, the W1 ground cost: sqrt(sq + 1e-30)."""
+    return torch.sqrt(sq_euclidean_cost(x0, x1) + 1e-30)

@@ -196,13 +196,43 @@ a result:
     product of the backward), its gradients within ADJOINT_GRAD_TOL of the
     same adjoint through the plain versions on the card.
 
+23. The single-cell path as given: ``single_cell.run(["--synthetic"])``
+    (the tree population, n = 4096 a timepoint, T = 5, dim 2, batch 256,
+    2000 steps, MLP width 64, f32): one dense auction (#5) a step and
+    nothing else, the first 3 steps' #5 permutations and round counts equal
+    to its plain version's on the same costs; ms a step, the device-busy
+    share of 3 profiled steps, the one evaluation's seconds and the rounds
+    of its 8 plain scatter-auction solves at n = 1000 (not a multiple of
+    256, so neither kernel, by JAX's rule), the 8 metrics. Then the
+    ``--npz`` route on a 5-D tree population of unequal sizes a timepoint,
+    written by the phase, 300 steps (the evaluation's 8 solves at n = 512
+    are #5 launches).
+24. ``--synthetic --joint-plans --leaveout 2`` through ``SingleCell``: 7
+    exact plans of the whole marginals up front, each one tiled-auction
+    (#6) launch at n = 4096, each permutation valid and within 1e-5
+    relative of scipy's optimum; no solve a step; the held-out timepoint's
+    W2 alone (phase 23 times the whole evaluation). Prints the seconds to
+    solve the plans and build the CDFs, ms a step and the held-out W2. It
+    runs before phase 3, whose untimed checks overlap scipy's 7 solves in
+    worker processes.
+25. Spline CFM (``SplineConditionalFlowMatcher(sigma=0.1,
+    ot_method="exact")``) training the MLP on (256, 5, 2) batches for 300
+    steps, 4 #5 launches a step, after one batch's (t, xt, ut) on the card
+    held within 1e-5 of the CPU's; then ``interpolate_with_ot`` at
+    timepoint 2 from phase 24's plan between timepoints 1 and 3 and its
+    ``earth_mover_distance`` to the held-out marginal.
+26. GRN: ``MLPODEF`` structure recovery (500 steps, true edges above
+    absent ones); a 5-member ``MLPODEF`` ensemble and a DiBS particle set
+    with one ``svgd_update`` at 100 genes, hidden 10, 1000 cells, the card
+    within 1e-5 of the CPU.
+
 Every ``Trainer`` and ``cli`` run writes its checkpoints and logs into a
 fresh directory under ``build/smoke_runs/``. The phases that time ``fit``
 (8 to 10, 13, 16, 19 and 21) build their trainers with checkpoint saves
 skipped, so their windows hold the steps alone; phase 18 times the saves.
 
 The last three lines are the kernels' JSON record (``launches`` summed over
-the paths of phases 6, 8, 10 to 14, 16 to 22), the card's name and power
+the paths of phases 6, 8, 10 to 14, 16 to 25), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -3088,6 +3118,393 @@ def adjoint_gradients(trainer, smi):
     return launched
 
 
+# The single-cell trajectory path (phases 23-26).
+SC_STEPS, SC_NPZ_STEPS, SC_SPLINE_STEPS, SC_PROFILED = 2000, 300, 300, 3
+SC_NPZ_SIZES = (640, 560, 512, 600, 700)  # cells a timepoint of the npz run, 5-D
+SC_CHECKED = 3            # phase 23's first steps whose #5 solves are held to the plain version
+SC_W2_GATE = 0.5          # phase 23's mean W2 over timepoints 1-4 (CPU run of the command: 0.20)
+SC_TOL = 1e-5             # card vs CPU, of each tensor's max-abs (phases 25, 26)
+GRN_GENES, GRN_HIDDEN, GRN_CELLS, GRN_MEMBERS = 100, 10, 1000, 5
+
+
+@contextlib.contextmanager
+def recorded_solves(name, keep):
+    """Calls of ``ops.assignment``'s solver ``name`` (a kernel wrapper, or the
+    plain "auction_assignment") wrapped where the assignment dispatch finds
+    them, so that the first ``keep`` calls' (cost, permutation, rounds) are
+    recorded; yields the list."""
+    import torch
+    from cfm_tpu_torch.ops import assignment
+
+    fn, out = getattr(assignment, name), []
+
+    def wrapper(cost):
+        perm = fn(cost)
+        if len(out) < keep:
+            # The plain auction sets its rounds on its name in ``assignment``,
+            # which is this wrapper now; the kernels set theirs on themselves.
+            rounds = (wrapper if name == "auction_assignment" else fn).last_rounds
+            out.append((cost.clone(), perm.clone(),
+                        rounds.clone() if torch.is_tensor(rounds) else rounds))
+        return perm
+
+    setattr(assignment, name, wrapper)
+    try:
+        yield out
+    finally:
+        setattr(assignment, name, fn)
+
+
+def single_cell_run(argv, what, smi, solver=None, keep=0):
+    """``single_cell.run(argv)`` with the counts set to 0 just before and
+    read just after; with ``solver`` the first ``keep`` solves of that
+    assignment solver are recorded (``recorded_solves``), and so are the
+    plain scatter auction's. Returns (run, launches, records, plain
+    records)."""
+    import torch
+    from cfm_tpu_torch import single_cell
+
+    ctx = recorded_solves(solver, keep) if solver else contextlib.nullcontext([])
+    with ctx as records, recorded_solves("auction_assignment", 1000) as plain:
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        sc = single_cell.run(argv)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launched = read_counts()
+    steps = sc.args.steps
+    log(f"single_cell {' '.join(argv)}: {sec:.2f} s in all; {steps} steps in "
+        f"{sc.train_seconds:.3f} s = {1e3 * sc.train_seconds / steps:.3f} ms a step (ten loss "
+        f"reads included); joint plans and their CDFs {sc.plan_seconds:.3f} s; the evaluation "
+        f"{sc.eval_seconds:.3f} s, {len(plain)} plain-auction solves of "
+        f"{[int(r[2]) for r in plain]} rounds; launches {launched} ({smi})")
+    metrics = dict(zip(sc.names[-8:], sc.values[-8:]))
+    log(f"  {what}: {', '.join(f'{k} {v:.6f}' for k, v in metrics.items())}")
+    if not all(math.isfinite(v) for v in sc.values) or len(metrics) != 8:
+        raise AssertionError(f"single_cell {argv}: metrics {sc.names} {sc.values}")
+    return sc, launched, records, plain
+
+
+def single_cell_synthetic(smi):
+    """Phase 23: ``single_cell --synthetic`` as given (n = 4096 a timepoint,
+    T = 5, dim 2, batch 256, SC_STEPS steps, MLP width 64, f32): one #5
+    launch a step and nothing else (the evaluation's 8 exact solves at
+    n = 1000, not a multiple of 256, take the plain scatter auction, as
+    JAX's rule routes them); the first SC_CHECKED steps' #5 permutations and
+    round counts equal to its plain version's on the same costs; the mean W2
+    under SC_W2_GATE; ms a step,
+    the evaluation's seconds and its solves' rounds; then SC_PROFILED steps
+    profiled. Then the ``--npz`` route on a 5-D tree population with
+    SC_NPZ_SIZES cells a timepoint, which the phase writes (SC_NPZ_STEPS
+    steps; n_eval = 512, so the evaluation's solves are #5 launches).
+    Returns the launch counts of both runs."""
+    import numpy as np
+    import torch
+    from cfm_tpu_torch.data.trajectory import tree_population
+    from cfm_tpu_torch.ops import auction as au
+
+    sc, launched, records, plain = single_cell_run(
+        ["--synthetic"], "the 8 metrics (means over timepoints 1-4)", smi,
+        solver="pallas_auction_assignment", keep=SC_CHECKED)
+    w2 = sc.values[sc.names.index("2-Wasserstein")]
+    if not w2 < SC_W2_GATE:
+        raise AssertionError(f"single_cell --synthetic: mean W2 {w2} (gate {SC_W2_GATE})")
+    want = dict.fromkeys(launched, 0)
+    want["auction"] = SC_STEPS
+    if launched != want or len(plain) != 8:
+        raise AssertionError(f"single_cell --synthetic: launches {launched}, expected {want}; "
+                             f"{len(plain)} plain solves, expected 8")
+    for i, (cost, perm, rounds) in enumerate(records):
+        ref, ref_rounds = au.auction_assignment_onehot(cost)
+        if not torch.equal(perm, ref) or int(rounds) != ref_rounds:
+            raise AssertionError(f"single_cell step {i}: #5's perm or rounds ({int(rounds)} vs "
+                                 f"{ref_rounds}) differ from the plain version's")
+    log(f"  the first {len(records)} steps' #5 solves (n = {records[0][0].shape[0]}): perms and "
+        f"rounds ({[int(r[2]) for r in records]}) equal to the plain version's")
+    device_profile(lambda: [sc.step(sc.batch()) for _ in range(SC_PROFILED)],
+                   f"a single_cell step (batch 256; mean of {SC_PROFILED})", per=SC_PROFILED)
+    log_kernel_share("#5", "auction kernels (#5, #6)")
+
+    d = run_dir("single_cell_npz")
+    g = torch.Generator().manual_seed(23)
+    X = tree_population(g, max(SC_NPZ_SIZES), T=len(SC_NPZ_SIZES), dim=5).numpy()
+    pcs = np.concatenate([X[torch.randperm(len(X), generator=g)[:n].numpy(), t]
+                          for t, n in enumerate(SC_NPZ_SIZES)]) * 3.0 + 1.0
+    labels = np.concatenate([np.full(n, 2.0 * t) for t, n in enumerate(SC_NPZ_SIZES)])
+    np.savez(f"{d}/trajectory.npz", pcs=pcs, sample_labels=labels)
+    npz, npz_launched, _, npz_plain = single_cell_run(
+        ["--npz", f"{d}/trajectory.npz", "--steps", str(SC_NPZ_STEPS)],
+        "the npz route's 8 metrics", smi)
+    want = dict.fromkeys(launched, 0)
+    want["auction"] = SC_NPZ_STEPS + 8
+    if npz_launched != want or npz.dim != 5 or npz_plain:
+        raise AssertionError(f"single_cell --npz: launches {npz_launched}, expected {want}; "
+                             f"dim {npz.dim}, {len(npz_plain)} plain solves")
+    return {"single_cell synthetic": launched, "single_cell npz": npz_launched}
+
+
+def scipy_optimum(cost):
+    """The optimal assignment cost of ``cost`` (a numpy array, solved in
+    float64) by scipy's solver; a module-level function, so that a worker
+    process can run it."""
+    from scipy.optimize import linear_sum_assignment
+
+    cost = cost.astype("float64")
+    rows, cols = linear_sum_assignment(cost)
+    return float(cost[rows, cols].sum())
+
+
+def scipy_pool():
+    """Worker processes for scipy's solves, one a core but one."""
+    import concurrent.futures
+    import multiprocessing
+
+    workers = max(1, min(7, len(os.sched_getaffinity(0)) - 1))
+    return concurrent.futures.ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"))
+
+
+def single_cell_joint_plans(smi, pool):
+    """Phase 24: ``single_cell --synthetic --joint-plans --leaveout 2``
+    through the entry point's ``SingleCell``: the exact plans of the whole
+    marginals solved up front, 4 adjacent and 3 straddling, each one #6
+    launch at n = 4096; the steps, with no solve; then the held-out
+    timepoint's W2 alone, as the example computes it (one plain
+    scatter-auction solve at n = 1000; phase 23 times the whole evaluation).
+    Prints the seconds to solve the plans and build the CDFs, ms a step and
+    the held-out W2. Each permutation must be valid and its cost within
+    1e-5 relative of scipy's optimum (the plain version takes minutes at
+    4096). scipy takes about a minute a solve on these costs on the card's
+    host, so once the run's window is read the 7 costs go to ``pool``'s
+    worker processes, and main runs this phase before phase 3, whose
+    untimed checks overlap them. Returns the run, its launch counts, the
+    held-out W2 and a function that waits for scipy and holds the plans to
+    its optima."""
+    import torch
+    from cfm_tpu_torch import single_cell
+    from cfm_tpu_torch.coupling import wasserstein
+
+    argv = ["--synthetic", "--joint-plans", "--leaveout", "2"]
+    args = single_cell.build_parser().parse_args(argv)
+    leave = args.leaveout
+    with recorded_solves("pallas_auction_assignment_tiled", 7) as records, \
+            recorded_solves("auction_assignment", 2) as plain:
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        sc = single_cell.SingleCell(args)
+        t1 = time.perf_counter()
+        sc.fit(args.steps)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        preds = sc.rollout()
+        w2 = float(wasserstein(preds[leave - 1], sc.marginals[leave][:preds[0].shape[0]],
+                               power=2))
+        t3 = time.perf_counter()
+        launched = read_counts()
+    log(f"single_cell {' '.join(argv)}: plans and their CDFs {sc.plan_seconds:.3f} s; "
+        f"{args.steps} steps in {t2 - t1:.3f} s = {1e3 * (t2 - t1) / args.steps:.3f} ms a step "
+        f"(ten loss reads included); the roll-out and the held-out W2 {t3 - t2:.3f} s, "
+        f"{len(plain)} plain-auction solve of {[int(r[2]) for r in plain]} rounds; held-out "
+        f"timepoint {leave} W2 {w2:.6f}; {t3 - t0:.2f} s in all; launches {launched} ({smi})")
+    want = dict.fromkeys(launched, 0)
+    want["auction_tiled"] = 7
+    if launched != want or len(records) != 7 or len(plain) != 1 or not math.isfinite(w2):
+        raise AssertionError(f"joint plans: launches {launched}, expected {want}; "
+                             f"{len(records)} plans, {len(plain)} plain solves, W2 {w2}")
+    t0 = time.perf_counter()
+    futures = [pool.submit(scipy_optimum, cost.cpu().numpy()) for cost, _, _ in records]
+
+    def check():
+        optima = [f.result() for f in futures]
+        log(f"phase 24's plans: scipy's 7 optima {time.perf_counter() - t0:.1f} s after they "
+            f"were submitted (worker processes, beside phase 3)")
+        for i, ((cost, perm, rounds), opt) in enumerate(zip(records, optima)):
+            n = cost.shape[0]
+            p = perm.cpu().numpy()
+            if n != 4096 or sorted(p.tolist()) != list(range(n)):
+                raise AssertionError(f"joint plan {i}: n = {n}, not a permutation")
+            got = cost.double().cpu().numpy()[range(n), p].sum()
+            if abs(got - opt) > 1e-5 * max(abs(opt), 1e-30):
+                raise AssertionError(f"joint plan {i}: cost {got} vs scipy's {opt}")
+            log(f"  joint plan {i}: #6 at n = {n}, {int(rounds)} rounds; cost {got:.6f}, "
+                f"scipy's optimum {opt:.6f}")
+
+    return sc, launched, w2, check
+
+
+def spline_and_interpolation(joint, w2, smi):
+    """Phase 25: ``SplineConditionalFlowMatcher(sigma=0.1, ot_method="exact")``
+    trains the MLP (width 64, Adam 1e-3, EMA 0.99, f32) on tree-population
+    batches (256, 5, 2) resampled from phase 24's marginals, SC_SPLINE_STEPS
+    steps, 4 #5 launches a step (the chaining's plans). First, on a batch of
+    distinct cells (tie-free, so every exact plan is one permutation) and
+    the same draws, (t, xt, ut) on the card within SC_TOL of the CPU's (TF32
+    off). Then ``interpolate_with_ot`` at timepoint 2 from phase 24's plan
+    between timepoints 1 and 3, and its ``earth_mover_distance`` to the
+    held-out marginal beside the CFM's held-out W2 (``w2``, phase 24's).
+    Returns the counts of the training."""
+    import torch
+    from cfm_tpu_torch.data.trajectory import resample_to_trajectory
+    from cfm_tpu_torch.device import strict_f32
+    from cfm_tpu_torch.eval.growth import earth_mover_distance, interpolate_with_ot
+    from cfm_tpu_torch.models.mlp import MLP
+    from cfm_tpu_torch.spline import SplineConditionalFlowMatcher
+    from cfm_tpu_torch.train import init_train_state, make_optimizer
+    from cfm_tpu_torch.utils import ema_update
+
+    m = joint.marginals
+    matcher = SplineConditionalFlowMatcher(sigma=0.1, ot_method="exact")
+    g = torch.Generator().manual_seed(25)
+    X = torch.stack([mt[torch.randperm(len(mt), generator=g)[:256].cuda()] for mt in m], 1)
+    draws = dict(gumbel=[-torch.empty(256, 256).exponential_(generator=g).log() for _ in range(4)],
+                 t=torch.rand(256, generator=g) * 4.0, eps=torch.randn((256, 2), generator=g))
+    with strict_f32():
+        card = matcher.sample_location_and_conditional_flow(
+            None, X, **{k: ([v.cuda() for v in d] if k == "gumbel" else d.cuda())
+                        for k, d in draws.items()})
+        cpu = matcher.sample_location_and_conditional_flow(None, X.cpu(), **draws)
+    worst = max(((a.cpu() - b).abs().max() / b.abs().max()).item() for a, b in zip(card, cpu))
+    log(f"spline CFM batch (256, 5, 2) of distinct cells: (t, xt, ut) card vs CPU worst "
+        f"{worst:.2e} of max-abs (limit {SC_TOL})")
+    if not worst <= SC_TOL:
+        raise AssertionError(f"spline CFM card vs CPU: {worst}")
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    model = MLP(2, w=64, seed=25, device="cuda")
+    opt = make_optimizer(lr=1e-3, warmup_steps=0)
+    state = init_train_state(model, opt)
+
+    def step():
+        t, xt, ut = matcher.sample_location_and_conditional_flow(
+            gen, resample_to_trajectory(gen, m, 256))
+        loss = torch.mean(torch.square(model(t, xt) - ut))
+        for p in state.params:
+            p.grad = None
+        loss.backward()
+        opt.apply(state.params, [p.grad for p in state.params], state.opt_state)
+        ema_update(state.ema_params, state.params, 0.99)
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(SC_SPLINE_STEPS)]
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launched = read_counts()
+    first, last = (float(torch.stack(part).mean()) for part in (losses[:20], losses[-20:]))
+    log(f"spline CFM training: {SC_SPLINE_STEPS} steps in {sec:.3f} s = "
+        f"{1e3 * sec / SC_SPLINE_STEPS:.3f} ms a step; loss {first:.4f} -> {last:.4f} (means of "
+        f"the first and the last 20); launches {launched} ({smi})")
+    want = dict.fromkeys(launched, 0)
+    want["auction"] = 4 * SC_SPLINE_STEPS
+    if launched != want or not math.isfinite(last) or not last < first:
+        raise AssertionError(f"spline CFM: launches {launched}, expected {want}; loss "
+                             f"{first} -> {last}")
+
+    n = 1000
+    t0 = time.perf_counter()
+    interp = interpolate_with_ot(gen, m[1], m[3], joint.straddle_plans[1], 0.5, n)
+    emd = float(earth_mover_distance(interp, m[2][:n]))
+    sec = time.perf_counter() - t0
+    log(f"OT interpolation at timepoint 2 from the 1 -> 3 plan (n = {m[1].shape[0]}): {n} points, "
+        f"EMD to the held-out marginal {emd:.6f} (entropic, reg 0.01) in {sec:.3f} s, beside the "
+        f"CFM's held-out W2 {w2:.6f} ({smi})")
+    if not math.isfinite(emd):
+        raise AssertionError(f"OT interpolation EMD {emd}")
+    return launched
+
+
+def grn_models(smi):
+    """Phase 26: ``MLPODEF`` structure recovery at the JAX test's setting
+    (x' = x A^T, d = 4, k = 8, gl_reg 1e-3, 512 points, Adam 5e-3, 500
+    steps): true edges must rank above absent ones. Then at GRN_GENES genes,
+    hidden GRN_HIDDEN, GRN_CELLS cells, TF32 off, for a GRN_MEMBERS-member
+    ``MLPODEF`` ensemble and a DiBS particle set (``DibsMLPODEF`` under
+    ``make_ensemble``): the outputs, the gradients of a data-fit loss and
+    one ``svgd_update``, the card within SC_TOL of the CPU on the same
+    parameters and cells, each tensor (each leaf of the gradient and of the
+    direction) relative to its own max-abs, or to 1e-3 of the largest
+    leaf's of the same kind where that is more, as phase 5 does. A leaf
+    whose particles all hold one value and whose gradient is exactly 0 (the
+    DiBS std leaves, as the forward pass draws no noise) has a direction of
+    exactly 0: both devices compute the rounding of the repulsion terms
+    that cancel there, so it is held to the largest leaf's max-abs."""
+    import torch
+    from cfm_tpu_torch.device import strict_f32
+    from cfm_tpu_torch.models import grn
+    from cfm_tpu_torch.train import make_optimizer
+
+    A = torch.tensor([[0.0, 1.5, 0.0, 0.0], [0.0, 0.0, -1.5, 0.0], [0.0, 0.0, 0.0, 1.5],
+                      [1.5, 0.0, 0.0, 0.0]], device="cuda")
+    model = grn.MLPODEF([4, 8, 1], gl_reg=1e-3, seed=1, device="cuda")
+    x0 = torch.randn((512, 4), generator=torch.Generator().manual_seed(1)).cuda()
+    v_true = x0 @ A.T
+    opt = make_optimizer(lr=5e-3, warmup_steps=0, grad_clip=0.0)
+    params = list(model.parameters())
+    state = opt.init(params)
+    t0 = time.perf_counter()
+    for _ in range(500):
+        for p in params:
+            p.grad = None
+        loss = torch.mean(torch.square(model(0.0, x0) - v_true)) + model.group_lasso_reg()
+        loss.backward()
+        opt.apply(params, [p.grad for p in params], state)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    scores = model.get_structure().detach().T.cpu()
+    true = A.cpu().abs() > 0
+    log(f"MLPODEF structure recovery: 500 steps in {sec:.3f} s; true edges' least score "
+        f"{float(scores[true].min()):.4f}, absent edges' largest {float(scores[~true].max()):.4f} "
+        f"({smi})")
+    if not float(scores[true].min()) > float(scores[~true].max()):
+        raise AssertionError(f"MLPODEF structure not recovered: {scores}")
+
+    d, k = GRN_GENES, GRN_HIDDEN
+    x = torch.randn((GRN_CELLS, d), generator=torch.Generator().manual_seed(26))
+    out = {}
+    for name, module in (("MLPODEF ensemble", grn.MLPODEF([d, k, 1])),
+                         ("DiBS particles", grn.DibsMLPODEF([d, k, 1]))):
+        init_fn, _ = grn.make_ensemble(module, GRN_MEMBERS)
+        stacked = init_fn(torch.Generator().manual_seed(27))
+        for dev in ("cpu", "cuda"):
+            _, apply_fn = grn.make_ensemble(module.to(dev), GRN_MEMBERS)
+            leaves = {n: v.detach().to(dev, copy=True).requires_grad_(True)
+                      for n, v in stacked.items()}
+            with strict_f32():
+                t0 = time.perf_counter()
+                v = apply_fn(leaves, 0.0, x.to(dev))
+                torch.mean(v ** 2).backward()
+                grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                         for n, p in leaves.items()}
+                phi = grn.svgd_update({n: p.detach() for n, p in leaves.items()}, grads)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+            out[dev] = {"output": {"v": v.detach().cpu()},
+                        "gradient": {n: t.cpu() for n, t in grads.items()},
+                        "direction": {n: t.cpu() for n, t in phi.items()}}
+        zero = [n for n, p in stacked.items()
+                if bool((p == p[:1]).all()) and not bool(out["cpu"]["gradient"][n].any())]
+        errs = {}
+        for kind, cpu in out["cpu"].items():
+            top = max(t.abs().max().item() for t in cpu.values())
+            for n, want in cpu.items():
+                scale = (top if kind == "direction" and n in zero
+                         else max(want.abs().max().item(), 1e-3 * top))
+                errs[f"{kind} {n}"] = (out["cuda"][kind][n] - want).abs().max().item() / scale
+        where = max(errs, key=lambda e: math.inf if math.isnan(errs[e]) else errs[e])
+        worst = errs[where]
+        log(f"{name} ({GRN_MEMBERS} members, {d} genes, hidden {k}, {GRN_CELLS} cells): outputs "
+            f"{tuple(v.shape)}, gradients and one svgd_update on the card in {sec:.3f} s; card vs "
+            f"CPU worst {worst:.2e} ({where}) of each tensor's max-abs, or 1e-3 of the largest "
+            f"leaf's of its kind; directions held to the largest leaf's: {zero} (limit {SC_TOL})")
+        if not worst <= SC_TOL:
+            raise AssertionError(f"{name} card vs CPU: {worst} ({where})")
+
+
 def main() -> int:
     import torch
 
@@ -3118,7 +3535,12 @@ def main() -> int:
     err_bwd = check_attn_block_bwd()
     err_attn = check_attention()
     check_auction()
-    check_auction_tiled()
+    # Phase 24 runs here, so that scipy's check of its plans, a minute a
+    # solve on the host, overlaps phase 3's untimed checks.
+    with scipy_pool() as pool:
+        joint, joint_launches, joint_w2, check_joint_plans = single_cell_joint_plans(smi, pool)
+        check_auction_tiled()
+        check_joint_plans()
     gn_paths = record_gn_shapes(imagenet)
     err_gn = check_gn(gn_paths)
     err_flash = check_flash_sinkhorn()
@@ -3167,6 +3589,10 @@ def main() -> int:
     launches.update(checkpointing(imagenet, smi))
     launches["tsit5 generation"] = tsit5_generation(main_path.dopri5, smi)
     launches["adjoint"] = adjoint_gradients(sde_trainer, smi)
+    launches.update(single_cell_synthetic(smi))
+    launches["single_cell joint plans"] = joint_launches
+    launches["spline cfm"] = spline_and_interpolation(joint, joint_w2, smi)
+    grn_models(smi)
     total = {k: sum(run[k] for run in launches.values()) for k in kernel_fns()}
     log(f"launches by path {launches}; summed {total}")
 

@@ -23,6 +23,18 @@ import torch
 
 from cfm_tpu_torch.ops import attention as tatt
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's CPU work: the suite runs six
+    workers on the machine's cores, and torch's OpenMP pool of one thread a
+    core then waits on descheduled threads at every op."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 _DTYPES = {"f32": ("float32", torch.float32), "bf16": ("bfloat16", torch.bfloat16)}
 SHAPES = [(2, 3, 256, 64), (2, 1, 128, 128)]  # (N, H, S, D), both pass the gate
 

@@ -157,7 +157,7 @@ def _kernel_model(cost, num_phases=12):
     return _complete(assign, owner), rounds, scans
 
 
-@pytest.fixture
+@pytest.fixture(autouse=True, scope="module")
 def one_thread():
     """One intra-op thread for the plain versions' thousands of small ops:
     under the suite's parallel workers, OpenMP's fork-join barriers
@@ -224,7 +224,7 @@ def test_kernel_completion_matches_sanitize_perm(n, unassigned):
 
 @pytest.mark.parametrize("kind", ["gauss", "ties", "dups", "rank1"])
 @pytest.mark.parametrize("n", [2, 33, 64, 128])
-def test_kernel_model_equals_plain_and_jax(n, kind, one_thread):
+def test_kernel_model_equals_plain_and_jax(n, kind):
     c = _cost(n, kind, seed=12)
     perm, rounds, scans = _kernel_model(c)
     ref, ref_rounds = tau.auction_assignment_onehot(torch.from_numpy(c))
@@ -233,7 +233,7 @@ def test_kernel_model_equals_plain_and_jax(n, kind, one_thread):
     np.testing.assert_array_equal(perm, _jax_onehot(c))
 
 
-def test_kernel_model_equals_plain_at_256(one_thread):
+def test_kernel_model_equals_plain_at_256():
     c = _cost(256, "gauss", seed=13)
     perm, rounds, _ = _kernel_model(c)
     ref, ref_rounds = tau.auction_assignment_onehot(torch.from_numpy(c))
@@ -284,6 +284,9 @@ def test_scatter_auction_equals_jax(n, kind):
     c = _cost(n, kind, seed=2)
     ref = np.asarray(auction_assignment(jnp.asarray(c)))
     np.testing.assert_array_equal(tas.auction_assignment(torch.from_numpy(c)).numpy(), ref)
+    # The rounds it reports are the dense plain version's, which runs the same bids.
+    _, rounds = tau.auction_assignment_onehot(torch.from_numpy(c))
+    assert tas.auction_assignment.last_rounds == rounds
 
 
 @pytest.mark.parametrize("n", [16, 128])
@@ -513,7 +516,7 @@ def _tiled_kernel_model(cost, num_phases=12, acc=1):
 
 @pytest.mark.parametrize("kind", ["gauss", "ties", "dups", "rank1"])
 @pytest.mark.parametrize("n", [64, 128, 256])
-def test_tiled_kernel_model_equals_plain(n, kind, one_thread):
+def test_tiled_kernel_model_equals_plain(n, kind):
     """The redesigned round in numpy gives the plain tiled version's
     permutation and round count, as ``test_kernel_model_equals_plain_and_jax``
     does for the dense kernel."""

@@ -19,6 +19,17 @@ from cfm_tpu_torch import utils as tut
 from cfm_tpu_torch.ops.cost import sq_euclidean_cost
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's CPU work: the suite runs six
+    workers on the machine's cores, and torch's OpenMP pool of one thread a
+    core then waits on descheduled threads at every op."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _clouds(n, d=6, seed=0, shift=3.0):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((n, d)).astype(np.float32),

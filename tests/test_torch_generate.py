@@ -25,6 +25,18 @@ from cfm_tpu_torch.generate import generate
 from cfm_tpu_torch.models import UNetModelWrapper
 from test_torch_unet import SMALL, _flax_params, _port_model
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's CPU work: the suite runs six
+    workers on the machine's cores, and torch's OpenMP pool of one thread a
+    core then waits on descheduled threads at every op."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

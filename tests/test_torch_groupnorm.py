@@ -35,6 +35,18 @@ import torch.nn.functional as F
 
 from cfm_tpu_torch.ops import groupnorm as tgn
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's CPU work: the suite runs six
+    workers on the machine's cores, and torch's OpenMP pool of one thread a
+    core then waits on descheduled threads at every op."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # (N, H, C, G): C / G = 1, 3 and 16 channels per group.
 SHAPES = [(2, 7, 32, 32), (2, 16, 32, 32), (4, 7, 96, 32), (2, 16, 96, 32),
           (2, 7, 512, 32), (2, 16, 512, 32)]

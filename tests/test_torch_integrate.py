@@ -22,6 +22,18 @@ import torch
 from cfm_tpu.integrate import odeint as jodeint
 from cfm_tpu_torch.integrate import ODESolution, odeint
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's CPU work: the suite runs six
+    workers on the machine's cores, and torch's OpenMP pool of one thread a
+    core then waits on descheduled threads at every op."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 _A = np.array([[-0.5, -2.0, 0.0], [2.0, -0.5, 0.3], [0.0, -0.3, -0.2]], np.float32)
 
 # (name, jax field, torch field); both take a scalar t and an (N, 3) state.

@@ -160,7 +160,7 @@ def test_plain_flash_matches_the_tpu_kernel_in_interpret_mode(n, m, d, reg, iter
     assert torch.equal(fw, f) and torch.equal(gw, g) and int(tfs.flash_sinkhorn.last_iters) == it
 
 
-@pytest.fixture
+@pytest.fixture(autouse=True, scope="module")
 def one_thread():
     """One intra-op thread for the plain versions' many small ops: under the
     suite's parallel workers, OpenMP's fork-join barriers otherwise stall
@@ -205,7 +205,7 @@ _FUSED_CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(_FUSED_CASES))
-def test_fused_iteration_matches_plain_and_the_tpu_kernel(case, one_thread):
+def test_fused_iteration_matches_plain_and_the_tpu_kernel(case):
     n, m, d, reg, iters, tol = _FUSED_CASES[case]
     x, y = _clouds(n, m, d, seed=n + m)
     xc, yc = tfs._center(_t(x), _t(y))
@@ -230,7 +230,7 @@ def test_fused_iteration_matches_plain_and_the_tpu_kernel(case, one_thread):
 
 
 @pytest.mark.parametrize("tol", [1e-2, 1e-4, 1e-6])
-def test_fused_model_stops_where_the_plain_error_first_meets_tol(tol, one_thread):
+def test_fused_model_stops_where_the_plain_error_first_meets_tol(tol):
     """The row error the fused pass measures is the plain version's
     statistic for the same (f, g): the model stops at the first iteration
     whose potentials meet tol."""

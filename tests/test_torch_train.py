@@ -26,6 +26,18 @@ import torch
 from cfm_tpu_torch import train as ttr
 from cfm_tpu_torch.data import images as tim
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's CPU work: the suite runs six
+    workers on the machine's cores, and torch's OpenMP pool of one thread a
+    core then waits on descheduled threads at every op."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # A UNet small enough for interpret mode whose 8x8 attention (C=128, 2 heads
 # of 64) passes the fused-block gate, so both kernels are on its path.
 TINY = dict(dim=(16, 16, 3), num_channels=32, num_res_blocks=1, channel_mult=(1, 4),

@@ -35,6 +35,17 @@ from cfm_tpu_torch.models.convert import mlp_params_from_flax
 from cfm_tpu_torch.models.mlp import MLP
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's CPU work: the suite runs six
+    workers on the machine's cores, and torch's OpenMP pool of one thread a
+    core then waits on descheduled threads at every op."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def iso(tmp_path):
     """The test's own checkpoint directory, as an override."""
     return [f"trainer.ckpt_dir={tmp_path / 'ckpt'}"]

@@ -20,6 +20,18 @@ from cfm_tpu_torch.models import unet as tunet
 from cfm_tpu_torch.models.convert import unet_params_from_flax
 from cfm_tpu_torch.ops.groupnorm import gn_silu_reference
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's CPU work: the suite runs six
+    workers on the machine's cores, and torch's OpenMP pool of one thread a
+    core then waits on descheduled threads at every op."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SMALL = dict(dim=(16, 16, 3), num_channels=64, num_res_blocks=1, channel_mult=(1, 2, 2),
              num_heads=4, num_head_channels=64, attention_resolutions="8")
 
