@@ -15,6 +15,43 @@ PyTorch version instead.
 This package imports ``torch`` and never ``jax`` or anything of ``cfm_tpu``.
 """
 
+from cfm_tpu_torch import (augment, config, data, eval, integrate, models, ops, schedules, spline,
+                           train, variants)
+from cfm_tpu_torch.coupling import OTPlanSampler, wasserstein
 from cfm_tpu_torch.device import resolve_device, strict_f32
+from cfm_tpu_torch.integrate import FlowSolver, odeint, odeint_adjoint, sdeint
+from cfm_tpu_torch.paths import (ConditionalFlowMatcher, ExactOptimalTransportConditionalFlowMatcher,
+                                 SchrodingerBridgeConditionalFlowMatcher,
+                                 TargetConditionalFlowMatcher,
+                                 VariancePreservingConditionalFlowMatcher)
+from cfm_tpu_torch.utils import pad_t_like_x
+from cfm_tpu_torch.version import __version__
 
-__all__ = ["resolve_device", "strict_f32"]
+__all__ = [
+    "ConditionalFlowMatcher",
+    "ExactOptimalTransportConditionalFlowMatcher",
+    "SchrodingerBridgeConditionalFlowMatcher",
+    "TargetConditionalFlowMatcher",
+    "VariancePreservingConditionalFlowMatcher",
+    "OTPlanSampler",
+    "wasserstein",
+    "pad_t_like_x",
+    "FlowSolver",
+    "odeint",
+    "odeint_adjoint",
+    "sdeint",
+    "augment",
+    "config",
+    "data",
+    "eval",
+    "integrate",
+    "models",
+    "ops",
+    "schedules",
+    "spline",
+    "train",
+    "variants",
+    "resolve_device",
+    "strict_f32",
+    "__version__",
+]

@@ -4,8 +4,12 @@ Counterpart of ``cfm_tpu/integrate.py``: ``odeint`` with euler, midpoint,
 heun, rk4 and the adaptive dopri5 and tsit5, ``sdeint`` (Euler-Maruyama and
 stochastic Heun with the Girsanov ``logqp``), ``odeint_adjoint`` (dopri5 you
 can differentiate, by the continuous adjoint), ``FlowSolver`` and
-``vector_field_from_model``. The state is a tensor on any device; the loop
-runs in Python.
+``vector_field_from_model``. The loop runs in Python. ``odeint``'s state is
+a tensor on any device, or, as JAX's pytree-aware loop takes it, a tuple, a
+NamedTuple (the trace-augmented CNF state of ``augment.py``) or a dict of
+tensors: each update is applied leaf by leaf, the adaptive error norm is
+one RMS over all leaves together, and the trajectory is stacked leaf by
+leaf.
 
 dopri5 keeps the JAX package's semantics exactly, so that both take the same
 steps and count the same NFE:
@@ -35,28 +39,61 @@ or takes them as ``noise``; it reads nothing back to the host.
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import dataclasses
 
 import numpy as np
 import torch
 
-VectorField = Callable[[float, torch.Tensor], torch.Tensor]  # (t, x) -> dx/dt
+VectorField = Callable[[float, Any], Any]  # (t, x) -> dx/dt
 _f32 = np.float32
+
+
+def tree_map(fn: Callable[..., torch.Tensor], tree: Any, *rest: Any) -> Any:
+    """``fn`` applied leaf by leaf over a tensor, tuple, NamedTuple, list or
+    dict of tensors (nested), the others of the same structure as ``tree``."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return type(tree)((k, tree_map(fn, v, *(r[k] for r in rest))) for k, v in tree.items())
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, *z) for z in zip(tree, *rest)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, *z) for z in zip(tree, *rest))
+    raise TypeError(f"an ODE state is a tensor or a tuple, NamedTuple or dict of them, "
+                    f"got {type(tree).__name__}")
+
+
+def tree_leaves(tree: Any) -> List[torch.Tensor]:
+    """The tensors of ``tree`` in JAX's order (a dict's by sorted key)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    raise TypeError(f"an ODE state is a tensor or a tuple, NamedTuple or dict of them, "
+                    f"got {type(tree).__name__}")
+
+
+def _axpy(x, k, a: float):
+    """x + a * k, leaf by leaf."""
+    return tree_map(lambda xi, ki: xi + a * ki, x, k)
 
 
 class ODESolution(NamedTuple):
     """``ys``: (T, *x.shape), ``ys[i]`` the state at ``ts[i]`` (with
-    ``return_trajectory=False``: (2, *x.shape), initial and final).
+    ``return_trajectory=False``: (2, *x.shape), initial and final); for a
+    tuple, NamedTuple or dict state the same structure of such tensors.
     ``nfe``: the number of vector-field evaluations."""
 
-    ys: torch.Tensor
+    ys: Any
     nfe: int
 
     @property
-    def final(self) -> torch.Tensor:
-        return self.ys[-1]
+    def final(self) -> Any:
+        return tree_map(lambda y: y[-1], self.ys)
 
 
 class SDESolution(NamedTuple):
@@ -78,33 +115,35 @@ class SDESolution(NamedTuple):
 
 def _euler_step(f, t0, t1, x):
     dt = t1 - t0
-    return x + float(dt) * f(float(t0), x), 1
+    return _axpy(x, f(float(t0), x), float(dt)), 1
 
 
 def _midpoint_step(f, t0, t1, x):
     dt = t1 - t0
     h = dt / _f32(2)
     k1 = f(float(t0), x)
-    k2 = f(float(t0 + h), x + float(h) * k1)
-    return x + float(dt) * k2, 2
+    k2 = f(float(t0 + h), _axpy(x, k1, float(h)))
+    return _axpy(x, k2, float(dt)), 2
 
 
 def _heun_step(f, t0, t1, x):
     dt = t1 - t0
     h = float(dt / _f32(2))
     k1 = f(float(t0), x)
-    k2 = f(float(t1), x + float(dt) * k1)
-    return (x + h * k1) + h * k2, 2
+    k2 = f(float(t1), _axpy(x, k1, float(dt)))
+    return _axpy(_axpy(x, k1, h), k2, h), 2
 
 
 def _rk4_step(f, t0, t1, x):
     dt = t1 - t0
     h = dt / _f32(2)
     k1 = f(float(t0), x)
-    k2 = f(float(t0 + h), x + float(h) * k1)
-    k3 = f(float(t0 + h), x + float(h) * k2)
-    k4 = f(float(t1), x + float(dt) * k3)
-    return x + float(dt / _f32(6)) * (k1 + 2 * k2 + 2 * k3 + k4), 4
+    k2 = f(float(t0 + h), _axpy(x, k1, float(h)))
+    k3 = f(float(t0 + h), _axpy(x, k2, float(h)))
+    k4 = f(float(t1), _axpy(x, k3, float(dt)))
+    sixth = float(dt / _f32(6))
+    return tree_map(lambda xi, a, b, c, d: xi + sixth * (a + 2 * b + 2 * c + d),
+                    x, k1, k2, k3, k4), 4
 
 
 _FIXED_STEPPERS = {
@@ -115,13 +154,14 @@ _FIXED_STEPPERS = {
 }
 
 
-def odeint(f: VectorField, x0: torch.Tensor, ts: Union[Sequence[float], np.ndarray, torch.Tensor],
+def odeint(f: VectorField, x0: Any, ts: Union[Sequence[float], np.ndarray, torch.Tensor],
            method: str = "dopri5", rtol: float = 1e-5, atol: float = 1e-5,
            max_steps: int = 16384, return_trajectory: bool = True) -> ODESolution:
     """Integrate dx/dt = f(t, x) along the float32 time grid ``ts``
     (increasing or decreasing). Fixed-step methods take one step per grid
     interval; dopri5 picks its own steps and writes grid points by dense
-    output."""
+    output. ``x0`` is a tensor or a tuple, NamedTuple or dict of tensors, and
+    ``f`` returns the same structure."""
     ts = _grid(ts)
     if method in _FIXED_STEPPERS:
         stepper = _FIXED_STEPPERS[method]
@@ -131,7 +171,8 @@ def odeint(f: VectorField, x0: torch.Tensor, ts: Union[Sequence[float], np.ndarr
             nfe += n
             if return_trajectory:
                 ys.append(x)
-        return ODESolution(torch.stack(ys if return_trajectory else [x0, x]), nfe)
+        return ODESolution(tree_map(lambda *ls: torch.stack(ls),
+                                    *(ys if return_trajectory else [x0, x])), nfe)
     if method in _ADAPTIVE:
         return _ADAPTIVE[method](f, x0, ts, _f32(rtol), _f32(atol), max_steps, return_trajectory)
     raise ValueError(f"Unknown ODE method: {method}")
@@ -165,15 +206,20 @@ _DP_B4 = np.array([5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200,
                    187 / 2100, 1 / 40], dtype=_f32)
 
 
-def _rms(x: torch.Tensor) -> np.float32:
-    """sqrt(mean(x^2)) over the whole state, read to the host (one sync)."""
-    return _f32(torch.sqrt(torch.sum(torch.square(x)) / x.numel()).item())
+def _rms(x) -> np.float32:
+    """sqrt(mean(x^2)) over the whole state, all leaves together (the sum of
+    each leaf's squares over the total count), read to the host (one sync)."""
+    leaves = tree_leaves(x)
+    total = torch.sum(torch.square(leaves[0]))
+    for leaf in leaves[1:]:
+        total = total + torch.sum(torch.square(leaf))
+    return _f32(torch.sqrt(total / sum(leaf.numel() for leaf in leaves)).item())
 
 
 def _err_ratio(err, x_new, x_old, rtol, atol) -> np.float32:
     """The RMS of the error over ``atol + rtol * max(|x_new|, |x_old|)``."""
-    return _rms(err / (float(atol) + float(rtol) * torch.maximum(torch.abs(x_new),
-                                                                 torch.abs(x_old))))
+    return _rms(tree_map(lambda e, a, b: e / (float(atol) + float(rtol) * torch.maximum(
+        torch.abs(a), torch.abs(b))), err, x_new, x_old))
 
 
 def _dp_step_stages(f, t, dt, x, k1):
@@ -182,27 +228,27 @@ def _dp_step_stages(f, t, dt, x, k1):
     for i in range(1, 7):
         xi = x
         for j, aij in enumerate(_DP_A[i]):
-            xi = xi + float(dt * aij) * ks[j]
+            xi = _axpy(xi, ks[j], float(dt * aij))
         ks.append(f(float(t + _DP_C[i] * dt), xi))
     x5, x4 = x, x
     for i in range(7):
-        x5 = x5 + float(dt * _DP_B5[i]) * ks[i]
-        x4 = x4 + float(dt * _DP_B4[i]) * ks[i]
-    return x5, x5 - x4, ks
+        x5 = _axpy(x5, ks[i], float(dt * _DP_B5[i]))
+        x4 = _axpy(x4, ks[i], float(dt * _DP_B4[i]))
+    return x5, tree_map(torch.sub, x5, x4), ks
 
 
 def _hairer_initial_step(f, x0, f0, t0, t1, rtol, atol):
     """Signed initial step; one evaluation beyond f0."""
     direction = _f32(np.sign(t1 - t0))
-    scale = float(atol) + float(rtol) * torch.abs(x0)
-    d0, d1 = _rms(x0 / scale), _rms(f0 / scale)
+    scale = tree_map(lambda y: float(atol) + float(rtol) * torch.abs(y), x0)
+    d0, d1 = _rms(tree_map(torch.div, x0, scale)), _rms(tree_map(torch.div, f0, scale))
     if d0 < _f32(1e-5) or d1 < _f32(1e-5):
         h0 = _f32(1e-6)
     else:
         h0 = _f32(0.01) * d0 / d1
     a = direction * h0
-    f1 = f(float(t0 + a), x0 + float(a) * f0)
-    d2 = _rms((f1 - f0) / scale) / h0
+    f1 = f(float(t0 + a), _axpy(x0, f0, float(a)))
+    d2 = _rms(tree_map(lambda p, q, s_: (p - q) / s_, f1, f0, scale)) / h0
     if d1 <= _f32(1e-15) and d2 <= _f32(1e-15):
         h1 = max(_f32(1e-6), h0 * _f32(1e-3))
     else:
@@ -218,7 +264,12 @@ def _pi_factor(e: np.float32, accept: bool) -> np.float32:
 
 
 def _contd5(theta, dt, y0, y1, ks):
-    """Hairer's contd5 interpolant of one accepted step at fraction theta."""
+    """Hairer's contd5 interpolant of one accepted step at fraction theta,
+    leaf by leaf."""
+    return tree_map(lambda a, b, *k: _contd5_leaf(theta, dt, a, b, k), y0, y1, *ks)
+
+
+def _contd5_leaf(theta, dt, y0, y1, ks):
     diff = y1 - y0
     bspl = float(dt) * ks[0] - diff
     r5 = float(_DP_D[0]) * ks[0]
@@ -230,14 +281,35 @@ def _contd5(theta, dt, y0, y1, ks):
     return y0 + th * (diff + om * (bspl + th * (r4 + om * r5)))
 
 
+def _output_buffer(x0, T):
+    """(T, *leaf.shape) NaN per leaf, x0 written at index 0."""
+    def leaf(x):
+        buf = torch.full((T,) + tuple(x.shape), float("nan"), dtype=x.dtype, device=x.device)
+        buf[0] = x
+        return buf
+
+    return tree_map(leaf, x0)
+
+
+def _write(out, i, x):
+    """out[i] = x leaf by leaf; ``x=None`` writes NaN (a grid point not reached)."""
+    if x is None:
+        tree_map(lambda buf: buf[i].fill_(float("nan")), out)
+    else:
+        tree_map(lambda buf, v: buf.__setitem__(i, v), out, x)
+
+
+def _ends(out, T):
+    return tree_map(lambda buf: buf[[0, T - 1]], out)
+
+
 def _odeint_dopri5(f, x0, ts, rtol, atol, max_steps, return_trajectory):
     T = ts.shape[0]
     t0, t1 = ts[0], ts[-1]
     f0 = f(float(t0), x0)
     dt = _hairer_initial_step(f, x0, f0, t0, t1, rtol, atol)
     nfe = 2
-    out = torch.full((T,) + tuple(x0.shape), float("nan"), dtype=x0.dtype, device=x0.device)
-    out[0] = x0
+    out = _output_buffer(x0, T)
     t, x, k1 = t0, x0, f0
     done = False
     steps = 0
@@ -254,15 +326,15 @@ def _odeint_dopri5(f, x0, ts, rtol, atol, max_steps, return_trajectory):
         if accept:
             theta = (ts - t) / dt
             for i in np.nonzero((theta > 0) & (theta <= theta_hi))[0]:
-                out[i] = _contd5(theta[i], dt, x, x_new, ks)
+                _write(out, i, _contd5(theta[i], dt, x, x_new, ks))
             t, x, k1 = t + dt, x_new, ks[6]
         nfe += 6
         steps += 1
         dt = dt_next
         done = bool(abs(t1 - t) <= tol_done)
-    out[-1] = x if done else float("nan")
+    _write(out, -1, x if done else None)
     if not return_trajectory:
-        out = out[[0, T - 1]]
+        out = _ends(out, T)
     return ODESolution(out, nfe)
 
 
@@ -296,16 +368,20 @@ def _ts_step_stages(f, t, dt, x, k1):
     for i in range(1, 7):
         xi = x
         for j, aij in enumerate(_TS_A[i]):
-            xi = xi + float(dt * aij) * ks[j]
+            xi = _axpy(xi, ks[j], float(dt * aij))
         ks.append(f(float(t + _TS_C[i] * dt), xi))
     x5 = x
     for i in range(7):
         if _TS_B5[i]:
-            x5 = x5 + float(dt * _TS_B5[i]) * ks[i]
-    err = float(_TS_BT[0]) * ks[0]
-    for i in range(1, 7):
-        err = err + float(_TS_BT[i]) * ks[i]
-    return x5, float(dt) * err, ks
+            x5 = _axpy(x5, ks[i], float(dt * _TS_B5[i]))
+
+    def err(*k):
+        e = float(_TS_BT[0]) * k[0]
+        for i in range(1, 7):
+            e = e + float(_TS_BT[i]) * k[i]
+        return float(dt) * e
+
+    return x5, tree_map(err, *ks), ks
 
 
 def _odeint_tsit5(f, x0, ts, rtol, atol, max_steps, return_trajectory):
@@ -315,8 +391,7 @@ def _odeint_tsit5(f, x0, ts, rtol, atol, max_steps, return_trajectory):
     f0 = f(float(t0), x0)
     dt = _hairer_initial_step(f, x0, f0, t0, t1, rtol, atol)
     nfe = 2
-    out = torch.full((T,) + tuple(x0.shape), float("nan"), dtype=x0.dtype, device=x0.device)
-    out[0] = x0
+    out = _output_buffer(x0, T)
     t, x, k1 = t0, x0, f0
     idx, steps, done = 1, 0, False  # idx: the next grid point to land on
 
@@ -335,7 +410,7 @@ def _odeint_tsit5(f, x0, ts, rtol, atol, max_steps, return_trajectory):
             t, x, k1 = t + dt_c, x_new, ks[6]
         landed = accept and near(t_out, t)
         if landed:
-            out[idx] = x
+            _write(out, idx, x)
             idx = min(idx + 1, T - 1)
         done = landed and idx == T - 1 and near(t1, t)
         # An accepted step keeps max(|dt|, |dt_c * factor|): a landing clamped
@@ -344,9 +419,9 @@ def _odeint_tsit5(f, x0, ts, rtol, atol, max_steps, return_trajectory):
         dt = direction * max(abs(dt), abs(dt_c * factor)) if accept else dt_c * factor
         nfe += 6
         steps += 1
-    out[-1] = x if done else float("nan")
+    _write(out, -1, x if done else None)
     if not return_trajectory:
-        out = out[[0, T - 1]]
+        out = _ends(out, T)
     return ODESolution(out, nfe)
 
 

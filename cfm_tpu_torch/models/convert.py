@@ -7,7 +7,10 @@ to ``Dense_k.{weight,bias}``, the (in, out) kernel transposed;
 :func:`unet_params_from_flax` maps the UNet family's trees.
 :func:`mlpodef_params_from_flax` maps the GRN family's (``MLPODEF``,
 ``HyperMLPODEF``, ``BayesMLPODEF``, ``DibsMLPODEF``, ``DeepSet``), stacked
-ensembles included.
+ensembles included. :func:`variables_from_flax` maps the variables of the
+rest of ``models/mlp.py`` (``VelocityNet`` with its ``batch_stats``,
+``TimeInvariantVelocityNet``, ``SimpleDenseNet``, ``_ActionNet``,
+``GradModel``, ``ICNN``) and of every module of ``models/diffeq.py``.
 
 The torch modules carry the flax scope names, so each leaf maps by its path:
 
@@ -114,4 +117,26 @@ def mlpodef_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
         if name == "kernel":
             name, value = "weight", np.swapaxes(a, -1, -2)
         out[".".join(path[:-1] + (name,))] = torch.tensor(np.ascontiguousarray(value))
+    return out
+
+
+def variables_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``variables``: a flax module's variables, ``{"params": ...}`` with
+    ``"batch_stats"`` where the module has batch norms. Returns float32 CPU
+    tensors keyed like the port module's ``state_dict()``: a ``Dense``
+    ``kernel`` (in, out) becomes ``weight`` (out, in), a conv or transposed
+    conv ``kernel`` (kh, kw, in, out) ``weight`` (out, in, kh, kw), a norm's
+    ``scale`` its ``weight``; biases, the ICNN's raw ``wz_*`` (in, out) and
+    the batch statistics ``mean`` and ``var`` keep their layout."""
+    out = {}
+    for collection in ("params", "batch_stats"):
+        for path, a in _leaves(variables.get(collection, {})):
+            name, value = path[-1], a
+            if name == "kernel":
+                name, value = _convert_leaf(name, a)
+            elif name == "scale":
+                name = "weight"
+            elif not (name in ("bias", "mean", "var") or name.startswith("wz_")):
+                raise ValueError(f"unknown flax variable {'/'.join(path)}")
+            out[".".join(path[:-1] + (name,))] = torch.tensor(np.ascontiguousarray(value))
     return out

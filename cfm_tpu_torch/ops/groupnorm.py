@@ -12,9 +12,12 @@ backward (counterpart of ``cfm_tpu/ops/pallas_groupnorm.py``).
   against.
 - :func:`fused_group_norm_silu` is the wrapper, named after the JAX function.
   A CPU tensor goes to the plain versions; a CUDA tensor launches the
-  hand-written Hopper kernels (``csrc/groupnorm.cu``) or raises. When a
-  gradient is wanted it is a ``torch.autograd.Function`` that saves x and the
-  statistics and whose backward is :func:`fused_group_norm_silu_bwd`.
+  hand-written Hopper kernels (``csrc/groupnorm.cu``) or raises. It is a
+  ``torch.autograd.Function`` that saves x and the statistics and whose
+  backward is :func:`fused_group_norm_silu_bwd`; both compose with
+  ``torch.func`` (vmap folds the mapped axis into N, one launch for the
+  batch; jvp; a differentiable backward), so a per-sample trace of a drift
+  with GroupNorms runs the kernels.
 - :func:`strip_plan` plans the kernels' blocks (``csrc/gn_strip.cuh``,
   shared with the attention block's GroupNorm stages, and
   ``csrc/gn_strip_bwd.cuh`` with ``backward=True``): the strip width, the
@@ -36,6 +39,7 @@ import torch
 from cfm_tpu_torch.ops import _build
 
 _MAX_GROUP_CHANNELS = 256  # the kernels' limit on C / num_groups (one block's threads)
+_GRID_ITEMS = 65535  # the kernels' limit on N (their grid's second axis)
 
 # The kernels' plan (csrc/gn_strip.cuh, csrc/gn_strip_bwd.cuh). A strip is
 # whole groups, a multiple of 16 bytes wide, rows of about STRIP_BYTES; a
@@ -163,14 +167,15 @@ def gn_silu_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def gn_silu_bwd_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                           mean: torch.Tensor, inv: torch.Tensor, g: torch.Tensor,
-                          num_groups: int, apply_silu: bool = False
+                          num_groups: int, apply_silu: bool = False, per_item: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dx, dscale, dbias) for the output gradient ``g``, a batched
     transcription of ``_gn_silu_bwd_kernel``: norm recomputed from x and the
     saved (N, C) statistics, dy through the SiLU, dnorm = dy * scale,
     dx = inv * (dnorm - mean_g(dnorm) - norm * mean_g(dnorm * norm)) rounded
     to x's dtype, and the float32 sums dscale = sum(dy * norm), dbias =
-    sum(dy) over items and pixels."""
+    sum(dy) over items and pixels (with ``per_item``, each item's own (N, C)
+    sums, which the kernel keeps in its workspace)."""
     n, h, w, c = x.shape
     cg = c // num_groups
     xf = x.float().reshape(n, h * w, c)
@@ -191,8 +196,9 @@ def gn_silu_bwd_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tens
         return cols.repeat_interleave(cg, dim=-1)[:, None, :]
 
     dx = inv[:, None, :] * (dnorm - group_mean(dnorm) - norm * group_mean(dnorm * norm))
-    dscale = (dy * norm).sum(dim=(0, 1))
-    dbias = dy.sum(dim=(0, 1))
+    dims = 1 if per_item else (0, 1)
+    dscale = (dy * norm).sum(dim=dims)
+    dbias = dy.sum(dim=dims)
     return dx.reshape(x.shape).to(x.dtype), dscale, dbias
 
 
@@ -222,8 +228,8 @@ def _check(x, scale, bias, num_groups):
 def _device_checks(x):
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if x.shape[0] > 65535:
-        raise ValueError(f"N={x.shape[0]} exceeds the kernels' grid limit of 65535 items")
+    if x.shape[0] > _GRID_ITEMS:
+        raise ValueError(f"N={x.shape[0]} exceeds the kernels' grid limit of {_GRID_ITEMS} items")
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned (the kernels move 16-byte vectors)")
 
@@ -236,36 +242,151 @@ def fused_group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tens
     x: (N, H, W, C) float32 or bfloat16, contiguous; scale/bias: (C,)
     float32. On a CUDA tensor this launches the forward kernel (and adds one
     to ``fused_group_norm_silu.launches``); on a CPU tensor it runs the plain
-    forward. When a gradient is wanted it goes through
-    :class:`_FusedGroupNormSiLU`, whose backward is
-    :func:`fused_group_norm_silu_bwd`.
+    forward. When a gradient is wanted, or under a ``torch.func`` transform,
+    it goes through :class:`_FusedGroupNormSiLU`, whose backward is
+    :func:`fused_group_norm_silu_bwd` and which composes with ``torch.func``.
     """
     _check(x, scale, bias, num_groups)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
-        return _FusedGroupNormSiLU.apply(x, scale, bias, num_groups, eps, apply_silu)
+    if ((torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)))
+            or torch._C._are_functorch_transforms_active()):
+        return _FusedGroupNormSiLU.apply(x, scale, bias, num_groups, eps, apply_silu)[0]
     return _forward(x, scale, bias, num_groups, eps, apply_silu)[0]
 
 
 fused_group_norm_silu.launches = 0
 
 
+def _batch_first(t, dim, b):
+    """A mapped tensor with its mapped axis first, or an unmapped one expanded to ``b``."""
+    return t.movedim(dim, 0) if dim is not None else t.expand((b,) + tuple(t.shape))
+
+
+def _folded(fn, n, *mapped):
+    """``fn`` on the (B, N, ...) tensors ``mapped`` folded to (B * N, ...), in
+    launches of at most _GRID_ITEMS items; its outputs concatenated."""
+    step = max(1, _GRID_ITEMS // n)
+    parts = [fn(*(t[i:i + step].reshape((-1,) + tuple(t.shape[2:])).contiguous()
+                  for t in mapped)) for i in range(0, mapped[0].shape[0], step)]
+    return [p[0] if len(p) == 1 else torch.cat(p) for p in zip(*parts)]
+
+
+def _unmapped_affine(in_dims):
+    if in_dims[1] is not None or in_dims[2] is not None:
+        raise NotImplementedError("GroupNorm under vmap with a mapped scale or bias")
+
+
 class _FusedGroupNormSiLU(torch.autograd.Function):
-    """GroupNorm(+SiLU) as an autograd node that saves x and the (N, C)
-    statistics, as the JAX ``custom_vjp``'s TPU path does."""
+    """GroupNorm(+SiLU) as an autograd node that returns the (N, C)
+    statistics beside its output and saves them, as the JAX ``custom_vjp``'s
+    TPU path does. It composes with ``torch.func``: the vmap rule folds the
+    mapped axis into N (one launch for the whole batch, or one for each
+    _GRID_ITEMS items of it), the backward is
+    :class:`_GroupNormSiLUBwd` (itself mappable and differentiable, so a
+    loss can differentiate through a per-sample trace), and the jvp uses
+    that backward's dx, which is the same linear map of the tangent."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, num_groups, eps, apply_silu):
-        out, mean, inv = _forward(x, scale, bias, num_groups, eps, apply_silu)
+    def forward(x, scale, bias, num_groups, eps, apply_silu):
+        return _forward(x, scale, bias, num_groups, eps, apply_silu)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, scale, bias, num_groups, eps, apply_silu = inputs
+        _, mean, inv = output
+        ctx.mark_non_differentiable(mean, inv)
         ctx.save_for_backward(x, scale, bias, mean, inv)
-        ctx.num_groups, ctx.apply_silu = num_groups, apply_silu
-        return out
+        ctx.save_for_forward(x, scale, bias, mean, inv)
+        ctx.args = (num_groups, eps, apply_silu)
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _mean, _inv):
         x, scale, bias, mean, inv = ctx.saved_tensors
-        dx, dscale, dbias = fused_group_norm_silu_bwd(x, scale, bias, mean, inv, g.contiguous(),
-                                                      ctx.num_groups, ctx.apply_silu)
+        dx, dscale, dbias = _GroupNormSiLUBwd.apply(x, scale, bias, mean, inv, g.contiguous(),
+                                                    *ctx.args, False)
         return dx, dscale, dbias, None, None, None
+
+    @staticmethod
+    def jvp(ctx, tx, tscale, tbias, *_):
+        # d norm = inv * (tx - mean_g(tx) - norm * mean_g(norm * tx)): the
+        # backward's dx at unit scale without the SiLU, with g = tx. norm is
+        # the block at unit scale, so that it stays differentiable in x.
+        x, scale, bias, mean, inv = ctx.saved_tensors
+        num_groups, eps, apply_silu = ctx.args
+        one, zero = torch.ones_like(scale), torch.zeros_like(bias)
+        norm = _FusedGroupNormSiLU.apply(x, one, zero, num_groups, eps, False)[0].float()
+        ty = torch.zeros_like(norm)
+        if tx is not None:
+            dnorm = _GroupNormSiLUBwd.apply(x, one, zero, mean, inv, tx.contiguous(), num_groups,
+                                            eps, False, False)[0]
+            ty = ty + dnorm.float() * scale
+        if tscale is not None:
+            ty = ty + norm * tscale
+        if tbias is not None:
+            ty = ty + tbias
+        if apply_silu:
+            y = norm * scale + bias
+            sig = torch.sigmoid(y)
+            ty = ty * sig * (1.0 + y * (1.0 - sig))
+        return ty.to(x.dtype), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, scale, bias, num_groups, eps, apply_silu):
+        _unmapped_affine(in_dims)
+        xb = x.movedim(in_dims[0], 0)
+        b, n = xb.shape[:2]
+        out, mean, inv = _folded(lambda xf: _FusedGroupNormSiLU.apply(
+            xf, scale, bias, num_groups, eps, apply_silu), n, xb)
+        return (out.reshape(xb.shape), mean.reshape(b, n, -1), inv.reshape(b, n, -1)), (0, 0, 0)
+
+
+class _GroupNormSiLUBwd(torch.autograd.Function):
+    """(dx, dscale, dbias) of the block (:func:`fused_group_norm_silu_bwd`,
+    kernel #9 on a CUDA tensor) as a node of its own. Its vmap rule folds the
+    mapped axis into N and sums each mapped element's dscale and dbias from
+    the items' own sums; its backward, the second derivative of the block,
+    differentiates the plain backward with the statistics recomputed from
+    x (no kernel of the TPU package computes it)."""
+
+    @staticmethod
+    def forward(x, scale, bias, mean, inv, g, num_groups, eps, apply_silu, per_item):
+        return fused_group_norm_silu_bwd(x, scale, bias, mean, inv, g, num_groups, apply_silu,
+                                         per_item=per_item)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, scale, bias, _, _, g = inputs[:6]
+        ctx.save_for_backward(x, scale, bias, g)
+        ctx.args = inputs[6:]
+
+    @staticmethod
+    def backward(ctx, ddx, ddscale, ddbias):
+        from torch.func import vjp
+
+        num_groups, eps, apply_silu, per_item = ctx.args
+
+        def plain(x, scale, bias, g):
+            _, mean, inv = gn_silu_fwd_reference(x, scale, bias, num_groups, eps)
+            return gn_silu_bwd_reference(x, scale, bias, mean, inv, g, num_groups, apply_silu,
+                                         per_item)
+
+        _, pullback = vjp(plain, *ctx.saved_tensors)
+        dx, dscale, dbias, dg = pullback((ddx, ddscale, ddbias))
+        return dx, dscale, dbias, None, None, dg, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, scale, bias, mean, inv, g, num_groups, eps, apply_silu,
+             per_item):
+        _unmapped_affine(in_dims)
+        b = info.batch_size
+        xb, mb, ib, gb = (_batch_first(t, d, b) for t, d in zip((x, mean, inv, g),
+                                                                (in_dims[0],) + in_dims[3:6]))
+        n = xb.shape[1]
+        dx, dscale, dbias = _folded(lambda xf, mf, if_, gf: _GroupNormSiLUBwd.apply(
+            xf, scale, bias, mf, if_, gf, num_groups, eps, apply_silu, True), n, xb, mb, ib, gb)
+        dscale, dbias = dscale.reshape(b, n, -1), dbias.reshape(b, n, -1)
+        if not per_item:
+            dscale, dbias = dscale.sum(dim=1), dbias.sum(dim=1)
+        return (dx.reshape(xb.shape), dscale, dbias), (0, 0, 0)
 
 
 def fused_group_norm_silu_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -301,9 +422,10 @@ def _forward(x, scale, bias, num_groups, eps, apply_silu):
 
 def fused_group_norm_silu_bwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                               mean: torch.Tensor, inv: torch.Tensor, g: torch.Tensor,
-                              num_groups: int, apply_silu: bool = True
+                              num_groups: int, apply_silu: bool = True, per_item: bool = False
                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dx, dscale, dbias) of the block at x for the output gradient g.
+    """(dx, dscale, dbias) of the block at x for the output gradient g
+    (with ``per_item``, dscale and dbias are each item's (N, C) sums).
 
     On a CUDA tensor this launches the backward kernel under
     ``strip_plan(..., backward=True)`` (and adds one to
@@ -320,7 +442,8 @@ def fused_group_norm_silu_bwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.
             raise ValueError(f"{name} must be contiguous float32 of shape ({n}, {c}) on "
                              f"{x.device}")
     if x.device.type == "cpu":
-        return gn_silu_bwd_reference(x, scale, bias, mean, inv, g, num_groups, apply_silu)
+        return gn_silu_bwd_reference(x, scale, bias, mean, inv, g, num_groups, apply_silu,
+                                     per_item)
     _device_checks(x)
     if g.data_ptr() % 16:
         raise ValueError("g must be 16-byte aligned (the kernel loads it by TMA)")
@@ -338,6 +461,8 @@ def fused_group_norm_silu_bwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.
     if err:
         raise RuntimeError(f"gn_silu_bwd launch failed: CUDA error {err}")
     fused_group_norm_silu_bwd.launches += 1
+    if per_item:  # the kernel leaves each item's sums in ws: of dy * norm, then of dy
+        return dx, ws[0], ws[1]
     return dx, dscale, dbias
 
 

@@ -34,8 +34,10 @@ a result:
    backward (#8, #9) at every (N, H, W, C, dtype, SiLU) that one model
    evaluation of each path gives ``GroupNorm32`` (recorded by wrapping the
    wrapper for that pass; the ImageNet-64 paths included), plus a
-   recentred-variance case in float32, both rerun for the same bits (their
-   cluster combines and #9's item sum have a fixed order); and flash
+   recentred-variance case in float32, and at ``ResNetDiffEq``'s
+   (64, 28, 28, 64), 16 groups of 4 channels, eps 1e-4 (phase 31's), both
+   rerun for the same bits (their cluster combines and #9's item sum have
+   a fixed order); and flash
    Sinkhorn (#7)
    at the 2d_sf2m path's shape (n = m = 2048, d = 2, reg 2), at n != m with tails,
    at d = 32, with a non-uniform loga, at a small reg, at 4096 + 4096 2-D
@@ -226,13 +228,42 @@ a result:
     with one ``svgd_update`` at 100 genes, hidden 10, 1000 cells, the card
     within 1e-5 of the CPU.
 
+27. CNF maximum likelihood, ``maximum_likelihood_CNF_tutorial`` as given:
+    ``MLP(2, w=64)`` trained by ``make_cnf_nll_loss(n_steps=40,
+    divergence="exact")`` on moons at batch 128, Adam 2e-3, 300 steps (cut
+    to 120 for the time limit, the cut printed; the NLL must fall);
+    ``cnf_log_likelihood`` on the 60x60 grid at 60 steps; card
+    against CPU: one batch's loss and gradients, the adaptive-adjoint route
+    with Hutchinson probes (and two more steps by it), ``augmented_odeint``
+    by dopri5 with the six regularisers.
+28. The minibatch-OT study notebook as given: 20 exact plans at 256 (#5),
+    Var[u] under OT below the independent coupling's; I-CFM and OT-CFM 600
+    steps each (OT-CFM's 600 #5 launches), OT-CFM straighter on 1024
+    points; ``reflow_pairs`` at 1024 points and 100 steps.
+29. Bridges: SB-CFM on the SB Gaussians (a = 0.1, sigma 0.5, 400 steps,
+    rk4 on 4096 points, largest marginal KL under 0.15); DSBM with two
+    MLPs for 400 steps and its ``sb_trajectory_kl``;
+    ``ScheduleBridgeMatcher`` under three schedules and forward and reverse
+    ``ipf_resample_pairs`` at 4096 points, card against CPU.
+30. Action matching (``_ActionNet``, 300 steps) and ``GradModel``, card
+    against CPU; the dual ICNNs for 500 alternating steps, their
+    ``w2_estimate`` beside half the exact squared W2 at 2048 (one #6
+    launch); ``average_ut``, card against CPU.
+31. The diffeq zoo at real width, forward and gradients card against CPU:
+    ``ODEnet`` of the seven linear types, ``ConvODEnet`` at FFJORD's MNIST
+    widths on (256, 28, 28, 1), the (1, 2, -2, 1) stride stack with a
+    squeeze, ``ResNetDiffEq(1, 64, 4)`` (its GroupNorms #8 and #9; phase 3
+    holds both kernels at its shapes), ``HyperConv2d``,
+    ``AutoencoderDiffEqNet``; the FFJORD net's Hutchinson log-likelihood
+    timed.
+
 Every ``Trainer`` and ``cli`` run writes its checkpoints and logs into a
 fresh directory under ``build/smoke_runs/``. The phases that time ``fit``
 (8 to 10, 13, 16, 19 and 21) build their trainers with checkpoint saves
 skipped, so their windows hold the steps alone; phase 18 times the saves.
 
 The last three lines are the kernels' JSON record (``launches`` summed over
-the paths of phases 6, 8, 10 to 14, 16 to 25), the card's name and power
+the paths of phases 6, 8, 10 to 14, 16 to 25 and 28 to 31), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -1106,7 +1137,7 @@ def gn_inputs(N, H, W, C, dtype, seed=0, mean=0.5, std=2.0):
             r(N, H, W, C).to(dtype))
 
 
-def check_gn_case(x, scale, bias, dy, G, silu, what):
+def check_gn_case(x, scale, bias, dy, G, silu, what, eps=1e-5):
     """#8 and #9 against the plain versions on the same card tensors: out and
     dx element-wise within TOL abs + rel; mean within 1e-5 of |mean| + std and
     inv within 1e-5 relative; dscale and dbias within WGRAD_TOL of their
@@ -1116,9 +1147,9 @@ def check_gn_case(x, scale, bias, dy, G, silu, what):
 
     key = str(x.dtype).split(".")[1]
     tol, wtol = TOL[key], WGRAD_TOL[key]
-    out, mean, inv = gn.fused_group_norm_silu_fwd(x, scale, bias, G, 1e-5, silu)
+    out, mean, inv = gn.fused_group_norm_silu_fwd(x, scale, bias, G, eps, silu)
     dx, dscale, dbias = gn.fused_group_norm_silu_bwd(x, scale, bias, mean, inv, dy, G, silu)
-    r_out, r_mean, r_inv = gn.gn_silu_fwd_reference(x, scale, bias, G, 1e-5, silu)
+    r_out, r_mean, r_inv = gn.gn_silu_fwd_reference(x, scale, bias, G, eps, silu)
     r_dx, r_ds, r_db = gn.gn_silu_bwd_reference(x, scale, bias, r_mean, r_inv, dy, G, silu)
     torch.cuda.synchronize()
     errs, bad = {}, []
@@ -1193,6 +1224,50 @@ def check_gn(paths):
         raise AssertionError(f"the recentred case does not tell the variances apart ({miss})")
     log(f"gn_silu recentred case (mean 100, std 1, f32): out {errs['out']:.2e}, dx "
         f"{errs['dx']:.2e}; a one-pass variance would miss by {miss:.2e}")
+    return worst
+
+
+def check_gn_diffeq():
+    """Phase 3: #8 and #9 at every shape ``ResNetDiffEq(1, 64, 4)`` gives the
+    GroupNorm wrapper on phase 31's (64, 28, 28, 1) images (recorded by
+    wrapping it for one forward): 16 groups of 4 channels, eps 1e-4, no
+    SiLU, f32; both rerun for the same bits. Returns the largest out and
+    dx errors."""
+    import torch
+    from cfm_tpu_torch.models import diffeq
+    from cfm_tpu_torch.ops import groupnorm as gn
+
+    wrapped, seen = diffeq.fused_group_norm_silu, []
+
+    def recording(x, scale, bias, num_groups, eps, apply_silu):
+        seen.append(tuple(x.shape) + (num_groups, eps, apply_silu))
+        return wrapped(x, scale, bias, num_groups, eps, apply_silu)
+
+    diffeq.fused_group_norm_silu = recording
+    try:
+        with torch.no_grad():
+            diffeq.ResNetDiffEq(1, 64, 4, device="cuda")(0.5, torch.randn(64, 28, 28, 1,
+                                                                          device="cuda"))
+    finally:
+        diffeq.fused_group_norm_silu = wrapped
+    worst = {"out": 0.0, "dx": 0.0}
+    for i, (N, H, W, C, G, eps, silu) in enumerate(dict.fromkeys(seen)):
+        x, scale, bias, dy = gn_inputs(N, H, W, C, torch.float32, seed=100 + i)
+        what = f"ResNetDiffEq's {N}x{H}x{W}x{C}/{G} float32 eps {eps}"
+        errs = check_gn_case(x, scale, bias, dy, G, silu, what, eps=eps)
+        worst = {k: max(v, errs[k]) for k, v in worst.items()}
+        runs = [gn.fused_group_norm_silu_fwd(x, scale, bias, G, eps, silu) for _ in range(2)]
+        grads = [gn.fused_group_norm_silu_bwd(x, scale, bias, *runs[0][1:], dy, G, silu)
+                 for _ in range(2)]
+        if not (all(torch.equal(a, b) for a, b in zip(*runs))
+                and all(torch.equal(a, b) for a, b in zip(*grads))):
+            raise AssertionError(f"a GroupNorm kernel's rerun differs at {what}")
+        plan = gn.strip_plan(N, H * W, C, G, 4)
+        bplan = gn.strip_plan(N, H * W, C, G, 4, backward=True)
+        log(f"gn_silu at {what}, {seen.count((N, H, W, C, G, eps, silu))} calls a pass: " +
+            ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) +
+            f"; reruns give the same bits; plan width {plan.width}, cluster {plan.cluster}; "
+            f"backward plan width {bplan.width}, cluster {bplan.cluster}")
     return worst
 
 
@@ -3505,6 +3580,640 @@ def grn_models(smi):
             raise AssertionError(f"{name} card vs CPU: {worst} ({where})")
 
 
+# The research variants (phases 27-31).
+VARIANT_TOL = 1e-4        # card vs CPU, fixed-step losses and gradients (of each tensor's max-abs,
+                          # or 1e-3 of the largest of its kind where that is more); forwards 1e-5
+# Phase 27 holds the card against the CPU through the notebook's SELU MLP in
+# float64. SELU's derivative jumps at 0, so the trace jumps where a
+# pre-activation crosses 0; in float32 the two devices' roundings now and then
+# put one on either side (one reading of 1.25e-4 in 40 euler steps) and dopri5
+# then takes other steps on each device. In float64 the roundings are 1e-16.
+CNF_TOL = 1e-9
+SB_KL_GATE = 0.15         # phase 29: SB-CFM's largest marginal KL (tests/test_sb_oracle.py's gate)
+VARIANT_BUDGET_S = 150.0  # phases 27-31 together; main fails above it
+# Phase 27's training: the notebook's 300 steps (220-260 ms a step on the
+# card, launch-bound: 40 per-sample Jacobians and their backward), cut only
+# where they would overrun CNF_TRAIN_BUDGET_S, the cut printed. The budget is
+# VARIANT_BUDGET_S less phase 27's checks (about 20 s) and phases 28-31's
+# (about 40 s), with a margin.
+CNF_STEPS, CNF_TRAIN_BUDGET_S = 300, 65.0
+
+
+def max_rel_errors(card, cpu, floor=1e-3):
+    """{name: |card - cpu|max / scale}: the scale each CPU tensor's max-abs,
+    or ``floor`` times the largest of its kind (the word before the first
+    space of its name) where that is more."""
+    tops = {}
+    for name, t in cpu.items():
+        kind = name.split()[0]
+        tops[kind] = max(tops.get(kind, 0.0), float(t.abs().max()))
+    out = {}
+    for name, want in cpu.items():
+        scale = max(float(want.abs().max()), floor * tops[name.split()[0]], 1e-30)
+        out[name] = float((card[name].detach().cpu() - want).abs().max()) / scale
+    return out
+
+
+def hold(what, card, cpu, tol, floor=1e-3):
+    """Raise unless every card tensor is within ``tol`` of its CPU twin
+    (``max_rel_errors``); returns the worst error."""
+    errs = max_rel_errors(card, cpu, floor)
+    where = max(errs, key=lambda k: math.inf if math.isnan(errs[k]) else errs[k])
+    log(f"  {what}: card vs CPU worst {errs[where]:.2e} ({where}; limit {tol})")
+    if not errs[where] <= tol:
+        raise AssertionError(f"{what}: card vs CPU {errs[where]} at {where} (limit {tol})")
+    return errs[where]
+
+
+def both_devices(make):
+    """``make()`` builds a module on the CPU from its seed; returns it and a
+    copy on the card."""
+    import copy
+
+    cpu = make()
+    return cpu, copy.deepcopy(cpu).to("cuda")
+
+
+def loss_and_grads(module, loss):
+    """{"loss": loss, "grad <name>": ...} after ``loss.backward()``."""
+    import torch
+
+    for p in module.parameters():
+        p.grad = None
+    loss.backward()
+    out = {"loss": loss.detach().cpu().reshape(1)}
+    for n, p in module.named_parameters():
+        out[f"grad {n}"] = (torch.zeros_like(p) if p.grad is None else p.grad).detach().cpu()
+    return out
+
+
+def ema_module(model, ema_params):
+    import copy
+
+    ema = copy.deepcopy(model)
+    for p, e in zip(ema.parameters(), ema_params):
+        p.data.copy_(e)
+    return ema
+
+
+def cnf_maximum_likelihood(smi):
+    """Phase 27: ``maximum_likelihood_CNF_tutorial`` as given: ``MLP(2, w=64)``,
+    ``make_cnf_nll_loss(n_steps=40, divergence="exact")``, moons at batch
+    128, Adam 2e-3, CNF_STEPS steps (cut only where they would overrun
+    CNF_TRAIN_BUDGET_S, the cut printed); the NLL must fall.
+    ``cnf_log_likelihood`` on the notebook's 60x60 grid at 60 steps. Then
+    card against CPU on the trained weights and the same inputs, in float64
+    (CNF_TOL): one batch's loss and gradients, and on its first 32 points
+    the adaptive-adjoint route with Hutchinson probes (``adaptive=True``,
+    rtol = atol = 1e-5) and ``augmented_odeint`` by dopri5 with l1, l2, squared_l2 and
+    the three Jacobian regularisers (the NFE equal); then two more float32
+    train steps by the adaptive route on the card. No kernel runs here."""
+    import numpy as np
+    import torch
+    from cfm_tpu_torch import augment, variants
+    from cfm_tpu_torch.data.toy import sample_moons
+    from cfm_tpu_torch.device import strict_f32
+    from cfm_tpu_torch.integrate import odeint
+    from cfm_tpu_torch.models import MLP
+    from cfm_tpu_torch.train import make_optimizer
+
+    t_phase = time.perf_counter()
+    model = MLP(2, w=64, seed=0, device="cuda")
+    nll = variants.make_cnf_nll_loss(model, n_steps=40, divergence="exact")
+    opt = make_optimizer(lr=2e-3, warmup_steps=0, grad_clip=0.0)
+    params = list(model.parameters())
+    state = opt.init(params)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def step(loss_fn):
+        x1 = sample_moons(gen, 128)
+        for p in params:
+            p.grad = None
+        loss, _ = loss_fn(gen, None, x1)
+        loss.backward()
+        opt.apply(params, [p.grad for p in params], state)
+        return loss.detach()
+
+    losses = [step(nll) for _ in range(10)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(nll) for _ in range(10)]
+    torch.cuda.synchronize()
+    per = (time.perf_counter() - t0) / 10
+    left = CNF_TRAIN_BUDGET_S - (time.perf_counter() - t_phase)
+    steps = min(CNF_STEPS, 20 + max(0, int(left / per)))
+    if steps < CNF_STEPS:
+        log(f"  phase 27: the notebook's {CNF_STEPS} steps cut to {steps}: {1e3 * per:.1f} ms a "
+            f"step, {left:.1f} s left of CNF_TRAIN_BUDGET_S")
+    t0 = time.perf_counter()
+    losses += [step(nll) for _ in range(steps - 20)]
+    torch.cuda.synchronize()
+    if steps > 20:
+        per = (time.perf_counter() - t0) / (steps - 20)
+    losses = [float(v) for v in losses]
+    log(f"CNF maximum likelihood: {steps} steps at {1e3 * per:.1f} ms a step after the first "
+        f"20 (40 euler steps, exact trace, batch 128); NLL {losses[0]:.4f} at step 0, "
+        f"{np.mean(losses[-20:]):.4f} over the last 20 ({smi})")
+    if not (np.isfinite(losses).all() and np.mean(losses[-20:]) < losses[0] - 0.5):
+        raise AssertionError(f"CNF NLL did not fall: {losses[:3]} ... {losses[-3:]}")
+
+    xs, ys = torch.linspace(-1.5, 2.5, 60, device="cuda"), torch.linspace(-1.0, 1.5, 60, device="cuda")
+    grid = torch.stack(torch.meshgrid(xs, ys, indexing="xy"), -1).reshape(-1, 2)
+    f = lambda t, x: model(torch.full((x.shape[0],), t, device=x.device), x)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logp = augment.cnf_log_likelihood(f, grid, n_steps=60, divergence="exact")
+        data_logp = augment.cnf_log_likelihood(f, sample_moons(gen, 512), n_steps=60)
+    torch.cuda.synchronize()
+    log(f"  log p on the 60x60 grid at 60 steps: {time.perf_counter() - t0:.2f} s with 512 moons "
+        f"points; grid mean {float(logp.mean()):.3f}, max {float(logp.max()):.3f}; data mean "
+        f"{float(data_logp.mean()):.3f}")
+    if not (torch.isfinite(logp).all() and float(data_logp.mean()) > float(logp.mean())):
+        raise AssertionError("CNF log-likelihood on the grid not finite or not above it on the data")
+
+    import copy
+    f64 = torch.float64
+    cpu_model, card_model = copy.deepcopy(model).cpu().to(f64), copy.deepcopy(model).to(f64)
+    x1 = sample_moons(torch.Generator().manual_seed(27), 128).to(f64)
+    x32 = x1[:32]
+    probes = augment.rademacher(torch.Generator().manual_seed(28), (32, 1, 2), f64)
+    worst = {}
+    with strict_f32():
+        runs = {}
+        for dev, m in (("cpu", cpu_model), ("cuda", card_model)):
+            loss, _ = variants.make_cnf_nll_loss(m, n_steps=40)(None, None, x1.to(dev))
+            runs[dev] = loss_and_grads(m, loss)
+        worst["fixed"] = hold("CNF NLL, 40 euler steps, one batch, float64", runs["cuda"],
+                              runs["cpu"], CNF_TOL)
+        runs, nfe = {}, {}
+        for dev, m in (("cpu", cpu_model), ("cuda", card_model)):
+            t0 = time.perf_counter()
+            loss, _ = variants.make_cnf_nll_loss(m, divergence="hutch", adaptive=True)(
+                None, None, x32.to(dev), probes=probes)
+            runs[dev] = loss_and_grads(m, loss)
+            log(f"  adaptive adjoint (dopri5, hutch, float64) on {dev}: "
+                f"{time.perf_counter() - t0:.2f} s, loss {float(loss.detach()):.8f}")
+        worst["adaptive"] = hold("CNF NLL by the continuous adjoint, float64", runs["cuda"],
+                                 runs["cpu"], CNF_TOL)
+        regs, jac = ("l1", "l2", "squared_l2"), augment.JACOBIAN_REGULARIZERS
+        out = {}
+        for dev, m in (("cpu", cpu_model), ("cuda", card_model)):
+            fd = lambda t, x, m=m: m(torch.full((x.shape[0],), t, device=x.device), x)
+            aug = augment.make_augmented_field(fd, reg_names=regs, divergence="exact",
+                                               jac_reg_names=jac)
+            z = torch.zeros(32, device=dev, dtype=f64)
+            init = augment.AugmentedState(x32.to(dev), z, {n: z for n in regs + jac})
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                sol = odeint(aug, init, [0.0, 1.0], method="dopri5", return_trajectory=False)
+            fin, nfe[dev] = sol.final, sol.nfe
+            out[dev] = dict({"x": fin.x, "logp": fin.logp}, **{f"reg {k}": v
+                                                                for k, v in fin.regs.items()})
+            out[dev] = {k: v.detach().cpu() for k, v in out[dev].items()}
+            log(f"  augmented dopri5 (float64) on {dev}: NFE {sol.nfe}, "
+                f"{time.perf_counter() - t0:.2f} s, "
+                + ", ".join(f"{k} {float(v.mean()):.4f}" for k, v in fin.regs.items()))
+        worst["augmented"] = hold("augmented_odeint, dopri5, six regularisers, float64",
+                                  out["cuda"], out["cpu"], CNF_TOL)
+        if nfe["cuda"] != nfe["cpu"]:
+            raise AssertionError(f"augmented dopri5 NFE differs: {nfe}")
+    adaptive = variants.make_cnf_nll_loss(model, divergence="hutch", adaptive=True)
+    t0 = time.perf_counter()
+    more = [float(step(adaptive)) for _ in range(2)]
+    torch.cuda.synchronize()
+    log(f"  two adaptive-adjoint train steps on the card: {time.perf_counter() - t0:.2f} s, "
+        f"losses {more}")
+    log(f"phase 27 in {time.perf_counter() - t_phase:.1f} s")
+    return worst
+
+
+def ot_study(smi):
+    """Phase 28: the minibatch-OT study notebook as given. 20 exact plans of
+    8-Gaussians against moons at 256 (20 #5 launches): Var[u] under OT must
+    be below the independent coupling's. I-CFM and OT-CFM (sigma 0.1), MLP
+    width 64, 600 steps each at batch 256, Adam 2e-3, EMA 0.99 (OT-CFM's
+    steps 600 more #5 launches); ``straightness`` of both EMA flows on the
+    same 1024 points (euler, 20 steps): OT-CFM must be straighter, as the
+    notebook asserts. Then ``reflow_pairs`` from the OT-CFM flow at 1024
+    points and 100 steps. Returns the launch counts."""
+    import torch
+    from cfm_tpu_torch import variants
+    from cfm_tpu_torch.coupling import OTPlanSampler
+    from cfm_tpu_torch.data.toy import eight_gaussians, sample_moons
+    from cfm_tpu_torch.models import MLP
+    from cfm_tpu_torch.paths import (ConditionalFlowMatcher,
+                                     ExactOptimalTransportConditionalFlowMatcher)
+    from cfm_tpu_torch.train import init_train_state, make_optimizer, make_train_step
+
+    t_phase = time.perf_counter()
+    zero_counts()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sampler = OTPlanSampler(method="exact")
+    u_ind, u_ot = [], []
+    for _ in range(20):
+        x0, x1 = eight_gaussians(gen, 256), sample_moons(gen, 256)
+        u_ind.append(x1 - x0)
+        x0p, x1p = sampler.sample_plan(gen, x0, x1)
+        u_ot.append(x1p - x0p)
+    v_ind, v_ot = float(torch.cat(u_ind).var(correction=0)), float(torch.cat(u_ot).var(correction=0))
+    plans = read_counts()["auction"]
+    log(f"minibatch-OT study: Var[u_t] independent {v_ind:.3f}, minibatch OT {v_ot:.3f} "
+        f"({plans} dense auction launches for the 20 plans)")
+    if not (plans == 20 and v_ot < v_ind):
+        raise AssertionError(f"OT study plans: {plans} launches, Var {v_ot} vs {v_ind}")
+
+    def train(matcher, steps=600):
+        model = MLP(2, w=64, seed=1, device="cuda")
+        opt = make_optimizer(lr=2e-3, warmup_steps=0)
+        state = init_train_state(model, opt)
+        step = make_train_step(matcher, model, opt, ema_decay=0.99)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            m = step(state, eight_gaussians(g, 256), sample_moons(g, 256), generator=g)
+        torch.cuda.synchronize()
+        return ema_module(model, state.ema_params), (time.perf_counter() - t0) / steps, float(m["loss"])
+
+    x_eval = eight_gaussians(torch.Generator(device="cuda").manual_seed(2), 1024)
+    results = {}
+    for name, matcher in (("I-CFM", ConditionalFlowMatcher(sigma=0.1)),
+                          ("OT-CFM", ExactOptimalTransportConditionalFlowMatcher(sigma=0.1))):
+        before = read_counts()["auction"]
+        ema, per, last = train(matcher)
+        with torch.no_grad():
+            s = float(variants.straightness(ema, x_eval))
+        results[name] = (ema, s)
+        log(f"  {name}: 600 steps at {1e3 * per:.2f} ms a step, last loss {last:.4f}, "
+            f"{read_counts()['auction'] - before} #5 launches; straightness {s:.4f}")
+    if not results["OT-CFM"][1] < results["I-CFM"][1]:
+        raise AssertionError(f"OT-CFM not straighter: {results['OT-CFM'][1]} vs "
+                             f"{results['I-CFM'][1]}")
+    t0 = time.perf_counter()
+    x0, x1 = variants.reflow_pairs(results["OT-CFM"][0], x_eval, n_steps=100)
+    torch.cuda.synchronize()
+    log(f"  reflow_pairs from OT-CFM: 1024 pairs by 100 euler steps in "
+        f"{1e3 * (time.perf_counter() - t0):.1f} ms; mean |x1 - x0| {float((x1 - x0).norm(dim=1).mean()):.3f}, "
+        f"x1 mean {x1.mean(0).tolist()}")
+    if not torch.isfinite(x1).all():
+        raise AssertionError("reflow pairs not finite")
+    launches = read_counts()
+    if launches["auction"] != 620:
+        raise AssertionError(f"OT study: {launches['auction']} #5 launches, not 620")
+    log(f"phase 28 in {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
+def bridges(smi):
+    """Phase 29: SB-CFM (sigma 0.5, entropic coupling, 400 steps at batch
+    256, Adam 2e-3, EMA 0.99) on the SB Gaussians (a = 0.1), the marginals
+    of its rk4 flow from 4096 points at t = 0, 0.25, ..., 1 against the
+    closed-form bridge: largest KL under SB_KL_GATE. DSBM: two MLPs of width
+    64 trained jointly by ``make_dsbm_loss`` (constant schedule 0.5) for 400
+    steps, its probability-flow drift rolled out by rk4 from 4096 points,
+    ``sb_trajectory_kl`` printed. ``ScheduleBridgeMatcher`` under the three
+    schedules, card against CPU given the same t and eps (1e-5); one forward
+    and one reverse ``ipf_resample_pairs`` at 4096 points and 100 steps,
+    card against CPU given the same normals (VARIANT_TOL). No kernel runs
+    (the entropic coupling at 256 is below the flash route)."""
+    import copy
+
+    import numpy as np
+    import torch
+    from cfm_tpu_torch import schedules, variants
+    from cfm_tpu_torch.device import strict_f32
+    from cfm_tpu_torch.eval.sb_oracle import sample_sb_endpoints, sb_marginal_kl, sb_trajectory_kl
+    from cfm_tpu_torch.integrate import odeint, vector_field_from_model
+    from cfm_tpu_torch.models import MLP
+    from cfm_tpu_torch.paths import SchrodingerBridgeConditionalFlowMatcher
+    from cfm_tpu_torch.train import init_train_state, make_optimizer, make_train_step
+
+    t_phase = time.perf_counter()
+    zero_counts()
+    a, sigma = 0.1, 0.5
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = MLP(2, w=64, seed=0, device="cuda")
+    opt = make_optimizer(lr=2e-3, warmup_steps=0)
+    state = init_train_state(model, opt)
+    step = make_train_step(SchrodingerBridgeConditionalFlowMatcher(sigma=sigma, ot_method="sinkhorn"),
+                           model, opt, ema_decay=0.99)
+    t0 = time.perf_counter()
+    for _ in range(400):
+        x0, x1 = sample_sb_endpoints(gen, 256, a=a)
+        step(state, x0, x1, generator=gen)
+    torch.cuda.synchronize()
+    per = (time.perf_counter() - t0) / 400
+    ts = np.linspace(0.0, 1.0, 21, dtype=np.float32)
+    x0 = sample_sb_endpoints(gen, 4096, a=a)[0]
+    with torch.no_grad():
+        sol = odeint(vector_field_from_model(ema_module(model, state.ema_params)), x0, ts,
+                     method="rk4")
+    kls = [float(sb_marginal_kl(sol.ys[i], a, sigma, float(ts[i]))) for i in range(0, 21, 5)]
+    log(f"SB-CFM on the SB Gaussians: 400 steps at {1e3 * per:.2f} ms a step; rk4 marginal KLs "
+        f"{[round(k, 4) for k in kls]} (gate {SB_KL_GATE})")
+    if not max(kls) < SB_KL_GATE:
+        raise AssertionError(f"SB-CFM marginal KLs {kls}")
+
+    fwd, bwd = MLP(2, w=64, seed=1, device="cuda"), MLP(2, w=64, seed=2, device="cuda")
+    loss_fn = variants.make_dsbm_loss(fwd, bwd, schedules.ConstantNoiseScheduler(sigma))
+    params = list(fwd.parameters()) + list(bwd.parameters())
+    dopt = make_optimizer(lr=2e-3, warmup_steps=0)
+    dstate = dopt.init(params)
+    t0 = time.perf_counter()
+    for i in range(400):
+        x0, x1 = sample_sb_endpoints(gen, 256, a=a)
+        for p in params:
+            p.grad = None
+        loss, aux = loss_fn(gen, x0, x1)
+        loss.backward()
+        dopt.apply(params, [p.grad for p in params], dstate)
+        if i == 0:
+            first = float(loss.detach())
+    torch.cuda.synchronize()
+    per = (time.perf_counter() - t0) / 400
+    with torch.no_grad():
+        traj = odeint(variants.dsbm_ode_drift(fwd, bwd), sample_sb_endpoints(gen, 4096, a=a)[0],
+                      ts, method="rk4").ys
+    kl = float(sb_trajectory_kl(traj, torch.from_numpy(ts), a, sigma))
+    loss, fwd_loss, bwd_loss = (float(v.detach()) for v in (loss, aux["fwd_loss"], aux["bwd_loss"]))
+    log(f"  DSBM: 400 steps at {1e3 * per:.2f} ms a step, loss {first:.4f} -> {loss:.4f} "
+        f"(fwd {fwd_loss:.4f}, bwd {bwd_loss:.4f}); probability-flow "
+        f"rk4 mean KL along the bridge {kl:.4f}")
+    if not (np.isfinite(kl) and loss < first):
+        raise AssertionError(f"DSBM: loss {first} -> {loss}, KL {kl}")
+
+    rng = np.random.default_rng(29)
+    x0c, x1c, eps = (torch.from_numpy(rng.standard_normal((4096, 2)).astype(np.float32))
+                     for _ in range(3))
+    tc = torch.from_numpy(rng.uniform(size=4096).astype(np.float32))
+    with strict_f32():
+        for sched in (schedules.ConstantNoiseScheduler(sigma),
+                      schedules.LinearDecreasingNoiseScheduler(0.1, 1.0),
+                      schedules.CosineNoiseScheduler(0.8)):
+            out = {dev: variants.ScheduleBridgeMatcher(sched).sample_location_and_targets(
+                None, x0c.to(dev), x1c.to(dev), t=tc.to(dev), eps=eps.to(dev))
+                for dev in ("cpu", "cuda")}
+            hold(f"ScheduleBridgeMatcher, {type(sched).__name__}, 4096 points",
+                 {f"{k} ": v for k, v in out["cuda"].items()},
+                 {f"{k} ": v for k, v in out["cpu"].items()}, 1e-5)
+        noise = [torch.from_numpy(rng.standard_normal((4096, 2)).astype(np.float32))
+                 for _ in range(100)]
+        for reverse, drift, start in ((False, fwd, x0c), (True, bwd, x1c + 2 * a)):
+            out = {}
+            for dev in ("cpu", "cuda"):
+                m = drift if dev == "cuda" else copy.deepcopy(drift).cpu()
+                t0 = time.perf_counter()
+                pair = variants.ipf_resample_pairs(None, m, start.to(dev), sigma_min=sigma,
+                                                   n_steps=100, reverse=reverse,
+                                                   noise=[z.to(dev) for z in noise])
+                out[dev] = {"pair 0": pair[0], "pair 1": pair[1]}
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    made = pair[0] if reverse else pair[1]
+                    log(f"  ipf_resample_pairs {'reverse' if reverse else 'forward'}: 4096 points, "
+                        f"100 Euler-Maruyama steps on the card in {time.perf_counter() - t0:.3f} s; "
+                        f"the synthesised marginal's mean {made.mean(0).tolist()}")
+            hold(f"ipf_resample_pairs reverse={reverse}", out["cuda"], out["cpu"], VARIANT_TOL)
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"bridges launched kernels: {launches}")
+    log(f"phase 29 in {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
+def action_and_icnn(smi):
+    """Phase 30: action matching with ``_ActionNet`` (width 64) for 300 steps,
+    8-Gaussians to moons at batch 256, Adam 1e-3, and one batch's loss and
+    gradients card against CPU; ``GradModel`` card against CPU (its output
+    and the gradients of a loss through it); the dual ICNNs (dim 2, hidden
+    (64, 64, 64, 64)) for 500 alternating g and f steps at batch 256 (Adam
+    1e-3 each), ``w2_estimate`` on 2048 points beside half the squared W2
+    of the port's exact ``wasserstein(..., power=2)`` on the same points
+    (one #6 launch); ``average_ut`` at 256, card against CPU on the same
+    indices. Returns the launch counts."""
+    import numpy as np
+    import torch
+    from cfm_tpu_torch import variants
+    from cfm_tpu_torch.coupling import wasserstein
+    from cfm_tpu_torch.data.toy import eight_gaussians, sample_moons
+    from cfm_tpu_torch.device import strict_f32
+    from cfm_tpu_torch.models import ICNN, GradModel
+    from cfm_tpu_torch.models.mlp import _ActionNet
+    from cfm_tpu_torch.train import make_optimizer
+
+    t_phase = time.perf_counter()
+    zero_counts()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    net = _ActionNet(2, 64, seed=0, device="cuda")
+    am = variants.make_action_matching_loss(net)
+    params = list(net.parameters())
+    opt = make_optimizer(lr=1e-3, warmup_steps=0)
+    state = opt.init(params)
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(300):
+        for p in params:
+            p.grad = None
+        loss, _ = am(gen, eight_gaussians(gen, 256), sample_moons(gen, 256))
+        loss.backward()
+        opt.apply(params, [p.grad for p in params], state)
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    losses = [float(v) for v in losses]
+    log(f"action matching: 300 steps at {1e3 * (time.perf_counter() - t0) / 300:.2f} ms a step, "
+        f"loss {losses[0]:.4f} -> {np.mean(losses[-20:]):.4f} (last 20)")
+    if not np.isfinite(losses).all():
+        raise AssertionError("action matching losses not finite")
+    rng = np.random.default_rng(30)
+    xa, xb = (torch.from_numpy(rng.standard_normal((256, 2)).astype(np.float32) * s)
+              for s in (3.0, 1.0))
+    ta = torch.from_numpy(rng.uniform(size=256).astype(np.float32))
+    import copy
+    with strict_f32():
+        runs = {}
+        for dev, m in (("cpu", copy.deepcopy(net).cpu()), ("cuda", net)):
+            loss, _ = variants.make_action_matching_loss(m)(None, xa.to(dev), xb.to(dev),
+                                                            t=ta.to(dev))
+            runs[dev] = loss_and_grads(m, loss)
+        hold("action matching, one batch", runs["cuda"], runs["cpu"], VARIANT_TOL)
+        cpu_g, card_g = both_devices(lambda: GradModel(2, 64, seed=3))
+        runs = {}
+        for dev, m in (("cpu", cpu_g), ("cuda", card_g)):
+            v = m(ta.to(dev), xa.to(dev))
+            runs[dev] = dict(loss_and_grads(m, torch.sum(v ** 2)), **{"v ": v.detach().cpu()})
+        hold("GradModel output and second-order gradients", runs["cuda"], runs["cpu"],
+             VARIANT_TOL)
+
+    f, g = ICNN(2, (64,) * 4, seed=4, device="cuda"), ICNN(2, (64,) * 4, seed=5, device="cuda")
+    g_loss, f_loss, grad_g, w2_estimate = variants.make_icnn_losses(f, g)
+    fp, gp = list(f.parameters()), list(g.parameters())
+    fo, go = make_optimizer(lr=1e-3, warmup_steps=0), make_optimizer(lr=1e-3, warmup_steps=0)
+    fs, gs = fo.init(fp), go.init(gp)
+    t0 = time.perf_counter()
+    for _ in range(500):
+        x, y = eight_gaussians(gen, 256), sample_moons(gen, 256)
+        for p in fp + gp:
+            p.grad = None
+        gl, _ = g_loss(x)
+        gl.backward()
+        go.apply(gp, [p.grad for p in gp], gs)
+        for p in fp + gp:
+            p.grad = None
+        fl, _ = f_loss(x, y)
+        fl.backward()
+        fo.apply(fp, [p.grad for p in fp], fs)
+    torch.cuda.synchronize()
+    per = (time.perf_counter() - t0) / 500
+    x, y = eight_gaussians(gen, 2048), sample_moons(gen, 2048)
+    with torch.no_grad():
+        est = float(w2_estimate(x, y))
+    before = read_counts()["auction_tiled"]
+    w2 = float(wasserstein(x, y, power=2))
+    tiled = read_counts()["auction_tiled"] - before
+    log(f"  dual ICNNs: 500 alternating steps at {1e3 * per:.2f} ms a pair; g loss {float(gl):.4f}, "
+        f"f loss {float(fl):.4f}; w2_estimate on 2048 points {est:.4f} beside the exact "
+        f"W2^2 / 2 {0.5 * w2 * w2:.4f} ({tiled} tiled auction launch)")
+    if not (np.isfinite(est) and tiled == 1):
+        raise AssertionError(f"ICNN: estimate {est}, {tiled} tiled launches")
+
+    xs, mu, ut = (torch.from_numpy(rng.standard_normal((256, 2)).astype(np.float32))
+                  for _ in range(3))
+    idx = torch.from_numpy(rng.integers(0, 256, (256, 15)))
+    with strict_f32():
+        out = {dev: {"ubar ": variants.average_ut(None, xs.to(dev), mu.to(dev), 0.5, ut.to(dev),
+                                                  16, idx=idx)}
+               for dev in ("cpu", "cuda")}
+        hold("average_ut at 256, avg_size 16", out["cuda"], out["cpu"], 1e-5)
+    launches = read_counts()
+    log(f"phase 30 in {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
+FFJORD_MNIST = dict(hidden=(64, 64, 64), strides=(1, 1, 1, 1), layer_type="concat",
+                    nonlinearity="softplus")  # rtqichen/ffjord README's MNIST flags
+
+
+def diffeq_zoo(smi):
+    """Phase 31: the diffeq zoo at real width, each forward and the
+    gradients of its sum of squares card against CPU (forwards 1e-5,
+    gradients VARIANT_TOL): ``ODEnet`` (hidden (64, 64)) of each of the
+    seven linear types on (256, 2); ``ConvODEnet`` at FFJORD's MNIST widths
+    (``--dims 64,64,64 --strides 1,1,1,1 --layer_type concat``, softplus)
+    on (256, 28, 28, 1) random images (MNIST is not in the repository); the
+    (1, 2, -2, 1) stride stack with ``num_squeeze=1``; ``ResNetDiffEq(1, 64,
+    4)`` on (64, 28, 28, 1), whose 9 GroupNorms a pass are #8 launches and
+    whose backward's are #9; ``HyperConv2d`` and ``AutoencoderDiffEqNet``
+    (conv, (1, 2, -2, 1)). Then the NLL of ``ResNetDiffEq(1, 64, 4)`` by a
+    Hutchinson trace (batch 8, euler, 4 steps) and its gradients, card
+    against CPU (the forward 1e-5, the gradients VARIANT_TOL): its per-sample
+    vjp maps the GroupNorms' autograd Functions, so #8 and #9 launch once a
+    GroupNorm over the whole batch, and the loss's backward runs their
+    second derivative. Then ``cnf_log_likelihood`` with a Hutchinson trace
+    over the FFJORD ``ConvODEnet``, batch 64, euler, 20 steps, timed.
+    Returns the card runs' launch counts."""
+    import numpy as np
+    import torch
+    from cfm_tpu_torch import augment, variants
+    from cfm_tpu_torch.device import strict_f32
+    from cfm_tpu_torch.models import diffeq
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(31)
+    img = lambda n: torch.from_numpy(rng.standard_normal((n, 28, 28, 1)).astype(np.float32))
+    t256 = torch.from_numpy(rng.uniform(size=256).astype(np.float32))
+    x2 = torch.from_numpy(rng.standard_normal((256, 2)).astype(np.float32))
+    cases = [(f"ODEnet {k}", (lambda k=k: diffeq.ODEnet(2, (64, 64), 2, layer_type=k, seed=1)),
+              t256, x2) for k in diffeq._LAYER_TYPES]
+    images, same_t = img(256), torch.full((256,), 0.4)
+    h = FFJORD_MNIST
+    cases += [
+        ("ConvODEnet FFJORD MNIST", lambda: diffeq.ConvODEnet(
+            1, h["hidden"], 1, layer_type=h["layer_type"], nonlinearity=h["nonlinearity"],
+            strides=h["strides"], seed=2), same_t, images),
+        ("ConvODEnet (1, 2, -2, 1) squeeze 1", lambda: diffeq.ConvODEnet(
+            1, (64, 64, 64), 4, layer_type="concat", strides=(1, 2, -2, 1), num_squeeze=1, seed=3),
+         same_t, images),
+        ("ResNetDiffEq(1, 64, 4)", lambda: diffeq.ResNetDiffEq(1, 64, 4, seed=4),
+         same_t[:64], images[:64]),
+        ("HyperConv2d(1, 64)", lambda: diffeq.HyperConv2d(1, 64, seed=5), same_t, images),
+        ("AutoencoderDiffEqNet conv", lambda: diffeq.AutoencoderDiffEqNet(
+            1, (64, 64, 64), 1, conv=True, strides=(1, 2, -2, 1), seed=6), same_t, images),
+    ]
+    launches = {k: 0 for k in kernel_fns()}
+    with strict_f32():
+        for name, make, t, x in cases:
+            cpu_m, card_m = both_devices(make)
+            runs = {}
+            for dev, m in (("cpu", cpu_m), ("cuda", card_m)):
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    before = read_counts()
+                t0 = time.perf_counter()
+                out = m(t.to(dev), x.to(dev))
+                parts = out if isinstance(out, tuple) else (out,)
+                runs[dev] = dict(loss_and_grads(m, sum((p * p).sum() for p in parts)),
+                                 **{f"out{i} ": p.detach().cpu() for i, p in enumerate(parts)})
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    got = {k: v - before[k] for k, v in read_counts().items()}
+                    launches = {k: launches[k] + got[k] for k in launches}
+                    log(f"  {name}: forward and backward on the card in "
+                        f"{1e3 * (time.perf_counter() - t0):.1f} ms, outputs "
+                        f"{[tuple(p.shape) for p in parts]}, launches "
+                        f"{ {k: v for k, v in got.items() if v} }")
+            outs = {k: v for k, v in runs["cpu"].items() if k.startswith("out")}
+            hold(f"{name} forward", {k: runs["cuda"][k] for k in outs}, outs, 1e-5)
+            hold(f"{name} gradients", runs["cuda"], runs["cpu"], VARIANT_TOL)
+            if name.startswith("ResNetDiffEq") and (got["gn_silu_fwd"] != 9
+                                                    or got["gn_silu_bwd"] != 9):
+                raise AssertionError(f"ResNetDiffEq launches {got}")
+        cpu_m, card_m = both_devices(lambda: diffeq.ResNetDiffEq(1, 64, 4, seed=4))
+        x8 = images[:8]
+        probes = augment.rademacher(torch.Generator().manual_seed(32), (8, 1, 784))
+        runs = {}
+        for dev, m in (("cpu", cpu_m), ("cuda", card_m)):
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                before = read_counts()
+            t0 = time.perf_counter()
+            loss, _ = variants.make_cnf_nll_loss(m, n_steps=4, divergence="hutch")(
+                None, None, x8.to(dev), probes=probes)
+            runs[dev] = loss_and_grads(m, loss)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                got = {k: v - before[k] for k, v in read_counts().items()}
+                launches = {k: launches[k] + got[k] for k in launches}
+            seen = {k: v for k, v in got.items() if v} if dev == "cuda" else "none"
+            log(f"  ResNetDiffEq(1, 64, 4) NLL, Hutchinson, batch 8, 4 euler steps, and its "
+                f"gradients on {dev}: {1e3 * (time.perf_counter() - t0):.1f} ms, loss "
+                f"{float(loss.detach()):.4f}, launches {seen}")
+        hold("ResNetDiffEq NLL", {"loss": runs["cuda"]["loss"]}, {"loss": runs["cpu"]["loss"]},
+             1e-5)
+        hold("ResNetDiffEq NLL gradients", runs["cuda"], runs["cpu"], VARIANT_TOL)
+        if not (got["gn_silu_fwd"] and got["gn_silu_bwd"]):
+            raise AssertionError(f"ResNetDiffEq NLL launched no GroupNorm kernel: {got}")
+    net = diffeq.ConvODEnet(1, h["hidden"], 1, layer_type=h["layer_type"],
+                            nonlinearity=h["nonlinearity"], strides=h["strides"], seed=2,
+                            device="cuda")
+    f = lambda t, x: net(torch.full((x.shape[0],), t, device=x.device), x)
+    x64 = images[:64].cuda()
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    with torch.no_grad():
+        augment.cnf_log_likelihood(f, x64, n_steps=2, divergence="hutch", generator=gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ll = augment.cnf_log_likelihood(f, x64, n_steps=20, divergence="hutch", generator=gen)
+        torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    log(f"  FFJORD ConvODEnet log-likelihood, Hutchinson trace, batch 64, euler 20 steps: "
+        f"{1e3 * sec:.1f} ms ({64 / sec:.1f} images/s), mean log p {float(ll.mean()):.2f} "
+        f"({float(ll.mean()) / 784 / math.log(2):.3f} bits/dim of the random images)")
+    if not torch.isfinite(ll).all():
+        raise AssertionError("FFJORD log-likelihood not finite")
+    log(f"phase 31 in {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3543,6 +4252,8 @@ def main() -> int:
         check_joint_plans()
     gn_paths = record_gn_shapes(imagenet)
     err_gn = check_gn(gn_paths)
+    err_diffeq = check_gn_diffeq()
+    err_gn = {k: max(v, err_diffeq[k]) for k, v in err_gn.items()}
     err_flash = check_flash_sinkhorn()
     time_attn_block(GEN_BATCH)
     time_attn_block(IMAGENET_BATCH, S=64, C=768, H=12)
@@ -3593,6 +4304,17 @@ def main() -> int:
     launches["single_cell joint plans"] = joint_launches
     launches["spline cfm"] = spline_and_interpolation(joint, joint_w2, smi)
     grn_models(smi)
+    t_variants = time.perf_counter()
+    variant_errs = cnf_maximum_likelihood(smi)
+    launches["ot study"] = ot_study(smi)
+    launches["bridges"] = bridges(smi)
+    launches["action matching and icnn"] = action_and_icnn(smi)
+    launches["diffeq zoo"] = diffeq_zoo(smi)
+    sec = time.perf_counter() - t_variants
+    log(f"phases 27-31 in {sec:.1f} s (budget {VARIANT_BUDGET_S} s); CNF card vs CPU worst "
+        f"{variant_errs}")
+    if sec > VARIANT_BUDGET_S:
+        raise AssertionError(f"phases 27-31 took {sec:.1f} s, above {VARIANT_BUDGET_S} s")
     total = {k: sum(run[k] for run in launches.values()) for k in kernel_fns()}
     log(f"launches by path {launches}; summed {total}")
 

@@ -12,6 +12,9 @@
   E[x^2] - E[x]^2 variance is off by 9e-3 and fails the test's limit.
 - The autograd Function on CPU tensors is the plain forward and backward
   and counts no launches; the wrapper rejects what the kernels do not take.
+  Under ``torch.func`` (vmap of jacrev, vjp and jvp, and the second
+  derivative of a trace) it equals autograd of a plain GroupNorm, with the
+  mapped axis folded into one launch or split at the grid limit.
 - The kernels' plans (``strip_plan``, and with ``backward=True`` the
   backward's, whose share holds x and g) at every shape the six paths give
   ``GroupNorm32``; the backward's plan takes every shape the forward's does.
@@ -206,6 +209,51 @@ def test_autograd_on_cpu_is_the_plain_forward_and_backward():
         with torch.inference_mode():
             assert torch.equal(tgn.fused_group_norm_silu(xt, st, bt, 32, 1e-5, True), out)
     assert (tgn.fused_group_norm_silu.launches, tgn.fused_group_norm_silu_bwd.launches) == before
+
+
+def _autograd_group_norm(x, scale, bias, G, eps, silu):
+    """GroupNorm(+SiLU) in plain differentiable ops, the yardstick of the
+    wrapper's autograd Functions under ``torch.func``."""
+    n, h, w, c = x.shape
+    xg = x.reshape(n, h * w, G, c // G)
+    mean = xg.mean(dim=(1, 3), keepdim=True)
+    var = (xg - mean).square().mean(dim=(1, 3), keepdim=True)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape) * scale + bias
+    return y * torch.sigmoid(y) if silu else y
+
+
+@pytest.mark.parametrize("silu,grid_items", [(False, tgn._GRID_ITEMS), (True, 5)])
+def test_autograd_functions_compose_with_torch_func(monkeypatch, silu, grid_items):
+    """Per-sample Jacobians (vmap of jacrev), Hutchinson vjp and jvp
+    products, and the gradients of their squares in x, scale and bias (the
+    second derivative, as a loss through a trace takes it) equal those of
+    ``_autograd_group_norm`` within 1e-5 of each tensor's max-abs; with
+    ``grid_items`` 5 the folded launches are split at that limit."""
+    monkeypatch.setattr(tgn, "_GRID_ITEMS", grid_items)
+    from torch.func import jacrev, jvp, vjp, vmap
+
+    rng = np.random.default_rng(7)
+    x, e = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in ((3, 32), (3, 4, 32)))
+    scale, bias = (torch.from_numpy(a.astype(np.float32)).requires_grad_()
+                   for a in (1 + 0.3 * rng.standard_normal(8), 0.1 * rng.standard_normal(8)))
+    x.requires_grad_()
+
+    def traces(gn):
+        f = lambda v: gn(v.reshape(1, 2, 2, 8), scale, bias, 4, 1e-4, silu).reshape(-1)
+        jac = vmap(jacrev(f))(x)
+        back = vmap(lambda xi, ei: vmap(lambda p: vjp(f, xi)[1](p)[0] @ p)(ei))(x, e)
+        fwd = vmap(lambda xi, ei: vmap(lambda p: jvp(f, (xi,), (p,))[1])(ei))(x, e)
+        loss = (torch.diagonal(jac, dim1=1, dim2=2).sum(1).square().sum() + back.square().sum()
+                + fwd.square().sum())
+        return [jac, back, fwd] + list(torch.autograd.grad(loss, (x, scale, bias),
+                                                           allow_unused=True,
+                                                           materialize_grads=True))
+
+    got, want = traces(tgn.fused_group_norm_silu), traces(_autograd_group_norm)
+    for name, g, w in zip(("jacobians", "vjp", "jvp", "dx", "dscale", "dbias"), got, want):
+        np.testing.assert_allclose(g.detach().numpy(), w.detach().numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(w.abs().max()), err_msg=name)
 
 
 @pytest.mark.parametrize("bad", ["rank", "dtype", "groups", "strided", "scale_shape",
