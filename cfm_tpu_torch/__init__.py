@@ -15,8 +15,8 @@ PyTorch version instead.
 This package imports ``torch`` and never ``jax`` or anything of ``cfm_tpu``.
 """
 
-from cfm_tpu_torch import (augment, config, data, eval, integrate, models, ops, schedules, spline,
-                           train, variants)
+from cfm_tpu_torch import (augment, config, data, eval, integrate, models, ops, parallel, schedules,
+                           spline, train, variants)
 from cfm_tpu_torch.coupling import OTPlanSampler, wasserstein
 from cfm_tpu_torch.device import resolve_device, strict_f32
 from cfm_tpu_torch.integrate import FlowSolver, odeint, odeint_adjoint, sdeint
@@ -47,6 +47,7 @@ __all__ = [
     "integrate",
     "models",
     "ops",
+    "parallel",
     "schedules",
     "spline",
     "train",

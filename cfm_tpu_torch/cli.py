@@ -13,6 +13,16 @@ the 2-D presets, the samples' mean and std, the NFE and the tracking FID on
 the image presets. ``eval`` restores the latest checkpoint and evaluates.
 Both run on ``--device`` (default: the current CUDA device; ``--device cpu``
 runs the plain PyTorch path) and log under ``--log_dir`` (default ``logs``).
+
+On several cards, one process a card under ``torchrun``:
+
+  torchrun --nproc_per_node=4 -m cfm_tpu_torch.cli train cifar10_otcfm
+
+joins the process group torchrun describes (NCCL, card ``LOCAL_RANK``;
+gloo with ``--device cpu``) and trains data-parallel
+(``trainer.data_parallel``, the default): the global ``data.batch_size``
+split over the ranks, rank 0 writing the logs and checkpoints. Without
+torchrun's variables it runs as one process.
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ import sys
 from typing import List, Optional
 
 from cfm_tpu_torch.config import available_presets, load_config
+from cfm_tpu_torch.parallel import initialize_distributed
 from cfm_tpu_torch.trainer import Trainer
 
 
@@ -59,11 +70,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 2
     preset = argv.pop(0)
     cfg = load_config(preset, argv)
+    initialize_distributed(device)
     print(cfg.tree_str())
     trainer = Trainer(cfg, device=device, log_dir=log_dir)
     if cmd == "train":
         trainer.fit()
-        print("final eval:", trainer.evaluate())
+        ev = trainer._on_main(trainer.evaluate)
+        if ev is not None:
+            print("final eval:", ev)
     else:
         if trainer.ckpt.latest_step() is None:
             print("no checkpoint to evaluate; run train first")

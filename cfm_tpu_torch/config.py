@@ -86,7 +86,9 @@ class TrainerConfig:
     ckpt_dir: str = "checkpoints"    # checkpoints go to <ckpt_dir>/<name>
     ckpt_interval: int = 20000
     resume: bool = True              # restore the latest checkpoint on construction
-    data_parallel: bool = True       # the mesh is not ported: raises with more than one card
+    # Under an initialised process group of several ranks (torchrun), the
+    # replicated-coupling data-parallel step; one process trains alone.
+    data_parallel: bool = True
     # A sample grid of sample_grid_n images, as <ckpt_dir>/<name>/samples_<step>.png,
     # every N steps of an image run (0: off).
     sample_grid_interval: int = 0

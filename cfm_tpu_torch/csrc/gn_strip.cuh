@@ -206,7 +206,7 @@ __device__ __forceinline__ int group_start(int c, int W, int cg) {
 template <typename T, typename Epi>
 __global__ void __launch_bounds__(kThreads, 4)
 strip_kernel(const __grid_constant__ CUtensorMap xmap, const Epi epi, int N, int HW, int C, int cg,
-             const Plan p, float eps) {
+             const Plan p, float eps, int n_begin) {
   constexpr int V = 16 / sizeof(T);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = align128(smem_raw);
@@ -222,7 +222,7 @@ strip_kernel(const __grid_constant__ CUtensorMap xmap, const Epi epi, int N, int
   const int tid = threadIdx.x;
   const int cs = p.cluster, strip = blockIdx.x / cs;
   const uint32_t rank = sm90::cluster_rank();
-  const int c0 = strip * W, n0 = blockIdx.y * p.items;
+  const int c0 = strip * W, n0 = n_begin + blockIdx.y * p.items;
   const int r_begin = (int)rank * p.rows, nrows = min(p.rows, HW - r_begin);
   {
     const CUtensorMap* const maps[1] = {&xmap};
@@ -323,7 +323,7 @@ strip_kernel(const __grid_constant__ CUtensorMap xmap, const Epi epi, int N, int
 // at most 256 rows, a cluster of at most max_cluster blocks covering HW,
 // several items only where one box holds an item's rows.
 inline bool plan_ok(int N, int HW, int C, int cg, int V, const Plan& p, int max_cluster) {
-  return N > 0 && N <= 65535 * p.items && HW > 0 && cg > 0 && C % V == 0 && p.width > 0 &&
+  return N > 0 && HW > 0 && cg > 0 && C % V == 0 && p.width > 0 &&
          p.width % V == 0 && p.width % cg == 0 && p.width <= 256 && p.items >= 1 &&
          p.items * p.width <= kThreads && p.cluster >= 1 && p.cluster <= max_cluster &&
          (long long)p.rows * p.cluster >= HW && p.box_rows >= 1 && p.box_rows <= 256 &&
@@ -399,6 +399,20 @@ int launch_clusters(void (*kernel)(KArgs...), dim3 grid, int cluster, size_t sme
   return (int)cudaGetLastError();
 }
 
+// Launches ``launch_one(grid, n_begin)`` for the item groups of the grid's
+// rows: one launch, or one for each 65535 rows beyond (a grid's limit).
+// Returns 0 or the first CUDA error code.
+template <typename F>
+int for_item_rows(int N, const Plan& p, unsigned columns, F&& launch_one) {
+  constexpr int kMaxRows = 65535;
+  const int groups = (N + p.items - 1) / p.items;
+  for (int g0 = 0; g0 < groups; g0 += kMaxRows) {
+    const int rows = groups - g0 < kMaxRows ? groups - g0 : kMaxRows;
+    if (int err = launch_one(dim3(columns, (unsigned)rows, 1), g0 * p.items)) return err;
+  }
+  return 0;
+}
+
 // Checks the plan against the shape and launches the kernel with its
 // cluster. Returns 0 or a CUDA error code.
 template <typename T, typename Epi>
@@ -410,10 +424,11 @@ int launch(const T* x, const Epi& epi, int N, int HW, int C, int G, const Plan& 
     return (int)cudaErrorInvalidValue;
   CUtensorMap xmap;
   if (int err = encode_strip_map<T>(&xmap, x, N, HW, C, p)) return err;
-  const dim3 grid((unsigned)((C + p.width - 1) / p.width * p.cluster),
-                  (unsigned)((N + p.items - 1) / p.items), 1);
-  return launch_clusters(strip_kernel<T, Epi>, grid, p.cluster, smem_bytes(p, sizeof(T)), st, xmap,
-                         epi, N, HW, C, cg, p, eps);
+  const unsigned columns = (unsigned)((C + p.width - 1) / p.width * p.cluster);
+  return for_item_rows(N, p, columns, [&](dim3 grid, int n_begin) {
+    return launch_clusters(strip_kernel<T, Epi>, grid, p.cluster, smem_bytes(p, sizeof(T)), st,
+                           xmap, epi, N, HW, C, cg, p, eps, n_begin);
+  });
 }
 
 }  // namespace gnstrip

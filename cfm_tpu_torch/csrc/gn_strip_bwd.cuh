@@ -82,7 +82,7 @@ struct BwdArgs {
 template <typename T, typename Grad>
 __global__ void __launch_bounds__(kThreads, 2)
 strip_bwd_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap gmap,
-                 const BwdArgs<T> a, int N, int HW, int C, int cg, const Plan p) {
+                 const BwdArgs<T> a, int N, int HW, int C, int cg, const Plan p, int n_begin) {
   constexpr int V = 16 / sizeof(T);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = align128(smem_raw);
@@ -100,7 +100,7 @@ strip_bwd_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant
   const int tid = threadIdx.x;
   const int cs = p.cluster, strip = blockIdx.x / cs;
   const uint32_t rank = sm90::cluster_rank();
-  const int c0 = strip * W, n0 = blockIdx.y * p.items;
+  const int c0 = strip * W, n0 = n_begin + blockIdx.y * p.items;
   const int r_begin = (int)rank * p.rows, nrows = min(p.rows, HW - r_begin);
   {
     const CUtensorMap* const maps[2] = {&xmap, &gmap};
@@ -259,10 +259,12 @@ int launch_bwd(const T* x, const T* g, const BwdArgs<T>& a, float* dscale, float
   CUtensorMap xmap, gmap;
   if (int err = encode_strip_map<T>(&xmap, x, N, HW, C, p)) return err;
   if (int err = encode_strip_map<T>(&gmap, g, N, HW, C, p)) return err;
-  const dim3 grid((unsigned)((C + p.width - 1) / p.width * p.cluster),
-                  (unsigned)((N + p.items - 1) / p.items), 1);
-  if (int err = launch_clusters(strip_bwd_kernel<T, Grad>, grid, p.cluster,
-                                smem_bytes_bwd(p, sizeof(T)), st, xmap, gmap, a, N, HW, C, cg, p))
+  const unsigned columns = (unsigned)((C + p.width - 1) / p.width * p.cluster);
+  if (int err = for_item_rows(N, p, columns, [&](dim3 grid, int n_begin) {
+        return launch_clusters(strip_bwd_kernel<T, Grad>, grid, p.cluster,
+                               smem_bytes_bwd(p, sizeof(T)), st, xmap, gmap, a, N, HW, C, cg, p,
+                               n_begin);
+      }))
     return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((2 * C * kSumLanes + kThreads - 1) / kThreads);

@@ -38,6 +38,14 @@
 // element a thread, x and g read twice from device memory, no split of the
 // rows).
 //
+// The split route (gn_split.cuh): shapes a strip on chip cannot take (a
+// strip too large for a cluster's shared memory, channels that are not
+// whole 16-byte rows, groups wider than 256 channels) go through row chunks
+// whose statistics are combined through device memory, in a fixed order,
+// and an element-wise pass; the plan comes from ops/groupnorm.py:split_plan.
+// The strip kernels take items beyond a grid's 65535 rows by launching once
+// for each 65535 rows of item groups.
+//
 // What bounds them: bytes. A few dozen flops per element against reading x
 // (and g) once and writing the output once. chip_smoke.py reports the bound
 // (bytes at 3.35 TB/s) beside the kernels' times.
@@ -46,7 +54,7 @@
 #include <cuda_bf16.h>
 #include <math.h>
 
-#include "gn_strip_bwd.cuh"
+#include "gn_split.cuh"
 
 namespace {
 
@@ -162,6 +170,50 @@ int gn_silu_bwd(const void* x, const void* g, const float* scale, const float* b
       static_cast<const T*>(x), static_cast<const T*>(g),                                     \
       gnstrip::BwdArgs<T>{scale, bias, mean, inv, static_cast<T*>(dx), ws}, dscale, dbias, N, \
       HW, C, G, plan, st)
+  if (dtype == 0) {
+    if (silu) GN_BWD(float, true); else GN_BWD(float, false);
+  }
+  if (dtype == 1) {
+    if (silu) GN_BWD(bf16, true); else GN_BWD(bf16, false);
+  }
+#undef GN_BWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split route. ws: N * chunks * C f32 scratch; (tile, lanes, chunks,
+// rows): the plan of split_plan. Otherwise as gn_silu_fwd.
+int gn_silu_fwd_split(const void* x, const float* scale, const float* bias, void* out, float* mean,
+                      float* inv, float* ws, int N, int HW, int C, int G, float eps, int silu,
+                      int dtype, int tile, int lanes, int chunks, int rows, void* stream) {
+  const gnsplit::Plan plan{tile, lanes, chunks, rows};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GN_FWD(T, S)                                                                        \
+  return gnsplit::launch<T>(static_cast<const T*>(x),                                       \
+                            SiluOut<T, S>{static_cast<T*>(out), scale, bias, mean, inv}, ws, \
+                            N, HW, C, G, plan, eps, st)
+  if (dtype == 0) {
+    if (silu) GN_FWD(float, true); else GN_FWD(float, false);
+  }
+  if (dtype == 1) {
+    if (silu) GN_FWD(bf16, true); else GN_FWD(bf16, false);
+  }
+#undef GN_FWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split route's backward. split_ws: 2 * N * chunks * C + 2 * N * C f32
+// scratch; otherwise as gn_silu_bwd, with the split plan.
+int gn_silu_bwd_split(const void* x, const void* g, const float* scale, const float* bias,
+                      const float* mean, const float* inv, void* dx, float* dscale, float* dbias,
+                      float* ws, float* split_ws, int N, int HW, int C, int G, int silu,
+                      int dtype, int tile, int lanes, int chunks, int rows, void* stream) {
+  const gnsplit::Plan plan{tile, lanes, chunks, rows};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GN_BWD(T, S)                                                                          \
+  return gnsplit::launch_bwd<T, SiluGrad<S>>(                                                 \
+      static_cast<const T*>(x), static_cast<const T*>(g),                                     \
+      gnstrip::BwdArgs<T>{scale, bias, mean, inv, static_cast<T*>(dx), ws}, split_ws, dscale, \
+      dbias, N, HW, C, G, plan, st)
   if (dtype == 0) {
     if (silu) GN_BWD(float, true); else GN_BWD(float, false);
   }

@@ -32,7 +32,7 @@ import math
 import torch
 
 from cfm_tpu_torch.ops import _build
-from cfm_tpu_torch.ops.groupnorm import strip_plan
+from cfm_tpu_torch.ops.groupnorm import StripPlan, strip_plan
 
 _EPS = 1e-5
 
@@ -47,6 +47,14 @@ def _vmem_bytes(S: int, C: int, H: int, D: int, itemsize: int) -> int:
             + 4 * 3 * S * S
             + 4 * 4 * S * C
             + 2 * itemsize * (C * 3 * H * D + H * D * C))
+
+
+def _strip(N, S, C, groups, itemsize) -> StripPlan:
+    """The GroupNorm stage's strip plan; the block's kernels have no split route."""
+    plan = strip_plan(N, S, C, groups, itemsize)
+    if not isinstance(plan, StripPlan):
+        raise ValueError(f"the block's GroupNorm stage needs a strip on chip: N={N}, S={S}, C={C}")
+    return plan
 
 
 def use_fused_block(S: int, C: int, n_heads: int, dtype: torch.dtype) -> bool:
@@ -251,7 +259,7 @@ def _forward(x, gscale, gbias, wq, bq, wo, bo, n_heads, groups):
     # tensor-core GEMMs, and the GroupNorm stage's plan (its tokens go to ctx)
     if bf16:
         scratch = torch.empty(4 * C * C, device=x.device, dtype=x.dtype)
-        plan = strip_plan(N, S, C, groups, x.element_size())
+        plan = _strip(N, S, C, groups, x.element_size())
     else:
         scratch = torch.empty(2 * N * groups, device=x.device, dtype=torch.float32)
         plan = (0,) * 6
@@ -297,7 +305,7 @@ def fused_attention_block_bwd(x, gscale, gbias, wq, bq, wo, bo, dy, n_heads: int
     # bf16 at head dims 64 and 128 takes the fused route, whose GroupNorm
     # stage is the strip kernel of the forward, planned by strip_plan
     fused = lib.attn_block_bwd_fused(C, n_heads, groups, dtype)
-    plan = strip_plan(N, S, C, groups, x.element_size()) if fused else (0,) * 6
+    plan = _strip(N, S, C, groups, x.element_size()) if fused else (0,) * 6
     ws = torch.empty(lib.attn_block_bwd_workspace(N, S, C, n_heads, groups, dtype),
                      dtype=torch.uint8, device=x.device)
     f32 = dict(device=x.device, dtype=torch.float32)

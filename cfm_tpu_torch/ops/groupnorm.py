@@ -21,7 +21,12 @@ backward (counterpart of ``cfm_tpu/ops/pallas_groupnorm.py``).
 - :func:`strip_plan` plans the kernels' blocks (``csrc/gn_strip.cuh``,
   shared with the attention block's GroupNorm stages, and
   ``csrc/gn_strip_bwd.cuh`` with ``backward=True``): the strip width, the
-  cluster that splits a strip's rows and the items a block takes.
+  cluster that splits a strip's rows and the items a block takes. A shape
+  no strip on chip can take (a strip too large for a cluster's shared
+  memory, channels that are not whole 16-byte rows, groups wider than 256
+  channels) gets :func:`split_plan`, the route of ``csrc/gn_split.cuh``:
+  row chunks whose statistics are combined through device memory. Every
+  float32 or bf16 (N, H, W, C) whose C divides by ``num_groups`` has a plan.
 
 The JAX UNet calls the plain reference (on the TPU, XLA fuses the GroupNorm
 chain into its neighbours); the port's ``GroupNorm32`` routes every call
@@ -32,14 +37,13 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Tuple, Union
 
 import torch
 
 from cfm_tpu_torch.ops import _build
 
-_MAX_GROUP_CHANNELS = 256  # the kernels' limit on C / num_groups (one block's threads)
-_GRID_ITEMS = 65535  # the kernels' limit on N (their grid's second axis)
+_GRID_ITEMS = 65535  # the items of one launch under vmap's fold (a grid's rows)
 
 # The kernels' plan (csrc/gn_strip.cuh, csrc/gn_strip_bwd.cuh). A strip is
 # whole groups, a multiple of 16 bytes wide, rows of about STRIP_BYTES; a
@@ -66,6 +70,31 @@ class StripPlan(NamedTuple):
     boxes: int     # boxes of a share
 
 
+class SplitPlan(NamedTuple):
+    tile: int      # channels of a block: C, or 256 of a wider C
+    lanes: int     # row lanes of a block, 256 // tile
+    chunks: int    # row chunks of an item, each one block's sums in device memory
+    rows: int      # rows of a chunk
+
+
+# The split route's statistics pass takes about SPLIT_BLOCKS blocks (eight an
+# SM of an H100's 132) where the rows allow, each lane at least
+# SPLIT_MIN_ROWS rows of its chunk.
+SPLIT_BLOCKS, SPLIT_MIN_ROWS = 1056, 8
+
+
+def split_plan(n: int, hw: int, c: int) -> SplitPlan:
+    """The split route's blocks for x of (n, hw, c): a tile of channels and
+    its row lanes, and the row chunks of an item (``csrc/gn_split.cuh``)."""
+    tile = min(c, _THREADS)
+    lanes = _THREADS // tile
+    tiles = -(-c // tile)
+    chunks = max(1, min(-(-SPLIT_BLOCKS // (tiles * min(n, _GRID_ITEMS))),
+                        -(-hw // (lanes * SPLIT_MIN_ROWS))))
+    rows = -(-hw // chunks)
+    return SplitPlan(tile, lanes, -(-hw // rows), rows)
+
+
 def strip_smem_bytes(plan: StripPlan, itemsize: int, backward: bool = False) -> int:
     """A block's dynamic shared memory under ``plan``, as ``gnstrip::smem_bytes``
     (or, for the backward, ``gnstrip::smem_bytes_bwd``) computes it."""
@@ -76,20 +105,19 @@ def strip_smem_bytes(plan: StripPlan, itemsize: int, backward: bool = False) -> 
 
 
 def strip_plan(n: int, hw: int, c: int, num_groups: int, itemsize: int,
-               backward: bool = False) -> StripPlan:
+               backward: bool = False) -> Union[StripPlan, SplitPlan]:
     """The kernel's blocks for x of (n, hw, c) in a dtype of ``itemsize``
     bytes: the forward's, or with ``backward`` the backward's, whose share
-    holds x and g. Raises ValueError for a shape the kernel cannot hold on
-    chip (a strip of the narrowest width over more rows than eight blocks'
-    shared memory, sixteen for the backward) or whose channels are not a
-    multiple of 16 bytes."""
+    holds x and g. Where no strip fits (a strip of the narrowest width over
+    more rows than eight blocks' shared memory, sixteen for the backward),
+    where the channels are not a multiple of 16 bytes, or where a strip of
+    whole groups would be wider than 256 channels, the split route's
+    :func:`split_plan`."""
     vec = 16 // itemsize
     cg = c // num_groups
-    if c % vec:
-        raise ValueError(f"C={c} must be a multiple of {vec} (16-byte rows) for the kernel")
     unit = cg * vec // math.gcd(cg, vec)  # whole groups, whole 16-byte vectors
-    if unit > 256:
-        raise ValueError(f"a strip of whole groups of {cg} channels is {unit} wide, above 256")
+    if c % vec or unit > 256:
+        return split_plan(n, hw, c)
     tensors, share = (2, SHARE_BYTES_BWD) if backward else (1, SHARE_BYTES)
 
     def fit(width, max_cluster):
@@ -114,8 +142,7 @@ def strip_plan(n: int, hw: int, c: int, num_groups: int, itemsize: int,
         if plan:
             break
     else:
-        raise ValueError(f"a strip of {hw} rows x {width} channels does not fit "
-                         f"{max_cluster} blocks' shared memory")
+        return split_plan(n, hw, c)
     if plan.cluster == 1 and hw <= MAX_BOX_ROWS:
         strips, items, row = -(-c // plan.width), 1, plan.width * itemsize * tensors
         if backward:  # latency-bound small maps: fewer, fuller blocks, one wave of them
@@ -210,9 +237,6 @@ def _check(x, scale, bias, num_groups):
     n, h, w, c = x.shape
     if num_groups <= 0 or c % num_groups:
         raise ValueError(f"C={c} must divide by num_groups={num_groups}")
-    if c // num_groups > _MAX_GROUP_CHANNELS:
-        raise ValueError(f"C / num_groups = {c // num_groups} exceeds the kernels' "
-                         f"{_MAX_GROUP_CHANNELS} channels per group")
     if n * h * w == 0:
         raise ValueError(f"x is empty: shape {tuple(x.shape)}")
     if not x.is_contiguous():
@@ -228,8 +252,6 @@ def _check(x, scale, bias, num_groups):
 def _device_checks(x):
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if x.shape[0] > _GRID_ITEMS:
-        raise ValueError(f"N={x.shape[0]} exceeds the kernels' grid limit of {_GRID_ITEMS} items")
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned (the kernels move 16-byte vectors)")
 
@@ -263,7 +285,7 @@ def _batch_first(t, dim, b):
 
 def _folded(fn, n, *mapped):
     """``fn`` on the (B, N, ...) tensors ``mapped`` folded to (B * N, ...), in
-    launches of at most _GRID_ITEMS items; its outputs concatenated."""
+    calls of at most _GRID_ITEMS items; its outputs concatenated."""
     step = max(1, _GRID_ITEMS // n)
     parts = [fn(*(t[i:i + step].reshape((-1,) + tuple(t.shape[2:])).contiguous()
                   for t in mapped)) for i in range(0, mapped[0].shape[0], step)]
@@ -408,12 +430,15 @@ def _forward(x, scale, bias, num_groups, eps, apply_silu):
     out = torch.empty_like(x)
     mean = torch.empty((n, c), device=x.device, dtype=torch.float32)
     inv = torch.empty_like(mean)
+    args = (n, h * w, c, num_groups, eps, int(apply_silu), 0 if x.dtype == torch.float32 else 1,
+            *plan, torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = [t.data_ptr() for t in (x, scale, bias, out, mean, inv)]
     with torch.cuda.device(x.device):
-        err = _lib().gn_silu_fwd(
-            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), mean.data_ptr(),
-            inv.data_ptr(), n, h * w, c, num_groups, eps, int(apply_silu),
-            0 if x.dtype == torch.float32 else 1, *plan,
-            torch.cuda.current_stream(x.device).cuda_stream)
+        if isinstance(plan, SplitPlan):
+            ws = torch.empty(n * plan.chunks * c, device=x.device, dtype=torch.float32)
+            err = _lib().gn_silu_fwd_split(*ptrs, ws.data_ptr(), *args)
+        else:
+            err = _lib().gn_silu_fwd(*ptrs, *args)
     if err:
         raise RuntimeError(f"gn_silu_fwd launch failed: CUDA error {err}")
     fused_group_norm_silu.launches += 1
@@ -429,8 +454,8 @@ def fused_group_norm_silu_bwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.
 
     On a CUDA tensor this launches the backward kernel under
     ``strip_plan(..., backward=True)`` (and adds one to
-    ``fused_group_norm_silu_bwd.launches``; a shape the plan cannot hold
-    raises ValueError); on a CPU tensor it runs :func:`gn_silu_bwd_reference`."""
+    ``fused_group_norm_silu_bwd.launches``); on a CPU tensor it runs
+    :func:`gn_silu_bwd_reference`."""
     _check(x, scale, bias, num_groups)
     n, h, w, c = x.shape
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device or not g.is_contiguous():
@@ -452,12 +477,16 @@ def fused_group_norm_silu_bwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.
     dscale = torch.empty(c, device=x.device, dtype=torch.float32)
     dbias = torch.empty_like(dscale)
     ws = torch.empty((2, n, c), device=x.device, dtype=torch.float32)  # per-item column sums
-    with torch.cuda.device(x.device):
-        err = _lib().gn_silu_bwd(
-            x.data_ptr(), g.data_ptr(), scale.data_ptr(), bias.data_ptr(), mean.data_ptr(),
-            inv.data_ptr(), dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), ws.data_ptr(),
-            n, h * w, c, num_groups, int(apply_silu), 0 if x.dtype == torch.float32 else 1,
+    ptrs = [t.data_ptr() for t in (x, g, scale, bias, mean, inv, dx, dscale, dbias, ws)]
+    args = (n, h * w, c, num_groups, int(apply_silu), 0 if x.dtype == torch.float32 else 1,
             *plan, torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        if isinstance(plan, SplitPlan):  # the chunks' two sums, then m1 and m2 a channel
+            split_ws = torch.empty(2 * n * (plan.chunks + 1) * c, device=x.device,
+                                   dtype=torch.float32)
+            err = _lib().gn_silu_bwd_split(*ptrs, split_ws.data_ptr(), *args)
+        else:
+            err = _lib().gn_silu_bwd(*ptrs, *args)
     if err:
         raise RuntimeError(f"gn_silu_bwd launch failed: CUDA error {err}")
     fused_group_norm_silu_bwd.launches += 1
@@ -476,5 +505,9 @@ def _lib() -> ctypes.CDLL:
         lib.gn_silu_fwd.restype = i
         lib.gn_silu_bwd.argtypes = [p] * 10 + [i] * 12 + [p]
         lib.gn_silu_bwd.restype = i
+        lib.gn_silu_fwd_split.argtypes = [p] * 7 + [i] * 4 + [ctypes.c_float] + [i] * 6 + [p]
+        lib.gn_silu_fwd_split.restype = i
+        lib.gn_silu_bwd_split.argtypes = [p] * 11 + [i] * 10 + [p]
+        lib.gn_silu_bwd_split.restype = i
         lib._typed = True
     return lib

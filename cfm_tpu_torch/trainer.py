@@ -41,9 +41,17 @@ with ``CFM_TPU_TB=1``, wandb with ``CFM_TPU_WANDB=1``); ``<name>_hparams.json``
 holds the parameter count and the config, ``exec_time.log`` each fit's steps
 and seconds. The loss is read back only at ``log_interval``.
 
-Refused loudly when asked for: the data-parallel mesh (raises with more
-than one card unless ``trainer.data_parallel=False``, ROADMAP.md queue 1
-item 10).
+Data parallelism: with ``trainer.data_parallel`` (the default) and an
+initialised process group of more than one rank (``torchrun``, see
+``cfm_tpu_torch.parallel.initialize_distributed``), the JAX Trainer's
+mesh branch. Every rank streams the same batch from the same seed, prepares
+and couples it identically, and trains on its rows with the
+replicated-coupling step (``train.make_replicated_coupling_shard_fn``: one
+all-reduce of the gradients a step). Rank 0 alone writes logs, checkpoints
+and sample grids, and evaluates, its generator's state restored after an
+evaluation or a grid so that the ranks' streams stay equal; every rank
+restores the same checkpoint, and the ranks meet at a barrier after the
+final save.
 Class-conditional I-CFM is refused as the JAX package fails on it: its
 matcher carries no labels.
 """
@@ -61,6 +69,7 @@ from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple, 
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cfm_tpu_torch.checkpoint import CheckpointManager
 from cfm_tpu_torch.config import Config
@@ -79,7 +88,8 @@ from cfm_tpu_torch.paths import (ConditionalFlowMatcher,
                                  SchrodingerBridgeConditionalFlowMatcher,
                                  TargetConditionalFlowMatcher,
                                  VariancePreservingConditionalFlowMatcher)
-from cfm_tpu_torch.train import (TrainState, init_train_state, make_optimizer, make_train_step,
+from cfm_tpu_torch.train import (TrainState, init_train_state, make_mesh, make_optimizer,
+                                 make_replicated_coupling_shard_fn, make_train_step,
                                  warmup_lr_schedule)
 from cfm_tpu_torch.utils import count_params, param_summary
 
@@ -217,20 +227,34 @@ class MetricLogger:
             self._tb.close()
 
 
+class _NoLogger:
+    """The logger of a rank other than 0: it writes nothing."""
+
+    def log(self, step: int, metrics: Dict[str, float]) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class Trainer:
-    """Config-driven training of the 2-D and image branches on one device."""
+    """Config-driven training of the 2-D and image branches on one device,
+    or one rank's device of a data-parallel run."""
 
     def __init__(self, cfg: Config, device: DeviceLike = None, log_dir: str = "logs"):
         self.cfg = cfg
         self.is_image = cfg.data.dataset in ("cifar10", "mnist")
-        if cfg.trainer.data_parallel and torch.cuda.device_count() > 1:
-            raise NotImplementedError(
-                "the data-parallel mesh is not ported yet (ROADMAP.md queue 1 item 10); "
-                "set trainer.data_parallel=False to train on one card")
         self.device = resolve_device(device)
+        # The JAX Trainer's mesh branch takes more than one device; here more
+        # than one rank of an initialised process group.
+        parallel = (cfg.trainer.data_parallel and dist.is_available() and dist.is_initialized()
+                    and dist.get_world_size() > 1)
+        self.mesh = make_mesh() if parallel else None
+        self.is_main = not parallel or dist.get_rank() == 0
+        self.log_dir = log_dir
         self.matcher = build_matcher(cfg)
         self.model = build_model(cfg, self.device)
-        self.logger = MetricLogger(log_dir, cfg.name)
+        self.logger = MetricLogger(log_dir, cfg.name) if self.is_main else _NoLogger()
         # The score head's weights come from a seed of their own, as JAX folds
         # 1 into the flow head's init key.
         self.score_model = (build_model(cfg, self.device, seed=cfg.trainer.seed + 1)
@@ -240,10 +264,15 @@ class Trainer:
                                         weight_decay=cfg.optim.weight_decay)
         self.state: TrainState = init_train_state(self.model, self.optimizer, self.score_model)
         dropout = cfg.model.kind == "unet" and cfg.model.dropout > 0  # the MLP has none
-        self.step_fn = make_train_step(self.matcher, self.model, self.optimizer,
-                                       ema_decay=cfg.optim.ema_decay, train_mode=dropout,
-                                       class_conditional=cfg.model.class_cond,
-                                       score_model=self.score_model)
+        step_kwargs = dict(ema_decay=cfg.optim.ema_decay, train_mode=dropout,
+                           class_conditional=cfg.model.class_cond, score_model=self.score_model)
+        if self.mesh is not None:
+            self.step_fn = make_replicated_coupling_shard_fn(self.matcher, self.model,
+                                                             self.optimizer, self.mesh,
+                                                             **step_kwargs)
+        else:
+            self.step_fn = make_train_step(self.matcher, self.model, self.optimizer,
+                                           **step_kwargs)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.trainer.seed)
 
         self.ckpt = CheckpointManager(os.path.join(cfg.trainer.ckpt_dir, cfg.name),
@@ -257,15 +286,19 @@ class Trainer:
                     "current model's parameter tree (it likely predates a model change). "
                     "Delete the stale directory or point trainer.ckpt_dir elsewhere to start "
                     "fresh.") from e
-            print(f"resumed from step {self.state.step}")
+            self._print(f"resumed from step {self.state.step}")
 
         self.n_params = count_params(self.state.params)
-        print(f"model: {cfg.model.kind}  params: {self.n_params:,}  device: {self.device}")
+        ranks = "" if self.mesh is None else f"  ranks: {dist.get_world_size()}"
+        self._print(f"model: {cfg.model.kind}  params: {self.n_params:,}  device: "
+                    f"{self.device}{ranks}")
         if os.environ.get("CFM_TPU_MODEL_SUMMARY") == "1":
-            print(param_summary(self._named_params(), max_depth=2 if self.score_model else 1))
-        with open(os.path.join(self.logger.log_dir, f"{cfg.name}_hparams.json"), "w") as fh:
-            json.dump({"model/params/total": self.n_params, "config": dataclasses.asdict(cfg)},
-                      fh, indent=1, default=str)
+            self._print(param_summary(self._named_params(),
+                                      max_depth=2 if self.score_model else 1))
+        if self.is_main:
+            with open(os.path.join(log_dir, f"{cfg.name}_hparams.json"), "w") as fh:
+                json.dump({"model/params/total": self.n_params,
+                           "config": dataclasses.asdict(cfg)}, fh, indent=1, default=str)
 
         self._ema_model: Optional[torch.nn.Module] = None        # the flow head's EMA copy
         self._ema_score_model: Optional[torch.nn.Module] = None  # the score head's
@@ -298,6 +331,32 @@ class Trainer:
             if cfg.trainer.overfit_batches:  # replay the first N batches
                 pool = [next(self._batches) for _ in range(cfg.trainer.overfit_batches)]
                 self._batches = itertools.cycle(pool)
+
+    def _print(self, *a) -> None:
+        if self.is_main:
+            print(*a)
+
+    def _on_main(self, fn):
+        """``fn()`` on rank 0 alone (every process where there is one),
+        the trainer's generator restored after it in a data-parallel run so
+        that every rank's stream stays the same; None elsewhere."""
+        if self.mesh is None:
+            return fn()
+        if not self.is_main:
+            return None
+        saved = self.generator.get_state()
+        try:
+            return fn()
+        finally:
+            self.generator.set_state(saved)
+
+    def _agreed(self, flag: bool) -> bool:
+        """Rank 0's ``flag`` on every rank (a broadcast in a data-parallel run)."""
+        if self.mesh is None:
+            return flag
+        t = torch.tensor([int(flag)], device=self.device)
+        dist.broadcast(t, 0)
+        return bool(t.item())
 
     def _named_params(self) -> Iterator[Tuple[str, torch.Tensor]]:
         if self.score_model is None:
@@ -393,30 +452,36 @@ class Trainer:
                     # The lr of this step's update: the schedule at count step - 1.
                     out["lr"] = warmup_lr_schedule(cfg.optim.lr, cfg.optim.warmup_steps)(step - 1)
                     self.logger.log(step, out)
-                    print(f"step {step:7d}  loss {out['loss']:.4f}  {sps:.2f} steps/s")
-                    if not np.isfinite(out["loss"]):
+                    self._print(f"step {step:7d}  loss {out['loss']:.4f}  {sps:.2f} steps/s")
+                    if not np.isfinite(out["loss"]):  # the mean loss: alike on every rank
                         raise ValueError(f"Loss Not Finite at step {step}: {out['loss']}")
                 if t.eval_interval and step % t.eval_interval == 0:
                     t_ev = time.perf_counter()
-                    ev = self.evaluate()
-                    self.eval_log.append({"step": step, **ev,
-                                          "seconds": time.perf_counter() - t_ev})
-                    self.logger.log(step, {f"eval/{k}": v for k, v in ev.items()})
-                    print("  eval:", {k: round(v, 4) for k, v in self.eval_log[-1].items()})
-                    if t.early_stop_metric:  # mode min, patience counted in evaluations
-                        cur = ev[self._early_stop_key(ev)]
-                        if cur < es_best - t.early_stop_min_delta:
-                            es_best, es_bad = cur, 0
-                        else:
-                            es_bad += 1
-                            if es_bad >= t.early_stop_patience:
-                                print(f"early stop at step {step}: {t.early_stop_metric} did "
-                                      f"not improve past {es_best:.4f} for {es_bad} evals")
-                                break
+                    ev = self._on_main(self.evaluate)
+                    stop = False
+                    if ev is not None:
+                        self.eval_log.append({"step": step, **ev,
+                                              "seconds": time.perf_counter() - t_ev})
+                        self.logger.log(step, {f"eval/{k}": v for k, v in ev.items()})
+                        print("  eval:", {k: round(v, 4) for k, v in self.eval_log[-1].items()})
+                        if t.early_stop_metric:  # mode min, patience counted in evaluations
+                            cur = ev[self._early_stop_key(ev)]
+                            if cur < es_best - t.early_stop_min_delta:
+                                es_best, es_bad = cur, 0
+                            else:
+                                es_bad += 1
+                                stop = es_bad >= t.early_stop_patience
+                                if stop:
+                                    print(f"early stop at step {step}: {t.early_stop_metric} "
+                                          f"did not improve past {es_best:.4f} for {es_bad} "
+                                          "evals")
+                    if t.early_stop_metric and self._agreed(stop):
+                        break
                 if self.is_image and t.sample_grid_interval and step % t.sample_grid_interval == 0:
-                    self._save_sample_grid(step)
+                    self._on_main(lambda: self._save_sample_grid(step))
                 # The host's step count; the save reads the device only when due.
-                self.ckpt.save(self.state, step=step)
+                if self.is_main:
+                    self.ckpt.save(self.state, step=step)
         finally:
             if prof is not None:
                 prof.stop()
@@ -427,10 +492,14 @@ class Trainer:
             if anomaly is not None:
                 torch.autograd.set_detect_anomaly(anomaly[0], check_nan=anomaly[1])
             # The steps actually executed, also after an early exit.
-            with open(os.path.join(self.logger.log_dir, "exec_time.log"), "a") as fh:
-                fh.write(f"{cfg.name}: {max(step - start, 0)} steps in "
-                         f"{time.perf_counter() - t0:.1f}s\n")
-        self.ckpt.save(self.state, force=True)
+            if self.is_main:
+                with open(os.path.join(self.log_dir, "exec_time.log"), "a") as fh:
+                    fh.write(f"{cfg.name}: {max(step - start, 0)} steps in "
+                             f"{time.perf_counter() - t0:.1f}s\n")
+        if self.is_main:
+            self.ckpt.save(self.state, force=True)
+        if self.mesh is not None:  # the checkpoint is whole before any rank reads it
+            dist.barrier()
         return self.state
 
     def _save_sample_grid(self, step: int) -> None:

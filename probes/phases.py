@@ -5,10 +5,12 @@ alone on one CUDA card, each timed, with what it logs and returns:
     python3 probes/phases.py 27 31       # the phases named
     python3 probes/phases.py             # every phase of the table
 
-The table: 3 (the GroupNorm kernels at ``ResNetDiffEq``'s shapes), 18 (the
+The table: 3 (the GroupNorm kernels at ``ResNetDiffEq``'s shapes and
+beyond the strip, and phase 4's timing at 256x256 float32), 18 (the
 presets as given), 19-22 (SDE generation, activation checkpointing, tsit5
-and the continuous adjoint), 23-26 (the single-cell path) and 27-31 (the
-research variants). A phase that needs another's result runs that one
+and the continuous adjoint), 23-26 (the single-cell path), 27-31 (the
+research variants) and 32-33 (data parallelism; 32 prints its step beside
+phase 8's time in ``chip_smoke.py``'s last full run, ``PHASE8_MS``). A phase that needs another's result runs that one
 first (22 needs 19's trainer, 25 needs 24's plans). Phase 22's tsit5 is
 printed beside phase 6's dopri5 as ``chip_smoke.py`` last measured it
 (NFE 62, 292.39 images/s), which this script does not run.
@@ -45,7 +47,8 @@ def table(smi, need):
         return cs.checkpointing(model, smi)
 
     return {
-        "3": cs.check_gn_diffeq,
+        "3": lambda: [cs.check_gn_diffeq(), cs.check_gn_diffeq(6), cs.check_gn_beyond(),
+                      cs.time_gn_beyond(smi)],
         "18": lambda: cs.presets_as_given(cifar, smi),
         "19": lambda: cs.mnist_sde(smi),
         "20": lambda: cs.sf2m_sde(smi),
@@ -61,6 +64,8 @@ def table(smi, need):
         "29": lambda: cs.bridges(smi),
         "30": lambda: cs.action_and_icnn(smi),
         "31": lambda: cs.diffeq_zoo(smi),
+        "32": lambda: cs.data_parallel_one_rank(cifar, cs.PHASE8_MS, smi),
+        "33": lambda: cs.data_parallel_two_ranks(smi),
     }
 
 

@@ -257,7 +257,7 @@ def test_autograd_functions_compose_with_torch_func(monkeypatch, silu, grid_item
 
 
 @pytest.mark.parametrize("bad", ["rank", "dtype", "groups", "strided", "scale_shape",
-                                 "scale_dtype", "group_width"])
+                                 "scale_dtype"])
 def test_wrapper_rejects_bad_inputs(bad):
     x, scale, bias, _ = (torch.from_numpy(a) for a in _inputs(1, 4, 64))
     G = 32
@@ -271,13 +271,57 @@ def test_wrapper_rejects_bad_inputs(bad):
         x = x.permute(0, 2, 1, 3)
     elif bad == "scale_shape":
         scale = scale[:-1]
-    elif bad == "scale_dtype":
+    else:
         scale = scale.to(torch.bfloat16)
-    else:  # 512 channels per group: more than one block's threads
-        x = torch.zeros(1, 2, 2, 512)
-        scale, bias, G = torch.ones(512), torch.zeros(512), 1
     with pytest.raises((ValueError, TypeError)):
         tgn.fused_group_norm_silu(x, scale, bias, G)
+
+
+# (shape, groups, dtype) that no strip on chip holds, or (N above a grid's
+# 65535 rows) that the strip takes in several launches: groups wider than
+# 256 channels (ResNetDiffEq at intermediate_dim 8192), channels that are
+# not whole 16-byte rows (float32 C = 6, bf16 C = 12), N = 70,000 (2x2 maps:
+# at 1x1 a group of two channels normalises to +-1 and dx is rounding noise).
+BEYOND_STRIP = [((1, 2, 2, 8192), 16, "f32"), ((2, 4, 4, 6), 6, "f32"),
+                ((2, 4, 4, 12), 12, "bf16"), ((70000, 2, 2, 32), 16, "f32")]
+
+
+def _inputs_of(shape, seed, mean=0.5, std=2.0):
+    """x, scale, bias and an output gradient g of x's shape, f32 numpy."""
+    rng = np.random.default_rng(seed)
+    c = shape[-1]
+    x = (mean + std * rng.standard_normal(shape)).astype(np.float32)
+    scale = (1.0 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    return x, scale, bias, rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape,G,dtype", BEYOND_STRIP)
+def test_wrapper_computes_what_no_strip_holds(shape, G, dtype):
+    """The wrapper (with autograd) computes these shapes and equals the JAX
+    reference ``_gn_silu_reference`` and its ``jax.vjp``: every output
+    within 1e-5 of max(1, its max-abs) in f32, out and dx within 1e-2 in
+    bf16 (one rounding step of values up to 2)."""
+    import jax
+    import jax.numpy as jnp
+
+    from cfm_tpu.ops.pallas_groupnorm import _gn_silu_reference
+
+    x, scale, bias, g = _inputs_of(shape, seed=shape[-1] + G)
+    jd, td = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    y_ref, vjp = jax.vjp(lambda *a: _gn_silu_reference(*a, G, 1e-5, True),
+                         jnp.asarray(x, jd), jnp.asarray(scale), jnp.asarray(bias))
+    refs = (y_ref,) + vjp(jnp.asarray(g, jd))
+    xt = torch.from_numpy(x).to(td).requires_grad_()
+    st, bt = (torch.from_numpy(a).requires_grad_() for a in (scale, bias))
+    y = tgn.fused_group_norm_silu(xt, st, bt, G, 1e-5, True)
+    y.backward(torch.from_numpy(g).to(td))
+    for name, got, ref in zip(("out", "dx", "dscale", "dbias"), (y, xt.grad, st.grad, bt.grad),
+                              refs):
+        tol = 1e-2 if dtype == "bf16" and name in ("out", "dx") else 1e-5
+        got = got.detach().float().numpy()
+        assert got.shape == np.shape(ref), name
+        assert _rel_err(got, np.asarray(ref, np.float32)) <= tol, name
 
 
 def test_wrapper_rejects_other_devices_and_mismatched_gradients():
@@ -328,7 +372,7 @@ def _check_plan(plan, N, HW, C, G, itemsize, backward=False):
     assert plan.rows * (plan.cluster - 1) < HW  # every block of a cluster has rows
     assert 1 <= plan.box_rows <= 256 and plan.boxes * plan.box_rows >= plan.rows
     assert plan.boxes == 1 or plan.box_rows % 8 == 0
-    assert plan.items * plan.width <= 256 and -(-N // plan.items) <= 65535
+    assert plan.items * plan.width <= 256
     assert plan.items == 1 or (plan.cluster == 1 and plan.rows == HW == plan.box_rows)
     assert tgn.strip_smem_bytes(plan, itemsize, backward) <= 227 * 1024
 
@@ -345,11 +389,35 @@ def test_strip_plan_at_recorded_shapes(path):
         assert plan.cluster == 1 or H * W * plan.width * _ITEMSIZE[dt] > tgn.SHARE_BYTES
 
 
-def test_strip_plan_rejects_what_the_kernel_cannot_hold():
-    with pytest.raises(ValueError, match="multiple of 8"):
-        tgn.strip_plan(2, 16, 36, 12, 2)
-    with pytest.raises(ValueError, match="does not fit"):
-        tgn.strip_plan(1, 512 * 512, 256, 32, 4)
+def _check_split_plan(plan, N, HW, C):
+    """The invariants gnsplit::plan_ok checks: a tile of C or 256 channels
+    and its row lanes, chunks covering HW, every chunk with rows."""
+    assert isinstance(plan, tgn.SplitPlan)
+    assert plan.tile == min(C, 256) and plan.lanes == 256 // plan.tile
+    assert plan.chunks * plan.rows >= HW > (plan.chunks - 1) * plan.rows
+
+
+# (N, HW, C, G, itemsize, backward) of what no strip holds: a strip of 8
+# float32 channels over 256x256 rows (2 MB, beyond 8 blocks' and 16 blocks'
+# shares), channels that are not whole 16-byte rows, a group of 512
+# channels; and N = 70,000, which the strip takes over several launches.
+PLAN_BEYOND = [(8, 65536, 256, 32, 4, False), (8, 65536, 256, 32, 4, True),
+               (1, 512 * 512, 256, 32, 4, True), (2, 16, 36, 12, 2, False),
+               (2, 16, 6, 6, 4, False), (2, 16, 12, 12, 2, True), (1, 4, 8192, 16, 4, False),
+               (70000, 1, 32, 16, 4, False), (70000, 1024, 64, 32, 2, True)]
+
+
+@pytest.mark.parametrize("N,HW,C,G,itemsize,backward", PLAN_BEYOND)
+def test_strip_plan_rejects_what_the_kernel_cannot_hold(N, HW, C, G, itemsize, backward):
+    """No shape the wrapper's checks accept is refused any more: what no
+    strip holds gets the split route's plan, and N above a grid's rows keeps
+    its strip (the launcher loops over the item groups)."""
+    plan = tgn.strip_plan(N, HW, C, G, itemsize, backward=backward)
+    if N > 65535:
+        assert isinstance(plan, tgn.StripPlan)
+        _check_plan(plan, N, HW, C, G, itemsize, backward)
+    else:
+        _check_split_plan(plan, N, HW, C)
 
 
 @pytest.mark.parametrize("path", [p for p in GN_PATHS if "training" in p])
@@ -370,22 +438,19 @@ def test_strip_plan_bwd_takes_every_forward_shape():
     """Every shape the forward's plan takes (so every autograd path that
     runs forward) has a backward plan that fits, across group widths, dtypes
     and maps up to the forward's limit (the largest maps need a cluster of
-    16); far beyond it the backward refuses too."""
+    16); far beyond it the backward takes the split route too."""
     taken = 0
     for itemsize in (2, 4):
         for cg in (1, 3, 6, 8, 18, 64, 256):
             for hw in (1, 49, 256, 257, 1000, 4096, 9999, 30000, 50000, 65000, 70000, 300000):
-                try:
-                    tgn.strip_plan(4, hw, 32 * cg, 32, itemsize)
-                except ValueError:
+                if isinstance(tgn.strip_plan(4, hw, 32 * cg, 32, itemsize), tgn.SplitPlan):
                     continue
                 plan = tgn.strip_plan(4, hw, 32 * cg, 32, itemsize, backward=True)
                 _check_plan(plan, 4, hw, 32 * cg, 32, itemsize, backward=True)
                 taken += 1
     assert taken > 100
     assert tgn.strip_plan(1, 65000, 32, 32, 2, backward=True).cluster == 16
-    with pytest.raises(ValueError, match="does not fit 16 blocks"):
-        tgn.strip_plan(1, 512 * 512, 256, 32, 4, backward=True)
+    _check_split_plan(tgn.strip_plan(1, 512 * 512, 256, 32, 4, backward=True), 1, 512 * 512, 256)
 
 
 def _strip_model(x, scale, bias, G, eps, silu, plan):
@@ -601,6 +666,157 @@ def test_bwd_strip_model_matches_plain_and_tpu_kernel(cg, H, dtype):
                 assert _rel_err(a.float().numpy(), r) <= tol, (plan, name)
 
 
+# ---------------------------------------------------------------------------
+# The split route (csrc/gn_split.cuh): row chunks, sums through device memory
+# ---------------------------------------------------------------------------
+
+
+def _fma(s, a, b):
+    """fmaf(a, b, s): one rounding (the f32 product is exact in float64)."""
+    return (s.double() + a.double() * b.double()).float()
+
+
+def _chunk_partials(add, plan, hw, *vals):
+    """Per (item, chunk, channel) sums as stats_partial and bwd_partial take
+    them: lane l of a block adds rows l, l + lanes, ... of its chunk in
+    order, then the lanes are added in lane order. vals: (n, hw, c)."""
+    n, c = vals[0].shape[0], vals[0].shape[2]
+    out = torch.zeros(n, plan.chunks, c)
+    for k in range(plan.chunks):
+        chunk = [v[:, k * plan.rows:min(hw, (k + 1) * plan.rows)] for v in vals]
+        steps = -(-chunk[0].shape[1] // plan.lanes)
+        chunk = [F.pad(v, (0, 0, 0, steps * plan.lanes - v.shape[1]))
+                 .reshape(n, steps, plan.lanes, c) for v in chunk]
+        acc = torch.zeros(n, plan.lanes, c)
+        for i in range(steps):
+            acc = add(acc, *(v[:, i] for v in chunk))
+        tot = torch.zeros(n, c)
+        for lane in range(plan.lanes):
+            tot = tot + acc[:, lane]
+        out[:, k] = tot
+    return out
+
+
+def _chunk_sum(part):
+    """(n, chunks, c) -> (n, c): lane L of a warp adds chunks L, L + 32, ...
+    in order, then the 32 lanes pairwise (xor 16, ..., 1)."""
+    n, chunks, c = part.shape
+    lanes = torch.zeros(n, 32, c)
+    for k in range(chunks):
+        lanes[:, k % 32] = lanes[:, k % 32] + part[:, k]
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, torch.arange(32) ^ o]
+    return lanes[:, 0]
+
+
+def _warp_group_sum(per_channel, G):
+    """(n, c) -> (n, G): warp w adds a group's channels w, w + 8, ... in
+    order, then the eight warps in order."""
+    n, c = per_channel.shape
+    t = per_channel.reshape(n, G, c // G)
+    warps = torch.zeros(n, G, 8)
+    for j in range(c // G):
+        warps[..., j % 8] = warps[..., j % 8] + t[..., j]
+    tot = torch.zeros(n, G)
+    for w in range(8):
+        tot = tot + warps[..., w]
+    return tot
+
+
+def _split_model(x, scale, bias, G, eps, silu, plan):
+    """(out, mean, inv) as the split route computes them: chunk partials,
+    the chunk and group combine, the second pass by fmaf, then the
+    element-wise epilogue."""
+    n, h, w, c = x.shape
+    hw, cg = h * w, c // G
+    xf = x.float().reshape(n, hw, c)
+    cnt = torch.tensor(float(hw * cg))
+
+    def group_stat(part):
+        return _warp_group_sum(_chunk_sum(part), G) / cnt
+
+    mean = group_stat(_chunk_partials(lambda s, v: s + v, plan, hw, xf)).repeat_interleave(cg, -1)
+    d = xf - mean[:, None]
+    var = group_stat(_chunk_partials(lambda s, v: _fma(s, v, v), plan, hw, d))
+    inv = (1.0 / torch.sqrt(var + eps)).repeat_interleave(cg, -1)
+    out = d * inv[:, None] * scale + bias
+    if silu:
+        out = out * torch.sigmoid(out)
+    return out.reshape(x.shape).to(x.dtype), mean, inv
+
+
+def _bwd_split_model(x, scale, bias, mean, inv, g, G, silu, plan):
+    """(dx, dscale, dbias) as the split route computes them: chunk partials
+    of dy and fmaf(dy, norm), each channel's chunks on a warp, m1 and m2 by
+    the warps' channel order, dx element-wise, dscale and dbias over the
+    items as item_sum_kernel adds them."""
+    n, h, w, c = x.shape
+    hw, cg = h * w, c // G
+    xf, gf = (t.float().reshape(n, hw, c) for t in (x, g))
+    norm = (xf - mean[:, None]) * inv[:, None]
+    if silu:
+        y = norm * scale + bias
+        sig = torch.sigmoid(y)
+        dy = gf * sig * (1.0 + y * (1.0 - sig))
+    else:
+        dy = gf
+    db = _chunk_sum(_chunk_partials(lambda s, d: s + d, plan, hw, dy))
+    ds = _chunk_sum(_chunk_partials(lambda s, d, m: _fma(s, d, m), plan, hw, dy, norm))
+    cnt = torch.tensor(float(hw * cg))
+    m1, m2 = ((_warp_group_sum(t * scale, G) / cnt).repeat_interleave(cg, -1)[:, None]
+              for t in (db, ds))
+    dx = inv[:, None] * (dy * scale - m1 - norm * m2)
+
+    def item_sum(t):
+        lanes = torch.zeros(32, c)
+        for i in range(n):
+            lanes[i % 32] = lanes[i % 32] + t[i]
+        for o in (16, 8, 4, 2, 1):
+            lanes = lanes + lanes[torch.arange(32) ^ o]
+        return lanes[0]
+
+    return dx.reshape(x.shape).to(x.dtype), item_sum(ds), item_sum(db)
+
+
+# (N, H, C, G, dtype): channels that are not whole 16-byte rows, a group of
+# 512 channels over 32 tiles, a C of a full tile and a tail (cg = 100 across
+# the tiles), and a narrow C with four row lanes.
+SPLIT_CASES = [(2, 4, 6, 6, "f32"), (2, 4, 12, 12, "bf16"), (1, 2, 8192, 16, "f32"),
+               (2, 8, 300, 3, "f32"), (3, 16, 64, 32, "bf16")]
+
+
+@pytest.mark.parametrize("N,H,C,G,dtype", SPLIT_CASES)
+def test_split_model_matches_plain_and_tpu_kernel(N, H, C, G, dtype):
+    """The model of the split route's summation orders, under its plan and
+    under one of 5-row chunks (more chunks than a warp's 32 lanes at 16x16),
+    forward and backward with the SiLU, against the plain versions and the
+    TPU kernels in interpret mode: every output within 1e-5 of max(1, its
+    max-abs) in f32, out and dx within 1e-2 in bf16 (the f32 statistics and
+    weight gradients within 1e-5)."""
+    import jax.numpy as jnp
+
+    x, scale, bias, g = _inputs_of((N, H, H, C), seed=C + G)
+    jd, td = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    xt, gt = torch.from_numpy(x).to(td), torch.from_numpy(g).to(td)
+    st, bt = torch.from_numpy(scale), torch.from_numpy(bias)
+    out, mean, inv = tgn.gn_silu_fwd_reference(xt, st, bt, G, 1e-5, True)
+    ref = (out, mean, inv) + tgn.gn_silu_bwd_reference(xt, st, bt, mean, inv, gt, G, True)
+    tpu = _tpu_kernels(jnp.asarray(x, jd), jnp.asarray(scale), jnp.asarray(bias),
+                       jnp.asarray(g, jd), G, True)
+    planned = tgn.split_plan(N, H * H, C)
+    chunked = planned._replace(rows=5, chunks=-(-H * H // 5))
+    for plan in {planned, chunked}:
+        _check_split_plan(plan, N, H * H, C)
+        got = _split_model(xt, st, bt, G, 1e-5, True, plan)
+        got += _bwd_split_model(xt, st, bt, got[1], got[2], gt, G, True, plan)
+        for other in (ref, tpu):
+            for name, a, r in zip(_NAMES, got, other):
+                tol = 1e-2 if dtype == "bf16" and name in ("out", "dx") else 1e-5
+                r = r.float() if isinstance(r, torch.Tensor) else np.asarray(r, np.float32)
+                assert _rel_err(a.float().numpy(), np.asarray(r).reshape(a.shape)) <= tol, \
+                    (plan, name)
+
+
 def _on_card(x, scale, bias, g, dtype):
     return [torch.from_numpy(a).cuda().to(dtype if i in (0, 3) else torch.float32)
             for i, a in enumerate((x, scale, bias, g))]
@@ -653,6 +869,32 @@ def test_kernels_match_plain_on_cuda(N, H, C, silu, dtype, tol, wtol):
     _, mean, inv = first
     first = tgn.fused_group_norm_silu_bwd(xt, st, bt, mean, inv, gt, 32, silu)
     again = tgn.fused_group_norm_silu_bwd(xt, st, bt, mean, inv, gt, 32, silu)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,G,dtype", BEYOND_STRIP + [((2, 256, 256, 256), 32, "f32")])
+def test_kernels_beyond_the_strip_match_plain_on_cuda(shape, G, dtype):
+    """The split route (and the strip over several launches at N = 70,000)
+    against the plain versions as ``_check_kernels_on_cuda`` holds them,
+    with and without the SiLU, and reruns giving the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("the GroupNorm kernels run only on a CUDA device")
+    from cfm_tpu_torch.device import strict_f32
+
+    td = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    tol, wtol = (1e-4, 1e-4) if dtype == "f32" else (2e-2, 1e-3)
+    inputs = _inputs_of(shape, seed=shape[-1])
+    for silu in (False, True):
+        with strict_f32():
+            _check_kernels_on_cuda(*inputs, G, silu, td, tol, wtol)
+    xt, st, bt, gt = _on_card(*inputs, td)
+    first = tgn.fused_group_norm_silu_fwd(xt, st, bt, G, 1e-5, True)
+    assert all(torch.equal(a, b) for a, b in zip(
+        first, tgn.fused_group_norm_silu_fwd(xt, st, bt, G, 1e-5, True)))
+    _, mean, inv = first
+    first = tgn.fused_group_norm_silu_bwd(xt, st, bt, mean, inv, gt, G, True)
+    again = tgn.fused_group_norm_silu_bwd(xt, st, bt, mean, inv, gt, G, True)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 

@@ -99,9 +99,11 @@ def test_trainer_streams_host_batches(tmp_path):
 
 def test_trainer_refuses_what_is_not_ported(monkeypatch, tmp_path):
     """A checkpoint and an evaluation falling due, refused before the harness
-    and the image evaluation were ported, now run, and so do SDE evaluation
-    and activation checkpointing; the mesh and class-conditional I-CFM still
-    refuse."""
+    and the image evaluation were ported, now run, and so do SDE evaluation,
+    activation checkpointing and ``trainer.data_parallel`` with several
+    cards (without a process group of more than one rank, one process
+    trains alone; tests/test_torch_parallel.py runs two ranks);
+    class-conditional I-CFM still refuses."""
     cfg = tcfg.load_config("cifar10_otcfm", TINY + ["trainer.ckpt_interval=2",
                                                     "eval.num_eval_samples=8",
                                                     "eval.ode_method=euler",
@@ -115,9 +117,9 @@ def test_trainer_refuses_what_is_not_ported(monkeypatch, tmp_path):
     assert set(trainer.eval_log[0]) == {"step", "gen_mean", "gen_std", "nfe", "tracking_fid",
                                         "seconds"}
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="data-parallel mesh"):
-        ttrn.Trainer(tcfg.load_config("cifar10_otcfm", TINY + iso(tmp_path)), device="cpu",
-                     log_dir=str(tmp_path))
+    alone = ttrn.Trainer(tcfg.load_config("cifar10_otcfm", TINY + iso(tmp_path / "alone")),
+                         device="cpu", log_dir=str(tmp_path))
+    assert alone.cfg.trainer.data_parallel and alone.mesh is None and alone.is_main
     for override in (["matcher.score_head=True", "eval.sde=True"],
                      ["model.use_checkpoint=True", "model.checkpoint_policy='dots'"]):
         cfg = tcfg.load_config("cifar10_otcfm", TINY + ["trainer.data_parallel=False"] + override
