@@ -2,9 +2,10 @@
 the image sets and the trajectory data (``data.trajectory``)."""
 
 from cfm_tpu_torch.data.toy import (blobs, checkerboard, circles, eight_gaussians,
-                                    gaussian_mixture, moons, pinwheel, sample_8gaussians,
-                                    sample_moons, scurve, spirals, swissroll, two_dim_data)
+                                    eight_normal_sample, gaussian_mixture, moons, pinwheel,
+                                    sample_8gaussians, sample_moons, scurve, spirals, swissroll,
+                                    two_dim_data)
 
-__all__ = ["blobs", "checkerboard", "circles", "eight_gaussians", "gaussian_mixture", "moons",
-           "pinwheel", "sample_8gaussians", "sample_moons", "scurve", "spirals", "swissroll",
-           "two_dim_data"]
+__all__ = ["blobs", "checkerboard", "circles", "eight_gaussians", "eight_normal_sample",
+           "gaussian_mixture", "moons", "pinwheel", "sample_8gaussians", "sample_moons", "scurve",
+           "spirals", "swissroll", "two_dim_data"]

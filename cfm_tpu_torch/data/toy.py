@@ -73,6 +73,23 @@ def eight_gaussians(generator: Generator, n: int, device=None, scale: float = 5.
 sample_8gaussians = eight_gaussians
 
 
+def eight_normal_sample(generator: Generator, n: int, device=None, dim: int = 2,
+                        scale: float = 1.0, var: float = 1.0) -> torch.Tensor:
+    """General-dimension 8 Gaussians (n, dim): the centres on the unit circle
+    times ``scale`` in the first two coordinates, noise of standard deviation
+    sqrt(var) in every coordinate. As in the JAX package, ``var`` is the
+    component variance; the reference's covariance quirk (sqrt(var) * I as
+    the covariance) is not copied."""
+    if dim < 2:
+        raise ValueError("eight_normal_sample needs dim >= 2")
+    device = _dev(generator, device)
+    angles = torch.arange(8, device=device) * (2 * math.pi / 8)
+    centers = torch.zeros((8, dim), device=device)
+    centers[:, 0], centers[:, 1] = scale * torch.cos(angles), scale * torch.sin(angles)
+    comp = _choice(generator, n, 8, device)
+    return centers[comp] + _normal(generator, (n, dim), device) * math.sqrt(var)
+
+
 def moons(generator: Generator, n: int, device=None, noise: float = 0.05) -> torch.Tensor:
     """Two interleaved half-moons at unit scale (sklearn's make_moons layout)."""
     device = _dev(generator, device)

@@ -143,6 +143,19 @@ def init_train_state(model: torch.nn.Module, optimizer: Optimizer,
     return TrainState(params, [p.detach().clone() for p in params], optimizer.init(params))
 
 
+def ema_module(model: torch.nn.Module, ema_params: List[torch.Tensor]) -> torch.nn.Module:
+    """A copy of ``model`` holding EMA parameters, gradients off: the first
+    entries of ``ema_params``, in the order of ``model.parameters()`` (pass
+    the entries after the flow head's for a score head)."""
+    import copy
+
+    ema = copy.deepcopy(model).requires_grad_(False)
+    with torch.no_grad():
+        for p, e in zip(ema.parameters(), ema_params):
+            p.copy_(e)
+    return ema
+
+
 @dataclasses.dataclass
 class StepDraws:
     """The random numbers of one train step.

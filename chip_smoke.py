@@ -132,8 +132,9 @@ a result:
     multi-head attention, 8 + 8 attention-block and 87 + 87 GroupNorm
     launches a step; then three steps profiled as in 9.
 13. The 2-D tutorial: ``Trainer`` on ``2d_otcfm`` as the preset gives it
-    (MLP width 64, batch 256, 5000 steps, W1 and W2 on 2048 points every
-    1000 steps): 5000 dense (#5) and 10 tiled (#6) auction launches. Prints
+    (MLP width 64, batch 256, W1 and W2 on 2048 points every 1000 steps)
+    for 2000 of its 5000 steps (phase 34 trains the same recipe): 2000
+    dense (#5) and 4 tiled (#6) auction launches. Prints
     ms per step and each evaluation's W1, W2, NFE and seconds; the final W2
     must be under 1.1. Then three steps profiled as in 9, with the
     host-to-device copies and stream synchronisations counted per step, and
@@ -280,13 +281,27 @@ a result:
     against the dense plan; ms a step and a gloo all-reduce's ms (through
     the host). Phases 32-33 must finish within DP_BUDGET_S.
 
+34. The examples: ``train_2d.main`` in this process, OT-CFM at its
+    defaults (2000 steps at batch 256, 2000 #5 launches, W2 under 0.9),
+    SB-CFM with the score head and the SDE and I-CFM with dopri5 (300 steps
+    each: 300 and 0 #5 launches), three #6 launches an evaluation (W1, W2,
+    the source's W2 at 2048), the counts exact; ``tabular_forest_flow.main``
+    raising scikit-learn's ``ImportError`` where it is not installed.
+35. The notebooks: each of ``cfm_tpu_torch/notebooks/`` read as JSON, its
+    code cells but the ``plot`` ones run in order in one namespace at the
+    CPU test's sizes (``gen_notebooks.SMOKE``, ``DEVICE = "cuda"``), the
+    launches of each counted exactly (#5 and #6 in the 2-D and single-cell
+    ones, #5, #8 and #9 in the MNIST ones, none in the CNF one); the
+    Forest-Flow notebook raising scikit-learn's ``ImportError``. Phases
+    34-35 must finish within EXAMPLES_BUDGET_S.
+
 Every ``Trainer`` and ``cli`` run writes its checkpoints and logs into a
 fresh directory under ``build/smoke_runs/``. The phases that time ``fit``
 (8 to 10, 13, 16, 19 and 21) build their trainers with checkpoint saves
 skipped, so their windows hold the steps alone; phase 18 times the saves.
 
 The last three lines are the kernels' JSON record (``launches`` summed over
-the paths of phases 6, 8, 10 to 14, 16 to 25, 28 to 31 and 32), the card's name and power
+the paths of phases 6, 8, 10 to 14, 16 to 25, 28 to 32, 34 and 35), the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -839,7 +854,7 @@ def check_auction():
     from cfm_tpu_torch.ops import auction as au
 
     fn = au.pallas_auction_assignment
-    for n in (2, 64, 128, 200, 256, 512):
+    for n in (2, 8, 64, 128, 200, 256, 512):
         line = []
         for kind in ("gauss", "ties", "dups", "rank1"):
             cost = auction_cost(n, kind, seed=n)
@@ -935,7 +950,7 @@ def check_auction_tiled():
     perm and round count on Gaussian, tied, duplicated and rank-1 costs at
     n = 256, 1024 and 2048 (the 2-D evaluation's size; not rank 1 at 1024
     and 2048 nor ties at 2048), and on the evaluation's W1 and W2 costs at
-    1024 and 2048. The plain version takes about 1 ms a round on the card
+    768 (the notebooks' size in phase 35), 1024 and 2048. The plain version takes about 1 ms a round on the card
     (rank 1 at n = 2048, where every row bids in most rounds, some 60k
     rounds), so there and at n = 4096 (row tile 128, the benefit in HBM) the
     kernel's permutation is held to scipy's alone: every checked
@@ -954,7 +969,8 @@ def check_auction_tiled():
     # scipy's optimum alone since phases 32-33 joined the script's time
     # limit; rank 1 and ties keep their plain check at the sizes below.
     no_plain = {(1024, "rank1"), (2048, "rank1"), (2048, "ties")}
-    cases = [(256, k) for k in kinds[:4]] + [(1024, k) for k in kinds]
+    cases = [(256, k) for k in kinds[:4]] + [(768, "w1"), (768, "w2")]
+    cases += [(1024, k) for k in kinds]
     cases += [(2048, k) for k in kinds] + [(4096, "w1")]
     for n, kind in cases:
         cost = (eval_cost(n, seed=n + 1, power=int(kind[1])) if kind in ("w1", "w2")
@@ -1118,13 +1134,28 @@ def mnist_model(device="cuda"):
     return build_model(load_config("mnist_otcfm_cond"), device)
 
 
+NB_MNIST_BATCH = 8  # the MNIST notebooks' batch at phase 35's sizes (gen_notebooks.SMOKE)
+
+
+def notebook_mnist_models():
+    """The MNIST notebooks' UNets: the presets at 16 channels, as their
+    ``Trainer`` builds them (class-conditional, unconditional)."""
+    from cfm_tpu_torch.config import load_config
+    from cfm_tpu_torch.trainer import build_model
+
+    return tuple(build_model(load_config(preset, ["model.num_channels=16"]), "cuda")
+                 for preset in ("mnist_otcfm_cond", "mnist_otcfm"))
+
+
 def record_gn_shapes(imagenet):
     """Phase 3: the (N, H, W, C, groups, dtype, SiLU) tuples, with their counts,
     that ``GroupNorm32`` gives the GroupNorm wrapper in one model evaluation of
     each path at its batch: CIFAR-10 generation (512) and training (128, in
-    train mode), MNIST training (128) and generation (80, 8 per class), and
-    the ImageNet-64 model ``imagenet`` in generation (64) and training (32, in
-    train mode)."""
+    train mode), MNIST training (128) and generation (80, 8 per class), the
+    ImageNet-64 model ``imagenet`` in generation (64) and training (32, in
+    train mode), and the MNIST notebooks' 16-channel UNets at phase 35's
+    sizes (training and evaluation at 8, generation at 80 by class and at
+    64)."""
     import torch
     from cfm_tpu_torch.models import unet
 
@@ -1138,6 +1169,7 @@ def record_gn_shapes(imagenet):
     unet.fused_group_norm_silu = recording
     try:
         recipe, mnist = seeded_model(RECIPE, torch.bfloat16, "cuda", seed=0), mnist_model()
+        nb_cond, nb_mnist = notebook_mnist_models()
         train = dict(train=True, generator=torch.Generator(device="cuda"))
         with torch.no_grad():
             for name, model, n, dim, kw in (
@@ -1146,9 +1178,13 @@ def record_gn_shapes(imagenet):
                     ("mnist training", mnist, TRAIN_BATCH, (28, 28, 1), {}),
                     ("mnist generation", mnist, MNIST_GEN, (28, 28, 1), {}),
                     ("imagenet64 generation", imagenet, IMAGENET_GEN, IMAGENET64["dim"], {}),
-                    ("imagenet64 training", imagenet, IMAGENET_BATCH, IMAGENET64["dim"], train)):
+                    ("imagenet64 training", imagenet, IMAGENET_BATCH, IMAGENET64["dim"], train),
+                    ("mnist notebook training", nb_cond, NB_MNIST_BATCH, (28, 28, 1), {}),
+                    ("mnist notebook generation", nb_cond, MNIST_GEN, (28, 28, 1), {}),
+                    ("mnist notebook unconditional generation", nb_mnist, 64, (28, 28, 1), {})):
                 seen.clear()
-                y = (torch.arange(n, device="cuda") % 10,) if model is not recipe else ()
+                labelled = model is not recipe and model is not nb_mnist
+                y = (torch.arange(n, device="cuda") % 10,) if labelled else ()
                 model(torch.rand(n, device="cuda"), torch.randn((n,) + dim, device="cuda"), *y, **kw)
                 paths[name] = {k: seen.count(k) for k in dict.fromkeys(seen)}
                 if len(seen) != GN_PER_EVAL[name.split()[0]]:
@@ -1753,20 +1789,25 @@ def check_2d_step_and_w2():
             raise AssertionError(f"W{power}: card {w_card} ({launched} launches) vs CPU {w_cpu}")
 
 
+TWOD_STEPS = 2000  # phase 13's steps of 2d_otcfm (5000 in the preset; cut for the time limit)
+
+
 def twod_training():
     """Phase 13: ``Trainer`` on ``2d_otcfm`` as the preset gives it (MLP
-    width 64, batch 256, Adam 2e-3, EMA 0.99, 5000 steps, W1/W2 on 2048
-    points every 1000 steps) with ``trainer.ckpt_interval=0`` (and the loss
-    logged every 1000 steps instead of 100). The launch
+    width 64, batch 256, Adam 2e-3, EMA 0.99, W1/W2 on 2048 points every
+    1000 steps) for TWOD_STEPS of its 5000 steps (phase 34 trains the same
+    recipe through ``train_2d``) with ``trainer.ckpt_interval=0`` (and the
+    loss logged every 1000 steps instead of 100). The launch
     counts are set to 0 just before ``fit`` and read just after: one dense
     auction (#5) a step, two tiled auctions (#6) an evaluation. Prints ms per
     step (evaluations excluded) and each evaluation; the final W2 must be
     under 1.1 (the JAX package's 800-step gate), printed beside the 2-moons
     band's OT-CFM threshold. Then three more steps profiled as in phase 9.
-    Returns the counts of the 5000 steps."""
+    Returns the counts of the steps."""
     import torch
 
-    trainer = phase_trainer("2d_otcfm", ["trainer.ckpt_interval=0", "trainer.log_interval=1000"],
+    trainer = phase_trainer("2d_otcfm", ["trainer.ckpt_interval=0", "trainer.log_interval=1000",
+                                         f"trainer.total_steps={TWOD_STEPS}"],
                             "2d_otcfm", skip_saves=True)
     cfg = trainer.cfg
     torch.cuda.synchronize()
@@ -3769,15 +3810,6 @@ def loss_and_grads(module, loss):
     return out
 
 
-def ema_module(model, ema_params):
-    import copy
-
-    ema = copy.deepcopy(model)
-    for p, e in zip(ema.parameters(), ema_params):
-        p.data.copy_(e)
-    return ema
-
-
 def cnf_maximum_likelihood(smi):
     """Phase 27: ``maximum_likelihood_CNF_tutorial`` as given: ``MLP(2, w=64)``,
     ``make_cnf_nll_loss(n_steps=40, divergence="exact")``, moons at batch
@@ -3925,7 +3957,8 @@ def ot_study(smi):
     from cfm_tpu_torch.models import MLP
     from cfm_tpu_torch.paths import (ConditionalFlowMatcher,
                                      ExactOptimalTransportConditionalFlowMatcher)
-    from cfm_tpu_torch.train import init_train_state, make_optimizer, make_train_step
+    from cfm_tpu_torch.train import (ema_module, init_train_state, make_optimizer,
+                                     make_train_step)
 
     t_phase = time.perf_counter()
     zero_counts()
@@ -4008,7 +4041,8 @@ def bridges(smi):
     from cfm_tpu_torch.integrate import odeint, vector_field_from_model
     from cfm_tpu_torch.models import MLP
     from cfm_tpu_torch.paths import SchrodingerBridgeConditionalFlowMatcher
-    from cfm_tpu_torch.train import init_train_state, make_optimizer, make_train_step
+    from cfm_tpu_torch.train import (ema_module, init_train_state, make_optimizer,
+                                     make_train_step)
 
     t_phase = time.perf_counter()
     zero_counts()
@@ -4680,6 +4714,162 @@ def data_parallel_two_ranks(smi, world=2):
         f"{r0['sinkhorn_err']:.2e} of its maximum")
 
 
+# Phases 34-35: the examples and the notebooks.
+EXAMPLES_BUDGET_S = 60.0  # phases 34-35 together; main fails above it
+TRAIN_2D_W2_GATE = 0.9    # train_2d's OT-CFM at its defaults (the JAX example's gate)
+TRAIN_2D_RUNS = ((["--matcher", "otcfm"], 2000),
+                 (["--matcher", "sbcfm", "--sde", "--steps", "300"], 300),
+                 (["--matcher", "icfm", "--ode-method", "dopri5", "--steps", "300"], 0))
+TABULAR_ARGS = ["--n_t", "3", "--dup", "3", "--steps", "10"]
+
+
+def has_sklearn():
+    import importlib.util
+
+    return importlib.util.find_spec("sklearn") is not None
+
+
+def train_2d_runs(smi):
+    """Phase 34: ``train_2d.main`` in this process on the card, as a user
+    runs it: OT-CFM at its defaults (2000 steps at batch 256, one dense
+    auction launch, #5, a step), W2 under TRAIN_2D_W2_GATE; SB-CFM with the
+    score head and the SDE (300 steps, #5 a step); I-CFM with dopri5 (300
+    steps, no coupling). Each evaluation is three tiled auction launches
+    (#6: W1, W2 and the source's W2 at n = 2048); the counts must be
+    exactly these. Then ``tabular_forest_flow.main``: where scikit-learn is
+    not installed (the card's machine) it must raise ``ImportError`` naming
+    it; where it is, its W2 must beat the noise baseline. Returns the
+    counts of each run."""
+    import torch
+    from cfm_tpu_torch import tabular_forest_flow, train_2d
+
+    t_phase = time.perf_counter()
+    out = {}
+    for argv, dense in TRAIN_2D_RUNS:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, text = captured(train_2d.main, argv)
+        sec = time.perf_counter() - t0
+        counts = read_counts()
+        want = dict.fromkeys(counts, 0)
+        want.update(auction=dense, auction_tiled=3)
+        finite = all(math.isfinite(res[k]) for k in ("w1", "w2", "w2_src"))
+        log(f"train_2d {' '.join(argv)}: {sec:.2f} s with the evaluation; W1 {res['w1']:.6f} "
+            f"W2 {res['w2']:.6f} (source W2 {res['w2_src']:.6f}); launches {counts} ({smi})")
+        if counts != want or not finite or not res["samples"].is_cuda:
+            raise AssertionError(f"train_2d {argv}: launches {counts}, expected {want}; {res}")
+        if argv[1] == "otcfm" and not res["w2"] < TRAIN_2D_W2_GATE:
+            raise AssertionError(f"train_2d otcfm: W2 {res['w2']} not under {TRAIN_2D_W2_GATE}")
+        out[f"train_2d {' '.join(argv)}"] = counts
+    if has_sklearn():
+        zero_counts()
+        res, _ = captured(tabular_forest_flow.main, TABULAR_ARGS)
+        if not res["w2"] < res["base"]:
+            raise AssertionError(f"tabular_forest_flow: {res}")
+        out["tabular_forest_flow"] = read_counts()
+    else:
+        try:
+            tabular_forest_flow.main(TABULAR_ARGS)
+        except ImportError as e:
+            if "sklearn" not in str(e):
+                raise
+            log(f"tabular_forest_flow without scikit-learn: ImportError ({e})")
+        else:
+            raise AssertionError("tabular_forest_flow ran without scikit-learn")
+    log(f"phase 34 in {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return out
+
+
+def assignment_kernel(n):
+    """The kernel of an n-point exact assignment on the card."""
+    from cfm_tpu_torch.ops.assignment import resolve_solver
+
+    return {"pallas": "auction", "pallas_tiled": "auction_tiled"}.get(
+        resolve_solver(n=n, device="cuda"), "plain")
+
+
+def notebook_launches(name, p):
+    """The launches of the notebook ``name`` at the sizes ``p`` (its
+    ``parameters`` cell's names), summed as its cells make them: a coupled
+    step is one assignment at BATCH, a W1 or W2 one at the cloud's size; an
+    MNIST UNet evaluation calls GroupNorm GN_PER_EVAL["mnist"] times, and a
+    training step as many times backward."""
+    from collections import Counter
+
+    from cfm_tpu_torch.config import load_config
+
+    c = Counter()
+    solve = lambda n, k=1: c.update({assignment_kernel(n): k})  # noqa: E731
+    gn_calls = GN_PER_EVAL["mnist"]
+    if name == "flow_matching_tutorial.ipynb":   # OT-CFM and SB-CFM steps; 3 W2
+        solve(p["BATCH"], 2 * p["STEPS"]), solve(p["N"], 3)
+    elif name == "SF2M_tutorial.ipynb":          # SB-CFM steps; the ODE's and SDE's W2
+        solve(p["BATCH"], p["STEPS"]), solve(p["N"], 2)
+    elif name in ("conditional_mnist.ipynb", "mnist_example.ipynb"):
+        evals = p["STEPS"] + p["GEN_STEPS"]
+        if name == "mnist_example.ipynb":        # evaluate(): the preset's euler steps
+            evals += load_config("mnist_otcfm").eval.ode_steps
+        solve(p["BATCH"], p["STEPS"])
+        c.update(gn_silu_fwd=gn_calls * evals, gn_silu_bwd=gn_calls * p["STEPS"])
+    elif name == "minibatch_OT_study.ipynb":     # the plans, then OT-CFM's steps
+        solve(p["BATCH"], p["PLANS"] + p["STEPS"])
+    elif name == "model_comparison_plotting.ipynb":  # OT-CFM and SB-CFM steps; 5 W2
+        solve(p["BATCH"], 2 * p["STEPS"]), solve(p["N"], 5)
+    elif name == "single_cell_example.ipynb":    # steps; W1 and W2 of 4 timepoints; 4 plans
+        solve(p["BATCH"], p["STEPS"]), solve(p["N_CELLS"], 12)
+    elif name == "tabular_forest_flow.ipynb":    # W2 of the generated rows against iris's 150
+        if p["M"] == 150:
+            solve(150)
+    counts = dict.fromkeys(kernel_fns(), 0)
+    counts.update({k: v for k, v in c.items() if k != "plain"})
+    return counts
+
+
+def notebooks_on_card(smi):
+    """Phase 35: every notebook of ``cfm_tpu_torch/notebooks/`` read as JSON,
+    its code cells but the ``plot`` ones run in order in one fresh namespace
+    (``gen_notebooks.execute``), the ``parameters`` cell set to the CPU
+    test's sizes (``gen_notebooks.SMOKE``) with ``DEVICE = "cuda"``, the
+    MNIST runs writing under ``build/smoke_runs``. Each notebook's launches
+    are counted from 0 and must equal ``notebook_launches``; the Forest-Flow
+    notebook must raise scikit-learn's ``ImportError`` where it is not
+    installed. Returns the summed counts."""
+    import torch
+    from cfm_tpu_torch import gen_notebooks as gn
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(kernel_fns(), 0)
+    for name in gn.NOTEBOOKS:
+        params = dict(gn.SMOKE[name], DEVICE="cuda", RESULTS=run_dir(f"nb_{name[:-6]}"))
+        path = os.path.join(gn.OUT, name)
+        if name == "tabular_forest_flow.ipynb" and not has_sklearn():
+            try:
+                gn.execute(path, params)
+            except ImportError as e:
+                if "sklearn" not in str(e):
+                    raise
+                log(f"notebook {name}: ImportError without scikit-learn ({e})")
+                continue
+            raise AssertionError(f"{name} ran without scikit-learn")
+        zero_counts()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            gn.execute(path, params)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts, want = read_counts(), notebook_launches(name, params)
+        last = buf.getvalue().strip().splitlines()[-1:] or [""]
+        log(f"notebook {name} at {gn.SMOKE[name]}: {sec:.2f} s, launches {counts}; its last "
+            f"line: {last[0]}")
+        if counts != want:
+            raise AssertionError(f"notebook {name}: launches {counts}, expected {want}")
+        total = {k: total[k] + counts[k] for k in total}
+    log(f"phase 35 in {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -4791,6 +4981,13 @@ def main() -> int:
     log(f"phases 32-33 in {sec:.1f} s (budget {DP_BUDGET_S} s)")
     if sec > DP_BUDGET_S:
         raise AssertionError(f"phases 32-33 took {sec:.1f} s, above {DP_BUDGET_S} s")
+    t_examples = time.perf_counter()
+    launches.update(train_2d_runs(smi))
+    launches["notebooks"] = notebooks_on_card(smi)
+    sec = time.perf_counter() - t_examples
+    log(f"phases 34-35 in {sec:.1f} s (budget {EXAMPLES_BUDGET_S} s)")
+    if sec > EXAMPLES_BUDGET_S:
+        raise AssertionError(f"phases 34-35 took {sec:.1f} s, above {EXAMPLES_BUDGET_S} s")
     total = {k: sum(run[k] for run in launches.values()) for k in kernel_fns()}
     log(f"launches by path {launches}; summed {total}")
 

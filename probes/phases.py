@@ -9,8 +9,9 @@ The table: 3 (the GroupNorm kernels at ``ResNetDiffEq``'s shapes and
 beyond the strip, and phase 4's timing at 256x256 float32), 18 (the
 presets as given), 19-22 (SDE generation, activation checkpointing, tsit5
 and the continuous adjoint), 23-26 (the single-cell path), 27-31 (the
-research variants) and 32-33 (data parallelism; 32 prints its step beside
-phase 8's time in ``chip_smoke.py``'s last full run, ``PHASE8_MS``). A phase that needs another's result runs that one
+research variants), 32-33 (data parallelism; 32 prints its step beside
+phase 8's time in ``chip_smoke.py``'s last full run, ``PHASE8_MS``) and
+34-35 (the examples and the notebooks). A phase that needs another's result runs that one
 first (22 needs 19's trainer, 25 needs 24's plans). Phase 22's tsit5 is
 printed beside phase 6's dopri5 as ``chip_smoke.py`` last measured it
 (NFE 62, 292.39 images/s), which this script does not run.
@@ -66,6 +67,8 @@ def table(smi, need):
         "31": lambda: cs.diffeq_zoo(smi),
         "32": lambda: cs.data_parallel_one_rank(cifar, cs.PHASE8_MS, smi),
         "33": lambda: cs.data_parallel_two_ranks(smi),
+        "34": lambda: cs.train_2d_runs(smi),
+        "35": lambda: cs.notebooks_on_card(smi),
     }
 
 

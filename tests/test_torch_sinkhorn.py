@@ -39,7 +39,7 @@ import pytest
 import torch
 
 from cfm_tpu_torch.ops import flash_sinkhorn as tfs
-from cfm_tpu_torch.ops import sinkhorn as tsk
+tsk = importlib.import_module("cfm_tpu_torch.ops.sinkhorn")
 
 
 def _clouds(n, m, d=2, seed=0, shift=0.7):
