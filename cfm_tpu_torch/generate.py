@@ -5,7 +5,8 @@ make_data_parallel_sample_fn`` and of ``gen_batch`` in
 ``examples/compute_fid.py``: x0 ~ N(0, I) in NHWC, ``odeint`` through the
 model over [0, 1] (the adaptive dopri5 and tsit5 over the two-point span,
 fixed-step methods over ``n_steps`` intervals, unless a grid is given),
-final state to uint8.
+final state to uint8. Each batch is one ``gen.batch`` span (``profiling``)
+holding the solve and ``gen.check``, the host's read of its finiteness.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from cfm_tpu_torch.device import DeviceLike, resolve_device
 from cfm_tpu_torch.eval.protocol import quantize_to_uint8
 from cfm_tpu_torch.integrate import odeint, vector_field_from_model
+from cfm_tpu_torch.profiling import span
 
 _ADAPTIVE = ("dopri5", "tsit5")
 _FIXED = ("euler", "midpoint", "heun", "rk4")
@@ -71,12 +73,15 @@ def generate(model: torch.nn.Module, n: int, *, x_shape: Tuple[int, int, int] = 
     with torch.inference_mode():
         for start in range(0, n, batch_size or n):
             batch = slice(start, start + (batch_size or n))
-            f = vector_field_from_model(model, None if y is None else y[batch].to(device))
-            sol = odeint(f, x0[batch], ts, method=method,
-                         rtol=rtol, atol=atol, max_steps=max_steps, return_trajectory=False)
-            if not bool(torch.isfinite(sol.final).all()):
-                raise RuntimeError(f"{method} did not reach t=1 within max_steps={max_steps} "
-                                   "or produced non-finite values")
-            images.append(quantize_to_uint8(sol.final))
-            nfe += sol.nfe
+            with span("gen.batch", start=start):
+                f = vector_field_from_model(model, None if y is None else y[batch].to(device))
+                sol = odeint(f, x0[batch], ts, method=method,
+                             rtol=rtol, atol=atol, max_steps=max_steps, return_trajectory=False)
+                with span("gen.check"):
+                    finite = bool(torch.isfinite(sol.final).all())
+                if not finite:
+                    raise RuntimeError(f"{method} did not reach t=1 within max_steps={max_steps} "
+                                       "or produced non-finite values")
+                images.append(quantize_to_uint8(sol.final))
+                nfe += sol.nfe
     return Generated(torch.cat(images), nfe)

@@ -32,6 +32,13 @@ The step-control scalars (t, dt, error ratios) live on the host as float32,
 as they are float32 scalars in the JAX loop; each trial step reads its error
 ratio from the device once.
 
+Spans (``profiling``): ``ode.solve`` an ``odeint`` call; in dopri5 and
+tsit5 ``ode.trial`` a trial step's stages and error ratio (attribute
+``accepted``), ``ode.read`` each blocking read of an error norm, and
+``ode.control`` the step control after a trial's read (the step size, the
+output writes, the end test): host time while the card waits. Counters:
+``ode.trial_steps`` and ``ode.rejected_steps``.
+
 ``sdeint`` draws each step's standard normals from an explicit
 ``torch.Generator`` (one step at a time, never an (n_steps, *x.shape) block),
 or takes them as ``noise``; it reads nothing back to the host.
@@ -45,6 +52,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from cfm_tpu_torch.profiling import count, span
 
 VectorField = Callable[[float, Any], Any]  # (t, x) -> dx/dt
 _f32 = np.float32
@@ -162,6 +171,11 @@ def odeint(f: VectorField, x0: Any, ts: Union[Sequence[float], np.ndarray, torch
     interval; dopri5 picks its own steps and writes grid points by dense
     output. ``x0`` is a tensor or a tuple, NamedTuple or dict of tensors, and
     ``f`` returns the same structure."""
+    with span("ode.solve", method=method):
+        return _odeint(f, x0, ts, method, rtol, atol, max_steps, return_trajectory)
+
+
+def _odeint(f, x0, ts, method, rtol, atol, max_steps, return_trajectory) -> ODESolution:
     ts = _grid(ts)
     if method in _FIXED_STEPPERS:
         stepper = _FIXED_STEPPERS[method]
@@ -213,7 +227,9 @@ def _rms(x) -> np.float32:
     total = torch.sum(torch.square(leaves[0]))
     for leaf in leaves[1:]:
         total = total + torch.sum(torch.square(leaf))
-    return _f32(torch.sqrt(total / sum(leaf.numel() for leaf in leaves)).item())
+    norm = torch.sqrt(total / sum(leaf.numel() for leaf in leaves))
+    with span("ode.read"):
+        return _f32(norm.item())
 
 
 def _err_ratio(err, x_new, x_old, rtol, atol) -> np.float32:
@@ -303,6 +319,12 @@ def _ends(out, T):
     return tree_map(lambda buf: buf[[0, T - 1]], out)
 
 
+def _count_trial(accepted: bool) -> None:
+    count("ode.trial_steps")
+    if not accepted:
+        count("ode.rejected_steps")
+
+
 def _odeint_dopri5(f, x0, ts, rtol, atol, max_steps, return_trajectory):
     T = ts.shape[0]
     t0, t1 = ts[0], ts[-1]
@@ -316,22 +338,26 @@ def _odeint_dopri5(f, x0, ts, rtol, atol, max_steps, return_trajectory):
     tol_done = _f32(1e-10) * max(abs(t1), _f32(1.0))
     theta_hi = _f32(1.0 + 1e-7)
     while not done and steps < max_steps:
-        remaining = t1 - t
-        if abs(dt) > abs(remaining):
-            dt = remaining
-        x_new, err, ks = _dp_step_stages(f, t, dt, x, k1)
-        e = _err_ratio(err, x_new, x, rtol, atol)
-        accept = bool(e <= _f32(1.0))
-        dt_next = dt * _pi_factor(e, accept)
-        if accept:
-            theta = (ts - t) / dt
-            for i in np.nonzero((theta > 0) & (theta <= theta_hi))[0]:
-                _write(out, i, _contd5(theta[i], dt, x, x_new, ks))
-            t, x, k1 = t + dt, x_new, ks[6]
-        nfe += 6
-        steps += 1
-        dt = dt_next
-        done = bool(abs(t1 - t) <= tol_done)
+        with span("ode.trial") as trial:
+            remaining = t1 - t
+            if abs(dt) > abs(remaining):
+                dt = remaining
+            x_new, err, ks = _dp_step_stages(f, t, dt, x, k1)
+            e = _err_ratio(err, x_new, x, rtol, atol)
+            accept = bool(e <= _f32(1.0))
+            trial.set(accepted=accept)
+            _count_trial(accept)
+        with span("ode.control"):
+            dt_next = dt * _pi_factor(e, accept)
+            if accept:
+                theta = (ts - t) / dt
+                for i in np.nonzero((theta > 0) & (theta <= theta_hi))[0]:
+                    _write(out, i, _contd5(theta[i], dt, x, x_new, ks))
+                t, x, k1 = t + dt, x_new, ks[6]
+            nfe += 6
+            steps += 1
+            dt = dt_next
+            done = bool(abs(t1 - t) <= tol_done)
     _write(out, -1, x if done else None)
     if not return_trajectory:
         out = _ends(out, T)
@@ -399,26 +425,30 @@ def _odeint_tsit5(f, x0, ts, rtol, atol, max_steps, return_trajectory):
         return abs(a - b) <= _f32(1e-10) * max(abs(a), _f32(1.0))
 
     while not done and steps < max_steps:
-        t_out = ts[idx]
-        remaining = t_out - t
-        dt_c = remaining if abs(dt) > abs(remaining) else dt
-        x_new, err, ks = _ts_step_stages(f, t, dt_c, x, k1)
-        e = _err_ratio(err, x_new, x, rtol, atol)
-        accept = bool(e <= _f32(1.0))
-        factor = _pi_factor(e, accept)
-        if accept:
-            t, x, k1 = t + dt_c, x_new, ks[6]
-        landed = accept and near(t_out, t)
-        if landed:
-            _write(out, idx, x)
-            idx = min(idx + 1, T - 1)
-        done = landed and idx == T - 1 and near(t1, t)
-        # An accepted step keeps max(|dt|, |dt_c * factor|): a landing clamped
-        # short (or to 0 on duplicate grid entries) must not shrink the next
-        # trial; a rejected one shrinks from the dt_c that failed.
-        dt = direction * max(abs(dt), abs(dt_c * factor)) if accept else dt_c * factor
-        nfe += 6
-        steps += 1
+        with span("ode.trial") as trial:
+            t_out = ts[idx]
+            remaining = t_out - t
+            dt_c = remaining if abs(dt) > abs(remaining) else dt
+            x_new, err, ks = _ts_step_stages(f, t, dt_c, x, k1)
+            e = _err_ratio(err, x_new, x, rtol, atol)
+            accept = bool(e <= _f32(1.0))
+            trial.set(accepted=accept)
+            _count_trial(accept)
+        with span("ode.control"):
+            factor = _pi_factor(e, accept)
+            if accept:
+                t, x, k1 = t + dt_c, x_new, ks[6]
+            landed = accept and near(t_out, t)
+            if landed:
+                _write(out, idx, x)
+                idx = min(idx + 1, T - 1)
+            done = landed and idx == T - 1 and near(t1, t)
+            # An accepted step keeps max(|dt|, |dt_c * factor|): a landing clamped
+            # short (or to 0 on duplicate grid entries) must not shrink the next
+            # trial; a rejected one shrinks from the dt_c that failed.
+            dt = direction * max(abs(dt), abs(dt_c * factor)) if accept else dt_c * factor
+            nfe += 6
+            steps += 1
     _write(out, -1, x if done else None)
     if not return_trajectory:
         out = _ends(out, T)

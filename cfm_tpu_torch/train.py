@@ -37,6 +37,7 @@ import torch.distributed as dist
 
 from cfm_tpu_torch.parallel.mesh import (axis_group, axis_index, make_mesh as _make_mesh,
                                          rank_device, rank_streams)
+from cfm_tpu_torch.profiling import span
 from cfm_tpu_torch.utils import ema_update
 
 
@@ -202,14 +203,15 @@ def _all_reduce_flat(tensors: List[torch.Tensor], group, scale: float) -> List[t
     """The tensors summed over ``group`` in one collective (one flat float32
     buffer) and multiplied by ``scale``; views of that buffer, shaped as
     given."""
-    flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-    if scale != 1.0:
-        flat.mul_(scale)
-    out, at = [], 0
-    for t in tensors:
-        out.append(flat[at:at + t.numel()].view(t.shape).to(t.dtype))
-        at += t.numel()
+    with span("train.allreduce"):
+        flat = torch.cat([t.reshape(-1).float() for t in tensors])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        if scale != 1.0:
+            flat.mul_(scale)
+        out, at = [], 0
+        for t in tensors:
+            out.append(flat[at:at + t.numel()].view(t.shape).to(t.dtype))
+            at += t.numel()
     return out
 
 
@@ -234,6 +236,11 @@ def make_train_step(matcher, model: torch.nn.Module, optimizer: Optimizer,
     the uniform coupling) and ``grad_norm`` (before clipping, over every
     parameter of the state).
 
+    Each call is one ``train.step`` span (``profiling``) holding
+    ``train.coupling`` (a coupled matcher's plan), ``train.forward`` (path
+    sample, model, loss), ``train.backward``, ``train.allreduce`` (with
+    ``data_axis``), ``train.optimizer`` and ``train.ema``.
+
     ``data_axis`` (a mesh axis name, or a tuple of them; the default process
     group without ``mesh``): each rank runs the step on its own rows, and
     the gradients and metrics are averaged over the axis's ranks (one
@@ -248,18 +255,31 @@ def make_train_step(matcher, model: torch.nn.Module, optimizer: Optimizer,
         raise ValueError(f"class-conditional training needs a coupled matcher (otcfm); "
                          f"{type(matcher).__name__} carries no labels, as in the JAX package")
 
+    # The path is sampled on the coupled pairs by the matcher's uncoupled view,
+    # so that the plan is a span of its own.
+    path = matcher.without_coupling() if coupled else matcher
+
+    def couple(draws, x0, x1, y0, y1):
+        """The plan's re-pairing of the rows (and labels), and its status."""
+        if not coupled:
+            return x0, x1, y0, y1, torch.zeros((), dtype=torch.bool, device=x0.device)
+        with span("train.coupling"):
+            if class_conditional:
+                return matcher.ot_sampler.sample_plan_with_labels(
+                    None, x0, x1, y0, y1, return_status=True, noise=draws.plan_u)
+            x0, x1, bad = matcher.ot_sampler.sample_plan(
+                None, x0, x1, return_status=True, noise=draws.plan_u, gumbel=draws.gumbel,
+                uniform_j=draws.uniform_j)
+            return x0, x1, y0, y1, bad
+
     def flow(draws, x0, x1, y0, y1):
-        kw = dict(t=draws.t, eps=draws.eps, return_noise=True, return_coupling_status=True)
-        if coupled:
-            kw["plan_noise"] = draws.plan_u
+        kw = dict(t=draws.t, eps=draws.eps, return_noise=True)
         if class_conditional:
-            t, xt, ut, _, y1_, eps, bad = matcher.guided_sample_location_and_conditional_flow(
+            t, xt, ut, _, y1_, eps = path.guided_sample_location_and_conditional_flow(
                 None, x0, x1, y0=y0, y1=y1, **kw)
-            return t, xt, ut, eps, (y1_,), bad
-        if coupled:
-            kw.update(gumbel=draws.gumbel, uniform_j=draws.uniform_j)
-        t, xt, ut, eps, bad = matcher.sample_location_and_conditional_flow(None, x0, x1, **kw)
-        return t, xt, ut, eps, (), bad
+            return t, xt, ut, eps, (y1_,)
+        t, xt, ut, eps = path.sample_location_and_conditional_flow(None, x0, x1, **kw)
+        return t, xt, ut, eps, ()
 
     def call(net, t, xt, cond, draws):
         if train_mode:
@@ -276,40 +296,46 @@ def make_train_step(matcher, model: torch.nn.Module, optimizer: Optimizer,
             flash = coupled and not class_conditional and matcher.ot_sampler._use_flash(x0, x1)
             draws = StepDraws.draw(generator, x0, coupled, train_mode,
                                    flash_m=x1.shape[0] if flash else None)
-        t, xt, ut, eps, cond, bad = flow(draws, x0, x1, y0, y1)
-        if rows is not None:
-            t, xt, ut, eps = t[rows], xt[rows], ut[rows], eps[rows]
-            cond = tuple(c[rows] for c in cond)
-        scaled = (lambda v: v) if weight == 1.0 else (lambda v: v * weight)
-        flow_loss = scaled(torch.mean(torch.square(call(model, t, xt, cond, draws) - ut)))
-        metrics = {"flow_loss": flow_loss.detach(), "coupling_degenerate": bad.float()}
-        loss = flow_loss
-        if score_model is not None:
-            st = call(score_model, t, xt, cond, draws)
-            lam = matcher.compute_lambda(t).reshape(-1, *([1] * (st.dim() - 1)))
-            score_loss = scaled(torch.mean(torch.square(lam * st + eps)))
-            metrics["score_loss"] = score_loss.detach()
-            loss = flow_loss + score_loss
-        metrics["loss"] = loss.detach()
-        for p in state.params:
-            p.grad = None
-        loss.backward()
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in state.params]
+        x0, x1, y0, y1, bad = couple(draws, x0, x1, y0, y1)
+        with span("train.forward"):
+            t, xt, ut, eps, cond = flow(draws, x0, x1, y0, y1)
+            if rows is not None:
+                t, xt, ut, eps = t[rows], xt[rows], ut[rows], eps[rows]
+                cond = tuple(c[rows] for c in cond)
+            scaled = (lambda v: v) if weight == 1.0 else (lambda v: v * weight)
+            flow_loss = scaled(torch.mean(torch.square(call(model, t, xt, cond, draws) - ut)))
+            metrics = {"flow_loss": flow_loss.detach(), "coupling_degenerate": bad.float()}
+            loss = flow_loss
+            if score_model is not None:
+                st = call(score_model, t, xt, cond, draws)
+                lam = matcher.compute_lambda(t).reshape(-1, *([1] * (st.dim() - 1)))
+                score_loss = scaled(torch.mean(torch.square(lam * st + eps)))
+                metrics["score_loss"] = score_loss.detach()
+                loss = flow_loss + score_loss
+            metrics["loss"] = loss.detach()
+        with span("train.backward"):
+            for p in state.params:
+                p.grad = None
+            loss.backward()
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in state.params]
         if group is not None:
             names = [k for k in metrics if reduce_status or k != "coupling_degenerate"]
             out = _all_reduce_flat(grads + [metrics[k] for k in names], group, scale)
             grads = out[:len(grads)]
             metrics.update(zip(names, out[len(grads):]))
-        metrics["grad_norm"] = optimizer.apply(state.params, grads, state.opt_state)
-        ema_update(state.ema_params, state.params, ema_decay)
+        with span("train.optimizer"):
+            metrics["grad_norm"] = optimizer.apply(state.params, grads, state.opt_state)
+        with span("train.ema"):
+            ema_update(state.ema_params, state.params, ema_decay)
         state.step += 1
         return metrics
 
     def step_run(state, x0, x1, y0, y1, generator, draws):
-        if group is None:
-            return run(state, x0, x1, y0, y1, generator, draws)
-        return run(state, x0, x1, y0, y1, generator, draws, group=group,
-                   scale=1.0 / dist.get_world_size(group))
+        with span("train.step", step=state.step):
+            if group is None:
+                return run(state, x0, x1, y0, y1, generator, draws)
+            return run(state, x0, x1, y0, y1, generator, draws, group=group,
+                       scale=1.0 / dist.get_world_size(group))
 
     if class_conditional:
         def step(state: TrainState, x0: torch.Tensor, x1: torch.Tensor, y0: torch.Tensor,
@@ -360,9 +386,10 @@ def make_data_parallel_step(train_step: Callable, mesh, data_axis: str = "data")
              draws: Optional[StepDraws] = None):
         y0, y1 = _labels(train_step._class_conditional, labels)
         b = x0.shape[0]
-        return run(state, gather(x0), gather(x1), gather(y0), gather(y1), generator, draws,
-                   rows=slice(idx * b, (idx + 1) * b), weight=1.0 / count, group=group,
-                   reduce_status=False)
+        with span("train.step", step=state.step):
+            return run(state, gather(x0), gather(x1), gather(y0), gather(y1), generator, draws,
+                       rows=slice(idx * b, (idx + 1) * b), weight=1.0 / count, group=group,
+                       reduce_status=False)
 
     return step
 
@@ -386,6 +413,7 @@ def make_replicated_coupling_shard_fn(matcher, model: torch.nn.Module, optimizer
     coupled = _is_coupled(matcher)
     inner = make_train_step(matcher.without_coupling() if coupled else matcher, model, optimizer,
                             data_axis=data_axis, mesh=mesh, **step_kwargs)
+    group = axis_group(mesh, data_axis)
     idx, count = axis_index(mesh, data_axis)
     stream = rank_streams(idx)
 
@@ -394,24 +422,28 @@ def make_replicated_coupling_shard_fn(matcher, model: torch.nn.Module, optimizer
         y0, y1 = _labels(inner._class_conditional, labels)
         if x0.shape[0] % count:
             raise ValueError(f"global batch {x0.shape[0]} must divide over {count} devices")
-        bad = None
-        if coupled:
-            sampler = matcher.ot_sampler
-            if inner._class_conditional:
-                x0, x1, y0, y1, bad = sampler.sample_plan_with_labels(
-                    generator, x0, x1, y0, y1, return_status=True, noise=plan_noise)
-            else:
-                x0, x1, bad = sampler.sample_plan(generator, x0, x1, return_status=True,
-                                                  noise=plan_noise)
-        shard = x0.shape[0] // count
-        rows = [None if t is None else t[idx * shard:(idx + 1) * shard] for t in (x0, x1, y0, y1)]
-        if draws is None:
-            generator = stream(generator)
-        labels = rows[2:] if inner._class_conditional else ()
-        metrics = inner(state, rows[0], rows[1], *labels, generator=generator, draws=draws)
-        if bad is not None:
-            metrics["coupling_degenerate"] = bad.float()
-        return metrics
+        with span("train.step", step=state.step):
+            bad = None
+            if coupled:
+                sampler = matcher.ot_sampler
+                with span("train.coupling"):
+                    if inner._class_conditional:
+                        x0, x1, y0, y1, bad = sampler.sample_plan_with_labels(
+                            generator, x0, x1, y0, y1, return_status=True, noise=plan_noise)
+                    else:
+                        x0, x1, bad = sampler.sample_plan(generator, x0, x1, return_status=True,
+                                                          noise=plan_noise)
+            shard = x0.shape[0] // count
+            rows = [None if t is None else t[idx * shard:(idx + 1) * shard]
+                    for t in (x0, x1, y0, y1)]
+            if draws is None:
+                generator = stream(generator)
+            # The inner step's body, not its call: one train.step span a step.
+            metrics = inner._run(state, *rows, generator, draws, group=group,
+                                 scale=1.0 / dist.get_world_size(group))
+            if bad is not None:
+                metrics["coupling_degenerate"] = bad.float()
+            return metrics
 
     shard_fn._data_axis = data_axis
     return shard_fn

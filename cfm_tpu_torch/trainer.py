@@ -58,6 +58,7 @@ matcher carries no labels.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import csv
 import dataclasses
@@ -72,6 +73,7 @@ import torch
 import torch.distributed as dist
 
 from cfm_tpu_torch.checkpoint import CheckpointManager
+from cfm_tpu_torch import profiling
 from cfm_tpu_torch.config import Config
 from cfm_tpu_torch.coupling import wasserstein
 from cfm_tpu_torch.data.images import (infinite_batches, load_cifar10, load_mnist,
@@ -423,72 +425,68 @@ class Trainer:
         start = self.state.step
         if t.early_stop_metric and not t.eval_interval:
             raise ValueError("early_stop_metric requires eval_interval > 0")
-        # The debug hooks are scoped to this fit: anomaly mode restored, the
-        # profiler stopped, in the finally below.
+        # The debug hooks are scoped to this fit: anomaly mode restored in the
+        # finally below; the profiler (with the spans on) stopped and its trace
+        # written as the loop's block exits, also on an error.
         anomaly = None
         if t.debug_nans:
             anomaly = (torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled())
             torch.autograd.set_detect_anomaly(True, check_nan=True)
-        prof = None
-        if t.profile_dir:
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if self.device.type == "cuda":
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            prof = torch.profiler.profile(activities=acts)
-            prof.start()
+        prof = (profiling.trace(t.profile_dir, cfg.name) if t.profile_dir
+                else contextlib.nullcontext())
         t0 = time.perf_counter()
         last_t, last_step, step = t0, start, start
         es_best, es_bad = float("inf"), 0
         try:
-            for i in range(start, total):
-                metrics = self._step(i)
-                step = i + 1
-                if step % t.log_interval == 0 or step == total:
-                    out = {k: float(v) for k, v in metrics.items()}  # the one host read
-                    now = time.perf_counter()
-                    sps = (step - last_step) / max(now - last_t, 1e-9)
-                    last_t, last_step = now, step
-                    out["steps_per_s"] = sps
-                    # The lr of this step's update: the schedule at count step - 1.
-                    out["lr"] = warmup_lr_schedule(cfg.optim.lr, cfg.optim.warmup_steps)(step - 1)
-                    self.logger.log(step, out)
-                    self._print(f"step {step:7d}  loss {out['loss']:.4f}  {sps:.2f} steps/s")
-                    if not np.isfinite(out["loss"]):  # the mean loss: alike on every rank
-                        raise ValueError(f"Loss Not Finite at step {step}: {out['loss']}")
-                if t.eval_interval and step % t.eval_interval == 0:
-                    t_ev = time.perf_counter()
-                    ev = self._on_main(self.evaluate)
-                    stop = False
-                    if ev is not None:
-                        self.eval_log.append({"step": step, **ev,
-                                              "seconds": time.perf_counter() - t_ev})
-                        self.logger.log(step, {f"eval/{k}": v for k, v in ev.items()})
-                        print("  eval:", {k: round(v, 4) for k, v in self.eval_log[-1].items()})
-                        if t.early_stop_metric:  # mode min, patience counted in evaluations
-                            cur = ev[self._early_stop_key(ev)]
-                            if cur < es_best - t.early_stop_min_delta:
-                                es_best, es_bad = cur, 0
-                            else:
-                                es_bad += 1
-                                stop = es_bad >= t.early_stop_patience
-                                if stop:
-                                    print(f"early stop at step {step}: {t.early_stop_metric} "
-                                          f"did not improve past {es_best:.4f} for {es_bad} "
-                                          "evals")
-                    if t.early_stop_metric and self._agreed(stop):
-                        break
-                if self.is_image and t.sample_grid_interval and step % t.sample_grid_interval == 0:
-                    self._on_main(lambda: self._save_sample_grid(step))
-                # The host's step count; the save reads the device only when due.
-                if self.is_main:
-                    self.ckpt.save(self.state, step=step)
+            with prof:
+                for i in range(start, total):
+                    metrics = self._step(i)
+                    step = i + 1
+                    if step % t.log_interval == 0 or step == total:
+                        out = {k: float(v) for k, v in metrics.items()}  # the one host read
+                        now = time.perf_counter()
+                        sps = (step - last_step) / max(now - last_t, 1e-9)
+                        last_t, last_step = now, step
+                        out["steps_per_s"] = sps
+                        # The lr of this step's update: the schedule at count step - 1.
+                        out["lr"] = warmup_lr_schedule(cfg.optim.lr,
+                                                       cfg.optim.warmup_steps)(step - 1)
+                        self.logger.log(step, out)
+                        self._print(f"step {step:7d}  loss {out['loss']:.4f}  {sps:.2f} steps/s")
+                        if not np.isfinite(out["loss"]):  # the mean loss: alike on every rank
+                            raise ValueError(f"Loss Not Finite at step {step}: {out['loss']}")
+                    if t.eval_interval and step % t.eval_interval == 0:
+                        t_ev = time.perf_counter()
+                        ev = self._on_main(self.evaluate)
+                        stop = False
+                        if ev is not None:
+                            self.eval_log.append({"step": step, **ev,
+                                                  "seconds": time.perf_counter() - t_ev})
+                            self.logger.log(step, {f"eval/{k}": v for k, v in ev.items()})
+                            print("  eval:", {k: round(v, 4) for k, v in self.eval_log[-1].items()})
+                            if t.early_stop_metric:  # mode min, patience counted in evaluations
+                                cur = ev[self._early_stop_key(ev)]
+                                if cur < es_best - t.early_stop_min_delta:
+                                    es_best, es_bad = cur, 0
+                                else:
+                                    es_bad += 1
+                                    stop = es_bad >= t.early_stop_patience
+                                    if stop:
+                                        print(f"early stop at step {step}: {t.early_stop_metric} "
+                                              f"did not improve past {es_best:.4f} for {es_bad} "
+                                              "evals")
+                        if t.early_stop_metric and self._agreed(stop):
+                            break
+                    if (self.is_image and t.sample_grid_interval
+                            and step % t.sample_grid_interval == 0):
+                        self._on_main(lambda: self._save_sample_grid(step))
+                    # The host's step count; the save reads the device only when due.
+                    if self.is_main:
+                        self.ckpt.save(self.state, step=step)
         finally:
-            if prof is not None:
-                prof.stop()
-                os.makedirs(t.profile_dir, exist_ok=True)
-                path = os.path.join(t.profile_dir, f"{cfg.name}.pt.trace.json")
-                prof.export_chrome_trace(path)
-                print(f"torch profiler trace written to {path}")
+            if t.profile_dir:
+                print("torch profiler trace written to "
+                      f"{os.path.join(t.profile_dir, cfg.name)}.pt.trace.json")
             if anomaly is not None:
                 torch.autograd.set_detect_anomaly(anomaly[0], check_nan=anomaly[1])
             # The steps actually executed, also after an early exit.

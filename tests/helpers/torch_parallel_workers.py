@@ -18,6 +18,7 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".."))
 
+from cfm_tpu_torch import profiling  # noqa: E402
 from cfm_tpu_torch import train as ttr  # noqa: E402
 from cfm_tpu_torch.config import load_config  # noqa: E402
 from cfm_tpu_torch.models.mlp import MLP  # noqa: E402
@@ -78,12 +79,15 @@ def main(rank: int, world: int, init_file: str, inputs: str, out_dir: str) -> No
     mine = slice(idx * shard, (idx + 1) * shard)
     res = {"index": idx, "count": count}
 
+    profiling.enable_spans(True)
     res["replicated"] = _steps(
         inp, lambda m, o: ttr.make_data_parallel_train_step(matcher, m, o, mesh,
                                                             ema_decay=inp["decay"]),
         lambda i: dict(plan_noise=inp["replicated"][i]["plan_u"],
                        draws=_draws(inp["replicated"][i]["ranks"][idx])),
         lambda i: (x0, x1))
+    profiling.enable_spans(False)
+    res["replicated_spans"] = [(s.name, s.parent, s.root) for s in profiling.drain()[0]]
     res["local"] = _steps(
         inp, lambda m, o: local_coupling_step(ttr.make_train_step(
             matcher, m, o, ema_decay=inp["decay"], data_axis="data", mesh=mesh), mesh),

@@ -399,6 +399,8 @@ def test_profile_dir_writes_a_trace_of_the_fit(tmp_path):
     trainer.fit(2)
     trace = json.load(open(prof / "2d_otcfm.pt.trace.json"))
     assert trace["traceEvents"]
+    # The spans are on for the fit: each step shows as a range.
+    assert sum(e["name"] == "train.step" for e in trace["traceEvents"]) == 2
 
 
 def test_sample_grid_png_decodes_to_the_grid(tmp_path):
@@ -604,15 +606,36 @@ def test_sweeps_give_jax_records():
 
 
 def test_profiling_helpers_on_the_cpu(tmp_path):
+    """The span recorder: parents, roots, threads, attributes, counts by
+    root, and ``drain``; ``trace`` writes ``<log_dir>/<name>.pt.trace.json``."""
+    import threading
+
     from cfm_tpu_torch import profiling
     from cfm_tpu_torch.version import __version__
 
+    assert profiling.enable_spans(True) is False
+    try:
+        profiling.count("outside", 2)
+        with profiling.span("a", k=1):
+            with profiling.span("b") as b:
+                b.set(accepted=False)
+                profiling.count("c")
+                profiling.count("c", 3)
+            with pytest.raises(RuntimeError, match="open"):
+                profiling.drain()
+        with profiling.span("d"):
+            profiling.count("c")
+    finally:
+        assert profiling.enable_spans(False) is True
+    spans, counters = profiling.drain()
+    assert [(s.name, s.parent, s.root, s.attrs) for s in spans] == [
+        ("a", -1, 0, {"k": 1}), ("b", 0, 0, {"accepted": False}), ("d", -1, 2, {})]
+    assert all(s.thread == threading.get_ident() for s in spans)
+    assert spans[0].start_ns <= spans[1].start_ns <= spans[1].end_ns <= spans[0].end_ns
+    assert counters == {"outside": {-1: 2}, "c": {0: 4, 2: 1}}
+    assert profiling.drain() == ([], {})
     x = torch.ones((64, 64))
-    dt = profiling.time_fn(lambda a: a @ a, x, iters=5, warmup=1)
-    assert 0.0 < dt < 1.0
-    assert profiling.hard_sync({"a": [x * 3]}) == 3.0
-    assert 0.0 <= profiling.measure_sync_overhead(device="cpu") < 1.0
-    with profiling.trace(str(tmp_path / "tr")):
+    with profiling.trace(str(tmp_path / "tr"), "fit"):
         (x @ x).sum()
-    assert json.load(open(tmp_path / "tr" / "trace.pt.trace.json"))["traceEvents"]
+    assert json.load(open(tmp_path / "tr" / "fit.pt.trace.json"))["traceEvents"]
     assert __version__ == "0.1.0"

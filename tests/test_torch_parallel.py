@@ -17,7 +17,8 @@ decomposes them.
   batch: 2-D OT-CFM, an MLP at width 32, global batch 16, two steps, loss
   and grad norm to 1e-5 relative and parameters and EMA to 1e-5, as
   ``test_train_step_matches_jax_step`` holds them. The ranks' parameters
-  are equal bit for bit after every step.
+  are equal bit for bit after every step. The replicated-coupling step
+  runs with spans on, and records one coupling and one all-reduce a step.
 - ``sharded_sinkhorn_plan`` against JAX's and against the dense plan on
   the gathered batch, to 1e-5 of the plan's maximum.
 - The data-parallel sampler against JAX's and against one-process ``odeint``.
@@ -198,6 +199,22 @@ def test_steps_match_jax_on_a_two_device_mesh(runs, kind):
         for a, b in zip(ranks[0][kind][i]["params"] + ranks[0][kind][i]["ema"],
                         ranks[1][kind][i]["params"] + ranks[1][kind][i]["ema"]):
             assert torch.equal(a, b)
+
+
+def test_replicated_step_records_one_coupling_and_one_allreduce_a_step(runs):
+    """With spans on (``profiling``) each rank's replicated-coupling step is
+    one ``train.step`` root a step, holding one ``train.coupling`` and one
+    ``train.allreduce`` among the step's layers, and nothing nested deeper."""
+    for r in runs[2]:
+        spans = r["replicated_spans"]
+        roots = [i for i, (_, parent, _) in enumerate(spans) if parent < 0]
+        assert [spans[i][0] for i in roots] == ["train.step"] * STEPS
+        for root in roots:
+            assert [name for name, parent, _ in spans if parent == root] == [
+                "train.coupling", "train.forward", "train.backward", "train.allreduce",
+                "train.optimizer", "train.ema"]
+        assert all(parent < 0 or parent in roots for _, parent, _ in spans)
+        assert all(root in roots for _, _, root in spans)
 
 
 def test_sharded_sinkhorn_matches_jax_and_the_dense_plan(runs):
