@@ -41,6 +41,11 @@
 //   attention_bwd_rows elsewhere: K and V stream through a ring, pass 0
 //   takes the row max and a rescaled running sum (f32 rounding apart from
 //   the direct sum), passes 1 and 2 recompute the logits for delta and ds.
+//   Above S = 256 the forward (attention_streamed) keeps that max and sum,
+//   2 N H S f32 (3 MB at the ImageNet-64 32x32 blocks' (64, 6, 1024, 64)),
+//   computed by the same code (running_stats), and the rows kernel takes
+//   them as ``saved`` in place of pass 0: the same bits, a third less of its
+//   work (H100, that shape: 1.66 -> 1.49 ms for both kernels).
 // - (A) attention_bwd_cols, one block per 64 keys, over the query tiles
 //   (Q, do and their statistics through a ring, the statistics by a bulk
 //   copy): recomputes k q^T, rebuilds wf and w from the statistics,
@@ -144,13 +149,18 @@ size_t attention_bwd_fused_smem(int S, int D, int split) {
 
 // The fused bf16 route: qkv, dqkv (N, 3, H, S, D), dout (N, H, S, D),
 // contiguous bf16; D = 64 or 128; S a multiple of 64; stats 3 N H S f32.
+// saved: null, or at S > 256 the (2, N, H, S) row max and sum that
+// attention_fwd kept at the same qkv, so the rows kernel skips its pass 0.
 // split = 1 computes dq and dk as three exact bf16 products, 0 on f32 FMA.
 // Returns 0 or the first CUDA error code.
-int attention_bwd_fused(const void* qkv, const void* dout, void* dqkv, void* stats, int N, int H,
-                        int S, int D, float scale, int split, void* stream) {
-  if (S % 64 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
+int attention_bwd_fused(const void* qkv, const void* dout, void* dqkv, void* stats,
+                        const void* saved, int N, int H, int S, int D, float scale, int split,
+                        void* stream) {
+  if (S % 64 || (D != 64 && D != 128) || (saved != nullptr && S <= 256))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const sm90::BwdArgs args{static_cast<float*>(stats), scale, (long long)N * H * S};
+  const sm90::BwdArgs args{static_cast<float*>(stats), scale, (long long)N * H * S,
+                           static_cast<const float*>(saved)};
   const sm90::HeadsBwd lay{H, S};
   CUtensorMap qkv_map, do_map, dqkv_map;
   if (int err = sm90::make_tile_map(&qkv_map, qkv, D, 3LL * N * H * S)) return err;

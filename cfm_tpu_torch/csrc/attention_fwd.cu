@@ -32,13 +32,22 @@
 //   f32 a thread) stays in registers: the exact row max and sum in one
 //   pass, no recompute. The weights are rounded to bf16 in registers and are
 //   the A operand of w @ v as they lie. Three blocks an SM at D = 64.
-// - 256 < S (the gate admits up to 896), attention_streamed: two passes
-//   over 64-key tiles through a ring of R slots refilled by TMA R tiles
-//   ahead. The first takes the row max and a rescaled running sum (which
-//   differs from the direct sum by f32 rounding only); the second recomputes
+// - 256 < S, attention_streamed: the gate admits up to 896, and beyond it
+//   the wrapper's streamed route (ops/attention.py) brings the ImageNet-64
+//   32x32 blocks, (N, H, S, D) = (64, 6, 1024, 64) a card in training. Two
+//   passes over 64-key tiles through a ring of four slots refilled by TMA
+//   four tiles ahead. The first takes the row max and a rescaled running
+//   sum (which differs from the direct sum by f32 rounding only), and keeps
+//   both for the backward where the wrapper asks; the second recomputes
 //   each tile's logits, forms w = bf16(exp(l - max) / sum) and runs w @ v.
 //   The output accumulator is never rescaled (that would be an online
-//   softmax, a different function).
+//   softmax, a different function). At (64, 6, 1024, 64) the three products
+//   and two exponentials an element bound it, not bytes: 0.104 ms for the
+//   two products the function needs, 0.22 ms for 2 N H S^2 MUFU.EX2 at 16
+//   a clock an SM. Blocks an SM set its time there: on an H100 the ring of
+//   eight slots it had (3 blocks an SM by shared memory) took 0.46 ms, four
+//   (5, by registers) 0.37, and two query tiles a block sharing each K and
+//   V tile (half the L2 reads, 2 blocks of 256 threads an SM) 0.44.
 // - The exponentials are exp2 of the logits scaled by scale * log2 e less
 //   the row max, one FFMA and one MUFU.EX2 (sm90_attention.cuh,
 //   softmax_exp; the row max is taken on q . k and scaled once, which needs
@@ -65,11 +74,12 @@ namespace {
 using namespace sm90;
 
 template <int D>
-int launch_heads(const bf16* qkv, bf16* out, int N, int H, int S, float scale, cudaStream_t st) {
+int launch_heads(const bf16* qkv, bf16* out, float* stats, int N, int H, int S, float scale,
+                 cudaStream_t st) {
   CUtensorMap qkv_map, out_map;
   if (int err = make_tile_map(&qkv_map, qkv, D, 3LL * N * H * S)) return err;
   if (int err = make_tile_map(&out_map, out, D, (long long)N * H * S)) return err;
-  return launch_tensor_core<D>(qkv_map, out_map, HeadsLayout{H, S}, N, scale, st);
+  return launch_tensor_core<D>(qkv_map, out_map, HeadsLayout{H, S}, N, scale, st, stats);
 }
 
 bool tensor_core_route(int D, int dtype) { return dtype == 1 && (D == 64 || D == 128); }
@@ -88,18 +98,22 @@ size_t attention_fwd_smem(int S, int D, int dtype) {
 
 // qkv: (N, 3, H, S, D), out: (N, H, S, D), both contiguous in the model
 // dtype and 16-byte aligned; D a multiple of 64, and on the tensor-core
-// route (bf16, D = 64 or 128) S a multiple of 64. Returns 0 or the first
-// CUDA error code.
-int attention_fwd(const void* qkv, void* out, int N, int H, int S, int D, float scale, int dtype,
-                  void* stream) {
+// route (bf16, D = 64 or 128) S a multiple of 64. stats: null, or on the
+// tensor-core route at S > 256 a (2, N, H, S) f32 buffer for the rows' max
+// and sum, which attention_bwd_fused takes as ``saved``. Returns 0 or the
+// first CUDA error code.
+int attention_fwd(const void* qkv, void* out, void* stats, int N, int H, int S, int D,
+                  float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tensor_core_route(D, dtype)) {
-    if (S % 64) return (int)cudaErrorInvalidValue;
+    if (S % 64 || (stats != nullptr && S <= 256)) return (int)cudaErrorInvalidValue;
     const bf16* q = static_cast<const bf16*>(qkv);
     bf16* o = static_cast<bf16*>(out);
-    return D == 64 ? launch_heads<64>(q, o, N, H, S, scale, st)
-                   : launch_heads<128>(q, o, N, H, S, scale, st);
+    float* kept = static_cast<float*>(stats);
+    return D == 64 ? launch_heads<64>(q, o, kept, N, H, S, scale, st)
+                   : launch_heads<128>(q, o, kept, N, H, S, scale, st);
   }
+  if (stats != nullptr) return (int)cudaErrorInvalidValue;
   const int SD = S * D;
   const AttnLayout L{3 * H * SD, SD, H * SD, D, H * SD, SD, D};
   if (dtype == 0)

@@ -38,6 +38,7 @@ struct BwdArgs {
   float* stats;  // (3, N, H, Sp): row max, row sum, delta
   float scale;
   long long nhs;  // N * H * Sp
+  const float* saved = nullptr;  // (2, N, H, Sp): the forward's row max and sum, or null
 };
 
 struct HeadsBwd {
@@ -260,8 +261,9 @@ attention_bwd_rows(const __grid_constant__ CUtensorMap qkv_map,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
   const int h = blockIdx.y, n = blockIdx.z;
   const int T = (lay.S + 63) / 64, q0 = 64 * blockIdx.x;
-  const bool streamed = T > R;  // else K and V stay resident through the three passes
-  const int loads = streamed ? 3 * T : T;
+  const bool streamed = T > R;  // else K and V stay resident through the passes
+  const int first = args.saved != nullptr;  // with the forward's statistics, no pass 0
+  const int loads = streamed ? (3 - first) * T : T;
   const int row_z = lay.stat_row(n, h);  // (n, h)'s first row of the statistics
   auto issue = [&](int i) {  // thread 0 only: K and V of key tile i % T
     uint64_t* bar = &sm.full[i % R];
@@ -270,13 +272,13 @@ attention_bwd_rows(const __grid_constant__ CUtensorMap qkv_map,
     lay.template load<D>(sm.slot(i) + tile_elems<D>(), &qkv_map, bar, 2, n, h, 64 * (i % T));
   };
   auto acquire = [&](int pass, int j) {
-    const int i = streamed ? pass * T + j : j;
+    const int i = streamed ? (pass - first) * T + j : j;
     mbar_wait(&sm.full[i % R], (i / R) & 1);
     return sm.slot(i);
   };
   auto release = [&](int pass, int j) {
     if (!streamed) return;
-    const int i = pass * T + j;
+    const int i = (pass - first) * T + j;
     __syncthreads();
     if (tid == 0 && i + R < loads) issue(i + R);
   };
@@ -296,32 +298,31 @@ attention_bwd_rows(const __grid_constant__ CUtensorMap qkv_map,
   const float ls = logit_scale(args.scale);
   mbar_wait(sm.bar, 0);
 
-  // Pass 0: the row max and the rescaled running sum.
+  // Pass 0: the row max and the rescaled running sum, or the forward's.
   float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
-  for (int j = 0; j < T; ++j) {
-    const bf16* K = acquire(0, j);
-    float l[32];
-    wgmma_fence();
-    issue_nt<D>(l, Q, K);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(l);
-    release(0, j);
-    mask_keys(l, lay, j);
-    float tm[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) tm[half_of(i)] = fmaxf(tm[half_of(i)], l[i]);
+  if (first) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float m = fmaxf(mx[r], __fmul_rn(quad_max(tm[r]), ls));
-      sum[r] *= exp2_approx(mx[r] - m);
-      mx[r] = m;
+      const long long s = row_z + q0 + 16 * warp + g + 8 * r;
+      mx[r] = args.saved[s];
+      sum[r] = args.saved[args.nhs + s];
     }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) sum[half_of(i)] += softmax_exp(l[i], ls, mx[half_of(i)]);
+  } else {
+    for (int j = 0; j < T; ++j) {
+      const bf16* K = acquire(0, j);
+      float l[32];
+      wgmma_fence();
+      issue_nt<D>(l, Q, K);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(l);
+      release(0, j);
+      mask_keys(l, lay, j);
+      running_stats(l, ls, mx, sum);
+    }
+    sum[0] = quad_sum(sum[0]);
+    sum[1] = quad_sum(sum[1]);
   }
-  sum[0] = quad_sum(sum[0]);
-  sum[1] = quad_sum(sum[1]);
   const float inv[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
 
   // Pass 1 recomputes l and dp for delta = rowsum(dp * w); pass 2 for ds

@@ -151,6 +151,27 @@ attention_resident(const __grid_constant__ CUtensorMap qkv_map,
   lay.template store<D>(Qs, &out_map, n, h, 64 * blockIdx.x);
 }
 
+// One key tile of the first pass over a row: the row max of the scaled
+// logits and a running sum of their exponentials, rescaled when the max
+// grows (f32 rounding apart from the direct sum). attention_streamed and
+// attention_bwd_rows' pass 0 share it, so the forward's kept statistics are
+// the bits pass 0 would compute; the rescale is an explicit rounded product,
+// which no compiler contracts into the next add.
+__device__ __forceinline__ void running_stats(const float (&l)[32], float ls, float (&mx)[2],
+                                              float (&sum)[2]) {
+  float tm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) tm[half_of(i)] = fmaxf(tm[half_of(i)], l[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m = fmaxf(mx[r], __fmul_rn(quad_max(tm[r]), ls));
+    sum[r] = __fmul_rn(sum[r], exp2_approx(mx[r] - m));
+    mx[r] = m;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sum[half_of(i)] += softmax_exp(l[i], ls, mx[half_of(i)]);
+}
+
 template <int D, int R>
 constexpr size_t streamed_smem() {
   return 1024 + (size_t)(1 + R) * tile_bytes<D>() + (1 + R) * sizeof(uint64_t);
@@ -158,11 +179,14 @@ constexpr size_t streamed_smem() {
 
 // Any S: one block per 64-query tile, two passes over the T = ceil(S / 64)
 // key tiles through a ring of R slots. Load i of the 3 T is K tile i in the
-// first pass, then K and V of tile (i - T) / 2 in turn.
+// first pass, then K and V of tile (i - T) / 2 in turn. Where ``stats`` is
+// given (HeadsLayout), the rows' max and sum are kept there, (2, N, H, S)
+// f32, for attention_bwd_rows to skip its pass 0.
 template <int D, int R, class L>
 __global__ void __launch_bounds__(kWarpgroup, 1)
 attention_streamed(const __grid_constant__ CUtensorMap qkv_map,
-                   const __grid_constant__ CUtensorMap out_map, const L lay, float scale) {
+                   const __grid_constant__ CUtensorMap out_map, const L lay, float scale,
+                   float* stats) {
   extern __shared__ uint8_t smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(align_1024(smem_raw));
   bf16* ring = Qs + tile_elems<D>();
@@ -209,19 +233,21 @@ attention_streamed(const __grid_constant__ CUtensorMap qkv_map,
     fence_regs(l);
     release(j);
     mask_keys(l, lay, j);
-    float tm[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) tm[half_of(i)] = fmaxf(tm[half_of(i)], l[i]);
+    running_stats(l, ls, mx, sum);
+  }
+  sum[0] = quad_sum(sum[0]);
+  sum[1] = quad_sum(sum[1]);
+  const float inv[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
+  if (stats != nullptr && (tid & 3) == 0) {
+    const long long nhs = (long long)gridDim.z * lay.H * lay.S;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float m = fmaxf(mx[r], __fmul_rn(quad_max(tm[r]), ls));
-      sum[r] *= exp2_approx(mx[r] - m);
-      mx[r] = m;
+      const long long s = (long long)(n * lay.H + h) * lay.S + 64 * blockIdx.x + 16 * (tid >> 5) +
+                          ((tid & 31) >> 2) + 8 * r;
+      stats[s] = mx[r];
+      stats[nhs + s] = sum[r];
     }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) sum[half_of(i)] += softmax_exp(l[i], ls, mx[half_of(i)]);
   }
-  const float inv[2] = {__frcp_rn(quad_sum(sum[0])), __frcp_rn(quad_sum(sum[1]))};
 
   float o[D / 64][32];
   for (int j = 0; j < T; ++j) {
@@ -252,12 +278,15 @@ attention_streamed(const __grid_constant__ CUtensorMap qkv_map,
   lay.template store<D>(Qs, &out_map, n, h, 64 * blockIdx.x);
 }
 
-// The ring's depth: 64 KB of K and V tiles in flight.
-template <int D> constexpr int ring_slots() { return D == 64 ? 8 : 4; }
+// The streamed kernel's ring: four slots (32 KB of K and V tiles at D = 64,
+// 64 KB at 128). A deeper ring costs blocks an SM: on an H100 at
+// (64, 6, 1024, 64) eight slots (3 blocks an SM by shared memory) took 18%
+// longer than four (5, by registers), and two or three slots read as four.
+constexpr int kStreamRing = 4;
 
 template <int D>
 constexpr size_t tensor_core_smem(int S) {
-  return S <= 256 ? resident_smem(D, (S + 63) / 64) : streamed_smem<D, ring_slots<D>()>();
+  return S <= 256 ? resident_smem(D, (S + 63) / 64) : streamed_smem<D, kStreamRing>();
 }
 
 template <int D, int T, class L>
@@ -271,21 +300,21 @@ int launch_resident(const CUtensorMap& qkv_map, const CUtensorMap& out_map, cons
 }
 
 // The attention of N items on the maps of layout ``lay``: resident at
-// S <= 256, streamed above. Returns 0 or a CUDA error code.
+// S <= 256, streamed above, keeping the rows' statistics in ``stats`` where
+// it is given (streamed only). Returns 0 or a CUDA error code.
 template <int D, class L>
 int launch_tensor_core(const CUtensorMap& qkv_map, const CUtensorMap& out_map, const L& lay,
-                       int N, float scale, cudaStream_t st) {
+                       int N, float scale, cudaStream_t st, float* stats = nullptr) {
   switch ((lay.S + 63) / 64) {
     case 1: return launch_resident<D, 1>(qkv_map, out_map, lay, N, scale, st);
     case 2: return launch_resident<D, 2>(qkv_map, out_map, lay, N, scale, st);
     case 3: return launch_resident<D, 3>(qkv_map, out_map, lay, N, scale, st);
     case 4: return launch_resident<D, 4>(qkv_map, out_map, lay, N, scale, st);
     default: {
-      constexpr int R = ring_slots<D>();
-      constexpr size_t smem = streamed_smem<D, R>();
-      if (int err = set_smem(attention_streamed<D, R, L>, smem)) return err;
-      attention_streamed<D, R, L><<<dim3((lay.S + 63) / 64, lay.H, N), kWarpgroup, smem, st>>>(
-          qkv_map, out_map, lay, scale);
+      constexpr size_t smem = streamed_smem<D, kStreamRing>();
+      if (int err = set_smem(attention_streamed<D, kStreamRing, L>, smem)) return err;
+      attention_streamed<D, kStreamRing, L><<<dim3((lay.S + 63) / 64, lay.H, N), kWarpgroup, smem,
+                                              st>>>(qkv_map, out_map, lay, scale, stats);
       return (int)cudaGetLastError();
     }
   }

@@ -23,9 +23,11 @@ Counterpart of ``cfm_tpu/models/unet.py`` (``UNetModel``,
   :func:`~cfm_tpu_torch.ops.attn_block.fused_attention_block` (kernels #1
   and #2 on CUDA). The others project q, k and v themselves and call
   :func:`~cfm_tpu_torch.ops.attention.attention_t`, which takes kernels #3
-  and #4 where its gate passes (the 16x16 blocks at ImageNet-64 widths) and
-  the plain composition elsewhere (``mid_attn`` at 4x4, the 32x32 blocks at
-  ImageNet-64 widths), as in the JAX package.
+  and #4 where its gate passes (the 16x16 blocks at ImageNet-64 widths), as
+  in the JAX package. The 32x32 blocks at ImageNet-64 widths (S = 1024,
+  over the gate's budget) take the plain composition in the JAX package and
+  on the CPU, and #3 and #4 in their streaming form in bf16 on CUDA;
+  ``mid_attn`` at 4x4 takes the plain composition everywhere.
 - Every ``GroupNorm32`` goes through the fused GroupNorm(+SiLU) wrapper:
   46 calls per evaluation at the CIFAR-10 recipe, 27 at the MNIST preset,
   87 at ImageNet-64 widths in bf16 (the GroupNorms inside fused attention

@@ -20,9 +20,11 @@ a result:
    bf16), at the CIFAR-10 shapes, at the ImageNet-64 8x8 shape (C = 768,
    12 heads) and at ragged S on both bf16 attention routes, the forward and
    the bf16 backward rerun for the same bits; the multi-head attention forward and backward
-   (#3, #4) at the ImageNet-64 training and generation shapes and at others
-   that take other branches, the gate's edges (S = 896 at D = 64, 768 at
-   D = 128) among them, with the bf16 forward's and backward's reruns
+   (#3, #4) at the ImageNet-64 training and generation shapes of the 16x16
+   and the 32x32 blocks (the latter on the streamed route, the backward
+   from the forward's statistics) and at others that take other branches,
+   the gate's edges (S = 896 at D = 64, 768 at D = 128) among them, with
+   the bf16 forward's and backward's reruns
    giving the same bits; the auction's
    permutation and round count, which must be identical, on a rerun too, on
    Gaussian, tied, duplicated and rank-1 costs up to n = 512, with its
@@ -65,7 +67,11 @@ a result:
    operations a call and their kernels' times; the multi-head attention forward and
    backward at the ImageNet-64 training shape, in turns with
    ``F.scaled_dot_product_attention`` and its backward, by device time from
-   the profiler as well, with the backward's FMA variant of dq and dk; the
+   the profiler as well, with the backward's FMA variant of dq and dk, and
+   again at the 32x32 blocks' (64, 6, 1024, 64) on the streamed route, with
+   the backward also without the forward's statistics and the plain
+   composition's forward and backward through autograd; each kernel's time
+   by name; the
    GroupNorm kernels at every recorded shape of every path, by device time
    in CUDA graphs beside ``F.group_norm`` + ``F.silu``, and summed over
    each path's evaluation, and at 2x256x256x256 float32 (the split route)
@@ -122,13 +128,14 @@ a result:
     with 64 head channels, scale-shift norm, ResBlock up/down sampling,
     1000 classes; 295,899,267 parameters) in bf16 with random seeded
     weights, 64 images of 64 labels drawn from the seed, euler at 100
-    steps: 7 multi-head attention (#3), 8 attention-block and 87 GroupNorm
-    launches per evaluation. Prints images per second, ms per evaluation
+    steps: 14 multi-head attention (#3: 7 at 16x16, 7 at 32x32 on the
+    streamed route), 8 attention-block and 87 GroupNorm launches per
+    evaluation. Prints images per second, ms per evaluation
     and the peak memory; then profiles one evaluation as in 7.
 12. ImageNet-64 training: ``make_train_step`` with exact OT-CFM and the
     labels, bf16, batch 32, dropout 0.1, Adam 1e-4 with the warmup
     schedule, clip 1.0, EMA 0.9999, on random uint8 images and labels put
-    on the card once; 3 warm-up steps, then 20 with 1 auction, 7 + 7
+    on the card once; 3 warm-up steps, then 20 with 1 auction, 14 + 14
     multi-head attention, 8 + 8 attention-block and 87 + 87 GroupNorm
     launches a step; then three steps profiled as in 9.
 13. The 2-D tutorial: ``Trainer`` on ``2d_otcfm`` as the preset gives it
@@ -194,7 +201,7 @@ a result:
     with ``use_checkpoint`` off, on with policy None and on with "dots":
     ms and device ms a step, the peak memory, the launches (a wrapped
     block's forward kernels twice a step: #1 5 + 5 and #8 46 + 45 for
-    CIFAR-10; #3 7 + 7, #1 8 + 8 and #8 87 + 86 for ImageNet-64); then one
+    CIFAR-10; #3 14 + 14, #1 8 + 8 and #8 87 + 86 for ImageNet-64); then one
     step from the same state with the same ``StepDraws`` under
     ``cudnn.deterministic`` for each policy, whose parameters and generator
     state must equal the unwrapped step's bit for bit.
@@ -339,14 +346,20 @@ IMAGENET_SMALL = dict(dim=(16, 16, 3), num_channels=64, channel_mult=(1, 2, 3), 
                       use_scale_shift_norm=True, resblock_updown=True, class_cond=True,
                       num_classes=10)
 IMAGENET_GEN, IMAGENET_BATCH, IMAGENET_STEPS = 64, 32, 20
-# Launches per ImageNet-64 evaluation: the 16x16 blocks take #3, the 8x8 blocks
-# #1, the 32x32 blocks the plain composition.
-IMAGENET_PER_EVAL = dict(attention_fwd=7, attn_block_fwd=8, gn_silu_fwd=87)
+# Launches per ImageNet-64 evaluation: the 16x16 blocks take #3, the 32x32
+# blocks #3 on its streamed route, the 8x8 blocks #1.
+IMAGENET_PER_EVAL = dict(attention_fwd=14, attn_block_fwd=8, gn_silu_fwd=87)
 # (N, H, S, D) of the multi-head attention checks: the ImageNet-64 training and
-# generation shapes, the gate's smallest S, a long S, head dim 128, and the
-# gate's edges at D = 64 and 128, which take the two-pass routes.
-ATTN_SHAPES = ((IMAGENET_BATCH, 9, 256, 64), (IMAGENET_GEN, 9, 256, 64), (4, 1, 128, 64),
-               (2, 2, 512, 64), (4, 2, 256, 128), (2, 2, 896, 64), (1, 1, 768, 128))
+# generation shapes of the 16x16 blocks and of the 32x32 blocks (beyond the
+# gate: #3 and #4 on their streamed route; generation's is also a card's 64
+# rows in the data-parallel training cell), the gate's smallest S, a long S,
+# head dim 128, the gate's edges at D = 64 and 128, which take the two-pass
+# routes, and D = 128 on the streamed route.
+ATTN_SHAPES = ((IMAGENET_BATCH, 9, 256, 64), (IMAGENET_GEN, 9, 256, 64),
+               (IMAGENET_BATCH, 6, 1024, 64), (IMAGENET_GEN, 6, 1024, 64), (4, 1, 128, 64),
+               (2, 2, 512, 64), (4, 2, 256, 128), (2, 2, 896, 64), (1, 1, 768, 128),
+               (2, 2, 1024, 128))
+ATTN_MAIN = ATTN_SHAPES[:4]  # the main path's, whose bf16 errors the kernels' record keeps
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # abs and rel, kernel vs plain version
 # The backward's weight gradients, relative to each one's max-abs. In bf16 the
 # kernel reads up to 5.8e-4 there and rounding do and ds to bf16 (what feeding
@@ -520,7 +533,7 @@ def time_attn_block(N, S=256, C=256, H=4, G=32):
         ops = []
         for who in ("kernel", "library", "library", "kernel"):
             fn = kernel if who == "kernel" else library
-            ms, n_ops = device_ms_and_launches(fn)
+            ms, n_ops, _ = device_ms_and_launches(fn)
             turns[who].append((ms, cuda_ms(fn)))
             if who == "kernel":
                 ops.append(n_ops)
@@ -631,7 +644,7 @@ def check_attention():
     bf16 forward and backward called again on the same inputs must give the
     same bits.
     Returns the largest bf16 forward and backward errors at the ImageNet-64
-    shapes."""
+    shapes (ATTN_MAIN)."""
     import torch
     from cfm_tpu_torch.device import strict_f32
     from cfm_tpu_torch.ops import attention as att
@@ -650,11 +663,11 @@ def check_attention():
                     ref = att.attn_reference_t(qkv, scale)
                     ref_bwd = att.attention_t_bwd_reference(qkv, do, scale)
             torch.cuda.synchronize()
-            gated = att.gate(H, S, D, dtype)  # (2, 2, 896, 64) passes in bf16 only
+            gated = att.gate(H, S, D, dtype) or att.streamed_route(S, D, dtype)
             if (att.attention_t.launches - launched[0], att.attention_t_bwd.launches
                     - launched[1]) != (int(gated), int(gated)):
                 raise AssertionError(f"attention at N={N} H={H} S={S} D={D} {dtype} launched "
-                                     f"the kernels otherwise than the gate says ({gated})")
+                                     f"the kernels otherwise than its route says ({gated})")
             key = str(dtype).split(".")[1]
             tol, errs = TOL[key], {}
             for name, a, r in (("fwd", out, ref), ("bwd", leaf.grad, ref_bwd)):
@@ -664,7 +677,7 @@ def check_attention():
                     raise AssertionError(f"attention_{name} disagrees with its plain version at "
                                          f"N={N} H={H} S={S} D={D} {dtype}: max error "
                                          f"{errs[name]:.3e}")
-                if dtype == torch.bfloat16 and (N, H, S, D) in ATTN_SHAPES[:2]:
+                if dtype == torch.bfloat16 and (N, H, S, D) in ATTN_MAIN:
                     worst[name] = max(worst[name], errs[name])
             rerun = ""
             if dtype == torch.bfloat16:
@@ -679,7 +692,7 @@ def check_attention():
                     raise AssertionError(f"attention_bwd at N={N} H={H} S={S} D={D} gave other "
                                          f"bits on a rerun")
                 rerun = "; the forward's and the backward's reruns give the same bits"
-            route = "" if gated else " (refused by the gate: the plain composition, as in JAX)"
+            route = "" if gated else " (the plain composition, as in JAX)"
             log(f"attention N={N} H={H} S={S} D={D} {dtype}{route}: max abs err forward "
                 f"{errs['fwd']:.3e}, backward {errs['bwd']:.3e} (within {tol} abs+rel){rerun}")
     return worst
@@ -742,11 +755,13 @@ def device_ms(fn, calls=20):
     return device_ms_and_launches(fn, calls)[0]
 
 
-def device_ms_and_launches(fn, calls=20):
-    """``device_ms`` and the device operations (kernels, copies, fills) the
-    profiler records per call. Where no session records device time, the
-    time is taken by CUDA events around the calls instead (``cuda_ms``, host
-    time included) and the operations are None: not measured."""
+def device_ms_and_launches(fn, calls=20, names=()):
+    """``device_ms``, the device operations (kernels, copies, fills) the
+    profiler records per call and the device ms a call by kernel name: each
+    of ``names`` sums the kernels whose name holds it, "other" the rest.
+    Where no session records device time, the time is taken by CUDA events
+    around the calls instead (``cuda_ms``, host time included) and the
+    operations and the split are None: not measured."""
     import torch
 
     for _ in range(3):
@@ -760,46 +775,70 @@ def device_ms_and_launches(fn, calls=20):
     _, events = traced(run, f"{calls} calls")
     if not events:
         log("  not measured by the profiler: the time below is by CUDA events")
-        return cuda_ms(fn, iters=calls), None
-    us = sum(e.self_device_time_total for e in events)
-    return us / calls / 1e3, sum(e.count for e in events) / calls
+        return cuda_ms(fn, iters=calls), None, None
+    by = dict.fromkeys((*names, "other"), 0.0)
+    for e in events:
+        key = next((n for n in names if n in e.key), "other")
+        by[key] += e.self_device_time_total / calls / 1e3
+    return sum(by.values()), sum(e.count for e in events) / calls, by
 
 
-def time_attention():
-    """Phase 4: #3 and #4 at the ImageNet-64 training shape (N=32, 9 heads,
-    S=256, D=64), bf16, beside their plain versions and the library
-    yardsticks: ``F.scaled_dot_product_attention`` on the same q, k, v for #3
-    and the backward alone of autograd through it for #4. Kernel and library
-    are timed in turns (kernel, library, library, kernel), by device time
-    (``device_ms``: what the JSON record keeps) and by CUDA events around 20
-    eager calls (host time included where the host is slower than the card).
-    #4 takes dq and dk as three exact bf16 products; its f32 FMA variant is
-    timed in the same turns, the A/B behind that choice."""
+def time_attention(shape=ATTN_SHAPES[0]):
+    """Phase 4: #3 and #4 at an ImageNet-64 training shape (by default the
+    16x16 blocks', N=32, 9 heads, S=256, D=64), bf16, beside their plain
+    versions and the library yardsticks: ``F.scaled_dot_product_attention``
+    on the same q, k, v for #3 and the backward alone of autograd through it
+    for #4. Kernel and library are timed in turns (kernel, library, library,
+    kernel), by device time (``device_ms``: what the JSON record keeps; the
+    kernel's also by kernel name) and by CUDA events around 20 eager calls
+    (host time included where the host is slower than the card). #4 takes dq
+    and dk as three exact bf16 products; its f32 FMA variant is timed in the
+    same turns, the A/B behind that choice. Above S = 256 #4 takes the rows'
+    statistics the forward kept, as the autograd Function does, and is timed
+    without them in the same turns too; a shape beyond the gate (the 32x32
+    blocks', on the streamed route) also times the plain composition's
+    forward and backward through autograd, what such blocks ran before."""
     import torch
     import torch.nn.functional as F
     from cfm_tpu_torch.ops import attention as att
 
-    N, H, S, D = ATTN_SHAPES[0]
+    N, H, S, D = shape
     scale = 1.0 / math.sqrt(D)
     qkv, do = attention_inputs(N, H, S, D, torch.bfloat16)
     q, k, v = (t.detach().requires_grad_() for t in qkv.unbind(1))
     y = F.scaled_dot_product_attention(q, k, v)
+    saved = None
+    if S > 256:
+        saved = torch.empty((2, N, H, S), dtype=torch.float32, device="cuda")
+        with torch.no_grad():
+            att._forward(qkv, scale, saved)
     fns = {"attention_fwd": (lambda: att.attention_t(qkv, scale),
                              lambda: F.scaled_dot_product_attention(q.detach(), k.detach(),
                                                                     v.detach())),
-           "attention_bwd": (lambda: att.attention_t_bwd(qkv, do, scale),
+           "attention_bwd": (lambda: att.attention_t_bwd(qkv, do, scale, saved),
                              lambda: torch.autograd.grad(y, (q, k, v), do, retain_graph=True))}
-    fma = lambda: att._backward(qkv, do, scale, split=False)
+    names = {"attention_fwd": ("attention_resident", "attention_streamed"),
+             "attention_bwd": ("attention_bwd_rows", "attention_bwd_cols")}
+    variants = {"fma": ("the FMA variant of dq and dk",
+                        lambda: att._backward(qkv, do, scale, split=False))}
+    if saved is not None:
+        variants["unsaved"] = ("without the forward's statistics",
+                               lambda: att.attention_t_bwd(qkv, do, scale))
+    route = "" if att.gate(H, S, D, torch.bfloat16) else " (streamed route)"
     out = {}
     for name, (kernel, library) in fns.items():
-        turns = {"kernel": [], "library": [], "fma": []}
+        extra = variants if name == "attention_bwd" else {}
+        turns = {who: [] for who in ("kernel", "library", *extra)}
+        by_kernel = []
         for who in ("kernel", "library", "library", "kernel"):
             fn = kernel if who == "kernel" else library
-            turns[who].append((device_ms(fn), cuda_ms(fn)))
-            if name == "attention_bwd" and who == "kernel":
-                turns["fma"].append((device_ms(fma), cuda_ms(fma)))
-        mean = {who: [sum(t[i] for t in ts) / len(ts) for i in (0, 1)]
-                for who, ts in turns.items() if ts}
+            ms, _, by = device_ms_and_launches(fn, names=names[name] if who == "kernel" else ())
+            turns[who].append((ms, cuda_ms(fn)))
+            if who == "kernel":
+                by_kernel.append(by)
+                for var, (_, f) in extra.items():
+                    turns[var].append((device_ms(f), cuda_ms(f)))
+        mean = {who: [sum(t[i] for t in ts) / len(ts) for i in (0, 1)] for who, ts in turns.items()}
         with torch.no_grad():
             plain = (att.attn_reference_t if name == "attention_fwd"
                      else att.attention_t_bwd_reference)
@@ -811,18 +850,28 @@ def time_attention():
                          bound_by=bound_by)
         fmt = lambda ts: ", ".join(f"{a:.4f}" for a, _ in ts)
         eager = lambda ts: ", ".join(f"{b:.4f}" for _, b in ts)
-        line = (f"{name} timing N={N} H={H} S={S} D={D} bf16, device time: kernel {ms:.4f} ms "
-                f"({fmt(turns['kernel'])}; {100 * bound_ms / ms:.1f}% of the {bound_ms:.4f} ms "
-                f"bound by {bound_by}), library {lib_ms:.4f} ms ({fmt(turns['library'])}), "
-                f"kernel / library {ms / lib_ms:.3f}")
-        if turns["fma"]:
-            line += (f"; the FMA variant of dq and dk {mean['fma'][0]:.4f} ms "
-                     f"({fmt(turns['fma'])}), split / FMA {ms / mean['fma'][0]:.3f}")
+        split = ""
+        if None not in by_kernel:
+            split = "; " + ", ".join(f"{n} {sum(b[n] for b in by_kernel) / len(by_kernel):.4f}"
+                                     for n in by_kernel[0] if any(b[n] for b in by_kernel))
+        line = (f"{name} timing N={N} H={H} S={S} D={D} bf16{route}, device time: kernel "
+                f"{ms:.4f} ms ({fmt(turns['kernel'])}{split}; {100 * bound_ms / ms:.1f}% of the "
+                f"{bound_ms:.4f} ms bound by {bound_by}), library {lib_ms:.4f} ms "
+                f"({fmt(turns['library'])}), kernel / library {ms / lib_ms:.3f}")
+        for var, (label, _) in extra.items():
+            line += (f"; {label} {mean[var][0]:.4f} ms ({fmt(turns[var])}), kernel / {var} "
+                     f"{ms / mean[var][0]:.3f}")
         line += (f"; eager, 20 calls between CUDA events: kernel {eager(turns['kernel'])}, "
                  f"library {eager(turns['library'])}")
-        if turns["fma"]:
-            line += f", FMA {eager(turns['fma'])}"
+        for var in extra:
+            line += f", {var} {eager(turns[var])}"
         log(line + f" ms; plain {plain_ms:.4f} ms")
+    if route:
+        leaf = qkv.clone().requires_grad_()
+        ms = cuda_ms(lambda: torch.autograd.grad(att.attn_reference_t(leaf, scale), leaf, do),
+                     iters=3, warmup=1)
+        log(f"attention N={N} H={H} S={S} D={D} bf16: the plain composition's forward and "
+            f"backward through autograd {ms:.3f} ms (CUDA events)")
     return out
 
 
@@ -921,7 +970,7 @@ def time_auction():
     for cost in (coupling_cost(), twod_cost()):
         n = cost.shape[0]
         ms = cuda_ms(lambda: fn(cost))
-        dev_ms, ops = device_ms_and_launches(lambda: fn(cost))
+        dev_ms, ops, _ = device_ms_and_launches(lambda: fn(cost))
         rounds, scans = int(fn.last_rounds.item()), int(fn.last_row_scans.item())
         plain_ms = cuda_ms(lambda: au.auction_assignment_onehot(cost), iters=2, warmup=1)
         c = cost.double().cpu().numpy()
@@ -1095,7 +1144,7 @@ def time_attn_block_bwd(N=TRAIN_BATCH, S=256, C=256, H=4, G=32):
     ops = []
     for who in ("kernel", "library", "library", "kernel"):
         fn = kernel if who == "kernel" else library
-        ms, n_ops = device_ms_and_launches(fn)
+        ms, n_ops, _ = device_ms_and_launches(fn)
         turns[who].append((ms, cuda_ms(fn)))
         if who == "kernel":
             ops.append(n_ops)
@@ -2215,7 +2264,7 @@ def imagenet_training(model, warmup=3, profiled=3):
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches {launches}")
     if not all(math.isfinite(v) for v in values):
         raise AssertionError(f"non-finite imagenet64 training loss: {values}")
-    per_step = dict(auction=1, attention_fwd=7, attention_bwd=7, attn_block_fwd=8,
+    per_step = dict(auction=1, attention_fwd=14, attention_bwd=14, attn_block_fwd=8,
                     attn_block_bwd=8, gn_silu_fwd=GN_PER_EVAL["imagenet64"],
                     gn_silu_bwd=GN_PER_EVAL["imagenet64"])
     want = {k: per_step.get(k, 0) * IMAGENET_STEPS for k in launches}
@@ -2384,8 +2433,8 @@ def time_flash_sinkhorn():
     la = torch.full((n,), 1.0 / n, device="cuda").log()
     lb = torch.full((m,), 1.0 / m, device="cuda").log()
     ms = cuda_ms(lambda: fn(x, y, la, lb, SF2M_REG, FLASH_CAP, FLASH_TOL), iters=20, warmup=3)
-    dev_ms, ops = device_ms_and_launches(lambda: fn(x, y, la, lb, SF2M_REG, FLASH_CAP,
-                                                    FLASH_TOL))
+    dev_ms, ops, _ = device_ms_and_launches(lambda: fn(x, y, la, lb, SF2M_REG, FLASH_CAP,
+                                                       FLASH_TOL))
     iters = int(fn.last_iters.item())
     t0 = time.perf_counter()
     _, _, p_it = fs.flash_sinkhorn_reference(x, y, la, lb, SF2M_REG, FLASH_CAP, FLASH_TOL)
@@ -3224,7 +3273,7 @@ def checkpointing(imagenet, smi):
     gn_i = GN_PER_EVAL["imagenet64"]
     out["imagenet64 checkpointing"] = checkpoint_runs(
         "imagenet64", imagenet_steps, reset_imagenet, imagenet,
-        lambda use: dict(auction=1, attention_fwd=14 if use else 7, attention_bwd=7,
+        lambda use: dict(auction=1, attention_fwd=28 if use else 14, attention_bwd=14,
                          attn_block_fwd=16 if use else 8, attn_block_bwd=8,
                          gn_silu_fwd=2 * gn_i - 1 if use else gn_i, gn_silu_bwd=gn_i), smi)
     x1 = normalize_images(images[:B])
@@ -4917,6 +4966,7 @@ def main() -> int:
     timing_bwd = time_attn_block_bwd()
     time_attn_block_bwd(IMAGENET_BATCH, S=64, C=768, H=12)
     timing_attn = time_attention()
+    timing_attn_long = time_attention(ATTN_SHAPES[3])
     timing_auction = time_auction()
     timing_tiled = time_auction_tiled(tiled_plain_s)
     timing_gn = time_gn(gn_paths)
@@ -4999,10 +5049,10 @@ def main() -> int:
              replaces="cfm_tpu/ops/pallas_attn_block.py:111", max_abs_err=err_bwd, **timing_bwd),
         dict(name="attention_fwd", route="cuda", source=src + "attention_fwd.cu",
              replaces="cfm_tpu/ops/pallas_attention.py:69", max_abs_err=err_attn["fwd"],
-             **timing_attn["attention_fwd"]),
+             **timing_attn["attention_fwd"], at_32x32=timing_attn_long["attention_fwd"]),
         dict(name="attention_bwd", route="cuda", source=src + "attention_bwd.cu",
              replaces="cfm_tpu/ops/pallas_attention.py:90", max_abs_err=err_attn["bwd"],
-             **timing_attn["attention_bwd"]),
+             **timing_attn["attention_bwd"], at_32x32=timing_attn_long["attention_bwd"]),
         dict(name="auction", route="cuda", source=src + "auction.cu",
              replaces="cfm_tpu/ops/pallas_auction.py:67", max_abs_err=0.0,
              **timing_auction),
@@ -5018,10 +5068,10 @@ def main() -> int:
              replaces="cfm_tpu/ops/flash_sinkhorn.py:54", max_abs_err=err_flash, **timing_flash),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+            "bound_ms", "bound_by", "library_ms", "at_32x32")
     for k in kernels:
         k["launches"] = total[k["name"]]
-    kernels = [{key: k[key] for key in keys} for k in kernels]
+    kernels = [{key: k[key] for key in keys if key in k} for k in kernels]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -6,7 +6,10 @@ alone on one CUDA card, each timed, with what it logs and returns:
     python3 probes/phases.py             # every phase of the table
 
 The table: 3 (the GroupNorm kernels at ``ResNetDiffEq``'s shapes and
-beyond the strip, and phase 4's timing at 256x256 float32), 18 (the
+beyond the strip, and phase 4's timing at 256x256 float32), 4 (the
+multi-head attention kernels #3 and #4 checked against their plain
+versions and timed, at the ImageNet-64 16x16 and 32x32 shapes), 11-12
+(ImageNet-64 generation and training, with their launch counts), 18 (the
 presets as given), 19-22 (SDE generation, activation checkpointing, tsit5
 and the continuous adjoint), 23-26 (the single-cell path), 27-31 (the
 research variants), 32-33 (data parallelism; 32 prints its step beside
@@ -43,17 +46,25 @@ def table(smi, need):
             check()
         return joint, launches, w2
 
-    def imagenet_checkpointing():
-        model = cs.seeded_model(cs.IMAGENET64, torch.bfloat16, "cuda", seed=0, dropout=0.1)
-        return cs.checkpointing(model, smi)
+    models = {}
+
+    def imagenet():
+        if "imagenet" not in models:
+            models["imagenet"] = cs.seeded_model(cs.IMAGENET64, torch.bfloat16, "cuda", seed=0,
+                                                 dropout=0.1)
+        return models["imagenet"]
 
     return {
         "3": lambda: [cs.check_gn_diffeq(), cs.check_gn_diffeq(6), cs.check_gn_beyond(),
                       cs.time_gn_beyond(smi)],
+        "4": lambda: (cs.check_attention(), cs.time_attention(),
+                      cs.time_attention(cs.ATTN_SHAPES[3])),
+        "11": lambda: cs.imagenet_generation(imagenet()),
+        "12": lambda: cs.imagenet_training(imagenet()),
         "18": lambda: cs.presets_as_given(cifar, smi),
         "19": lambda: cs.mnist_sde(smi),
         "20": lambda: cs.sf2m_sde(smi),
-        "21": imagenet_checkpointing,
+        "21": lambda: cs.checkpointing(imagenet(), smi),
         "22": lambda: (cs.tsit5_generation(DOPRI5, smi),
                        cs.adjoint_gradients(need("19")[0], smi)),
         "23": lambda: cs.single_cell_synthetic(smi),

@@ -8,7 +8,9 @@ The run prints its own result line as ``python3 -m cfmbench.run`` does. With
 ``--trace 0`` that line is what the spans cost, against a run of the
 benchmark's own command with the same arguments (spans off). With
 ``--trace 1`` the card-only session's operations are kept as well, and a
-line ``{"spans": {...}}`` follows on standard output: the train cell's five
+line ``{"spans": {...}}`` follows on standard output: every counter's mean
+count a root (a train step, a generated batch; ``attn.streamed_route`` and
+``attn.plain`` say which route the attention calls took), the train cell's five
 ``span_*_ms.train`` (device ms a traced step, by the span that launched
 each operation) beside the session's device ms a step, or the generation
 cell's ``rejected_steps_per_batch.gen`` and ``control_idle_ms_per_batch.gen``
@@ -100,10 +102,12 @@ def summarize(result: dict, kept: dict, spans, counters, driver: str) -> dict:
     runtime = [o for o in ops if o.runtime]
     device_s = sum((o.end - o.start) * 1e-9 for o in ops if o.device)
     place = bench_spans.place(ops, spans)
+    roots = sum(s.parent < 0 for s in spans)
     out = {"traced_steps": steps, "runtime_calls": len(runtime),
            "device_ms_per_step": 1e3 * device_s / steps if steps else None,
            "placed_ms_by_span": {k: 1e3 * v / max(steps, 1) for k, v in place.by_name.items()},
-           "unlinked_ms": 1e3 * place.unlinked_s, "roots": sum(s.parent < 0 for s in spans)}
+           "unlinked_ms": 1e3 * place.unlinked_s, "roots": roots,
+           "counts_per_root": {k: sum(v.values()) / max(roots, 1) for k, v in counters.items()}}
     if driver == "train":
         ms = bench_spans.train_span_ms(ops, spans, steps)
         out.update(ms)

@@ -8,8 +8,9 @@ of the same, whose backward is ``_bwd_kernel`` in interpret mode. float32
 within 1e-5 of the output's max-abs (summation order only); bfloat16 within
 one bf16 rounding step (both sides round the same float32 value, whose two
 summation orders may straddle a rounding boundary). The routing gate must
-equal JAX's ``_gate``. The CUDA kernels are held against the plain versions
-by the ``cuda``-marked tests, which skip without a card; the JAX package is
+equal JAX's ``_gate``; shapes it refuses take the plain composition, except
+in bf16 on CUDA where ``streamed_route`` admits them. The CUDA kernels are
+held against the plain versions by the ``cuda``-marked tests, which skip without a card; the JAX package is
 imported inside the tests that use it, so those also run where only PyTorch
 is installed: ``python -m pytest tests/test_torch_attention.py -m cuda -q``.
 """
@@ -150,6 +151,52 @@ def test_autograd_backward_on_cpu_is_the_plain_backward():
     assert torch.equal(small.grad, ref.grad)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streamed_route_admits_bf16_tensor_core_shapes_beyond_the_gate(dtype):
+    """The CUDA-only predicate: bf16 at head dims 64 and 128 with S a
+    multiple of 64 above 256 (where the kernels stream K and V); never
+    float32. The ImageNet-64 32x32 blocks, which the gate refuses, take it
+    in bf16."""
+    for S in (64, 200, 256, 320, 384, 896, 1000, 1024, 2048):
+        for D in (32, 64, 128, 192):
+            want = dtype == torch.bfloat16 and D in (64, 128) and S % 64 == 0 and S > 256
+            assert tatt.streamed_route(S, D, dtype) == want, (S, D)
+    assert not tatt.gate(6, 1024, 64, dtype)
+    assert tatt.streamed_route(1024, 64, dtype) == (dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_keeps_the_plain_composition_beyond_the_gate(dtype):
+    """On the CPU a shape the gate refuses takes the plain composition with
+    autograd through it, as in the JAX package, whatever ``streamed_route``
+    says: the same bits as :func:`attn_reference_t` forward and backward, no
+    launch, and neither route counter (they count CUDA calls)."""
+    from cfm_tpu_torch import profiling
+
+    N, H, S, D = 1, 2, 1024, 64
+    qkv_t = torch.from_numpy(_qkv_t(N, H, S, D, seed=5)).to(dtype)
+    do = torch.from_numpy(np.random.default_rng(6).standard_normal((N, H, S, D))
+                          .astype(np.float32)).to(dtype)
+    assert not tatt.gate(H, S, D, dtype)
+    before = (tatt.attention_t.launches, tatt.attention_t_bwd.launches)
+    leaf = qkv_t.clone().requires_grad_()
+    was = profiling.enable_spans(True)
+    profiling.drain()
+    try:
+        with profiling.span("test.attention"):
+            out = tatt.attention_t(leaf, 0.125)
+        _, counts = profiling.drain()
+    finally:
+        profiling.enable_spans(was)
+    out.backward(do)
+    ref_leaf = qkv_t.clone().requires_grad_()
+    ref = tatt.attn_reference_t(ref_leaf, 0.125)
+    ref.backward(do)
+    assert torch.equal(out, ref) and torch.equal(leaf.grad, ref_leaf.grad)
+    assert (tatt.attention_t.launches, tatt.attention_t_bwd.launches) == before
+    assert "attn.streamed_route" not in counts and "attn.plain" not in counts
+
+
 def test_wrappers_reject_bad_inputs():
     qkv_t = torch.zeros(1, 3, 1, 128, 64)
     with pytest.raises(ValueError, match="N, 3, H, S, D"):
@@ -167,9 +214,18 @@ def _card_inputs(N, H, S, D, dtype, seed=0):
     return qkv_t, do
 
 
-# The last two are the gate's edges, which take the two-pass routes.
+# Then the gate's edges, which take the two-pass routes, an odd number of
+# tiles there, and four shapes
+# beyond the gate that take them in bf16 through ``streamed_route`` (the
+# ImageNet-64 32x32 blocks' heads, D = 128, a longer S, an odd tile count).
 _CARD_SHAPES = [(4, 1, 128, 64), (2, 2, 512, 64), (8, 9, 256, 64), (2, 2, 256, 128),
-                (2, 2, 896, 64), (1, 1, 768, 128)]
+                (2, 2, 896, 64), (1, 1, 768, 128), (2, 2, 576, 64), (4, 6, 1024, 64),
+                (2, 2, 1024, 128), (1, 2, 2048, 64), (1, 2, 1088, 64)]
+
+
+def _on_kernels(H, S, D, dtype):
+    """Whether a CUDA call of :func:`attention_t` runs the kernels."""
+    return tatt.gate(H, S, D, dtype) or tatt.streamed_route(S, D, dtype)
 
 
 @pytest.mark.cuda
@@ -181,7 +237,7 @@ def test_forward_kernel_matches_plain_on_cuda(N, H, S, D, dtype, tol):
     from cfm_tpu_torch.device import strict_f32
 
     qkv_t, _ = _card_inputs(N, H, S, D, _DTYPES[dtype][1])
-    gated = tatt.gate(H, S, D, qkv_t.dtype)  # (2, 2, 896, 64) passes in bf16 only
+    gated = _on_kernels(H, S, D, qkv_t.dtype)  # in bf16 only from S = 896
     before = tatt.attention_t.launches
     with torch.no_grad(), strict_f32():
         out = tatt.attention_t(qkv_t, 1.0 / math.sqrt(D))
@@ -203,7 +259,7 @@ def test_backward_kernel_matches_plain_on_cuda(N, H, S, D, dtype, tol):
     from cfm_tpu_torch.device import strict_f32
 
     qkv_t, do = _card_inputs(N, H, S, D, _DTYPES[dtype][1], seed=1)
-    gated = tatt.gate(H, S, D, qkv_t.dtype)
+    gated = _on_kernels(H, S, D, qkv_t.dtype)
     leaf = qkv_t.clone().requires_grad_()
     before = tatt.attention_t_bwd.launches
     with strict_f32():
@@ -223,8 +279,8 @@ def test_backward_kernel_matches_plain_on_cuda(N, H, S, D, dtype, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,H,S,D", _CARD_SHAPES)
 def test_forward_kernel_rerun_gives_the_same_bits_on_cuda(N, H, S, D):
-    """The bf16 forward (every card shape passes the gate in bf16) sums in a
-    fixed order: a second call on the same inputs gives the same bits, and
+    """The bf16 forward (every card shape takes the kernels in bf16) sums in
+    a fixed order: a second call on the same inputs gives the same bits, and
     both launch the kernel."""
     if not torch.cuda.is_available():
         pytest.skip("the attention kernel runs only on a CUDA device")
@@ -250,6 +306,33 @@ def test_backward_kernel_rerun_gives_the_same_bits_on_cuda(N, H, S, D):
     second = tatt.attention_t_bwd(qkv_t, do, 1.0 / math.sqrt(D))
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,S,D", [sh for sh in _CARD_SHAPES if sh[2] > 256])
+def test_backward_from_the_forwards_statistics_gives_the_same_bits_on_cuda(N, H, S, D):
+    """Above S = 256 the forward kernel keeps the rows' max and sum and the
+    backward's rows kernel takes them in place of its pass 0: dqkv has the
+    same bits with and without them, and the autograd Function, which passes
+    them, gives those bits too."""
+    if not torch.cuda.is_available():
+        pytest.skip("the attention kernels run only on a CUDA device")
+    qkv_t, do = _card_inputs(N, H, S, D, torch.bfloat16, seed=4)
+    scale = 1.0 / math.sqrt(D)
+    saved = torch.full((2, N, H, S), float("nan"), device="cuda")
+    with torch.no_grad():
+        out = tatt._forward(qkv_t, scale, saved)
+        plain_out = tatt._forward(qkv_t, scale)
+    with_saved = tatt.attention_t_bwd(qkv_t, do, scale, saved)
+    without = tatt.attention_t_bwd(qkv_t, do, scale)
+    leaf = qkv_t.clone().requires_grad_()
+    tatt.attention_t(leaf, scale).backward(do)
+    torch.cuda.synchronize()
+    assert torch.isfinite(saved).all()
+    assert torch.equal(out, plain_out)
+    assert torch.equal(with_saved, without) and torch.equal(leaf.grad, without)
+    with pytest.raises(ValueError, match="saved must be"):
+        tatt.attention_t_bwd(qkv_t, do, scale, saved[:, :, :, :64])
+
 
 # ---------------------------------------------------------------------------
 # A torch model of the Hopper kernels' tiling (csrc/attention_fwd.cu,

@@ -5,17 +5,25 @@ routing: at 8x8 with C=128 the attention blocks pass the fused-block gate
 (the JAX side runs its block kernel in Pallas interpret mode, the port its
 plain version), while ``mid_attn`` at 4x4 (S=16) takes the composition on
 both sides. Every parameter, zero-initialised ones included, is randomised.
+The ``cuda``-marked test holds the 32x32 ImageNet-64 block's streamed route
+against the plain composition on the card, whose machine has no JAX:
+``python -m pytest tests/test_torch_unet.py -m cuda -q``.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from cfm_tpu.models import unet as junet
-from cfm_tpu.ops import pallas_attn_block as pab
-from cfm_tpu.ops.pallas_groupnorm import _gn_silu_reference
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from cfm_tpu.models import unet as junet
+    from cfm_tpu.ops import pallas_attn_block as pab
+    from cfm_tpu.ops.pallas_groupnorm import _gn_silu_reference
+except ImportError:  # the card's machine: only the cuda-marked test runs there
+    jax = jnp = junet = pab = _gn_silu_reference = None
+
 from cfm_tpu_torch.models import unet as tunet
 from cfm_tpu_torch.models.convert import unet_params_from_flax
 from cfm_tpu_torch.ops.groupnorm import gn_silu_reference
@@ -432,3 +440,59 @@ def test_encoder_attention_pool_needs_head_channels():
         tunet.EncoderUNetModel(**kw, image_size=8)
     with pytest.raises(ValueError, match="Unknown pool"):
         tunet.EncoderUNetModel(**dict(_ENCODER, pool="max"))
+
+
+@pytest.mark.cuda
+def test_imagenet64_32x32_attention_block_takes_the_streamed_route_on_cuda(monkeypatch):
+    """An AttentionBlock at ImageNet-64's 32x32 widths (S = 1024, C = 384, 6
+    heads of 64) in bf16 on the card: its forward launches #3 and its
+    backward #4 once each, on the streamed route, and counts one
+    ``attn.streamed_route`` and no ``attn.plain``; its output and its
+    gradients agree with the same block on the plain composition within
+    3e-2 of each one's max-abs (the bf16 tolerance of the forward tests)."""
+    if not torch.cuda.is_available():
+        pytest.skip("the attention kernels run only on a CUDA device")
+    from cfm_tpu_torch import profiling
+    from cfm_tpu_torch.ops import attention as tatt
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    r = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    block = tunet.AttentionBlock(384, num_head_channels=64, dtype=torch.bfloat16).cuda()
+    with torch.no_grad():
+        block.GroupNorm32_0.weight.copy_(1 + 0.1 * r(384))
+        block.GroupNorm32_0.bias.copy_(0.1 * r(384))
+        block.qkv_weight.copy_(r(384, 3 * 384) / 384 ** 0.5)
+        block.qkv_bias.copy_(0.1 * r(3 * 384))
+        block.proj_weight.copy_(r(384, 384) / 384 ** 0.5)
+        block.proj_bias.copy_(0.1 * r(384))
+    x, dy = r(4, 32, 32, 384).to(torch.bfloat16), r(4, 32, 32, 384).to(torch.bfloat16)
+
+    def run():
+        block.zero_grad(set_to_none=True)
+        leaf = x.clone().requires_grad_()
+        y = block(leaf)
+        y.backward(dy)
+        return [y, leaf.grad] + [p.grad for p in block.parameters()]
+
+    before = (tatt.attention_t.launches, tatt.attention_t_bwd.launches)
+    was = profiling.enable_spans(True)
+    profiling.drain()
+    try:
+        with profiling.span("test.block"):
+            got = run()
+        torch.cuda.synchronize()
+        _, counts = profiling.drain()
+    finally:
+        profiling.enable_spans(was)
+    assert (tatt.attention_t.launches, tatt.attention_t_bwd.launches) == (before[0] + 1,
+                                                                            before[1] + 1)
+    assert sum(counts["attn.streamed_route"].values()) == 1 and "attn.plain" not in counts
+    monkeypatch.setattr(tunet, "attention_t", tatt.attn_reference_t)
+    want = run()
+    torch.cuda.synchronize()
+    assert (tatt.attention_t.launches, tatt.attention_t_bwd.launches) == (before[0] + 1,
+                                                                            before[1] + 1)
+    for a, b in zip(got, want):
+        a, b = a.detach().float().cpu().numpy(), b.detach().float().cpu().numpy()
+        scale = np.abs(b).max()
+        np.testing.assert_allclose(a / scale, b / scale, atol=3e-2, rtol=3e-2)
